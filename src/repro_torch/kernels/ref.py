@@ -1,0 +1,144 @@
+"""Plain PyTorch versions of the port's kernels: the semantic ground truth.
+
+Each function mirrors its namesake in the JAX package's ``kernels/ref.py``.
+``ops`` runs these for tensors on the CPU; on the card it launches the
+hand-written kernels, and ``chip_smoke.py`` holds each kernel against its
+plain version here on the same CUDA tensors.
+
+Two JAX behaviours need explicit care in PyTorch:
+  * ``jax.nn.one_hot`` maps an out-of-range label to a zero row, where
+    ``torch.nn.functional.one_hot`` raises; ``_one_hot`` compares instead.
+  * ``jax.ops.segment_sum/segment_min`` drop out-of-range ids, where
+    ``index_add_``/``scatter_reduce_`` raise; ``common.segment_*`` mask first.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.common import segment_min, segment_sum
+
+# "No member seen": min-reducible and finite, so arithmetic stays finite.
+BIG = float(torch.finfo(torch.float32).max)
+# "No row seen" in segmented argmin folds.
+BIG_I = int(torch.iinfo(torch.int32).max)
+# Masked similarity: every real similarity beats it.
+NEG = float(torch.finfo(torch.float32).min)
+
+
+def _sims(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(n, d) x (m, d) -> (n, m) f32 dot products (f32 accumulation)."""
+    return a.float() @ b.float().T
+
+
+def _one_hot(idx: torch.Tensor, k: int, w: torch.Tensor | None) -> torch.Tensor:
+    """(n, k) f32 one-hot, zero rows for labels outside [0, k), scaled by w."""
+    bins = torch.arange(k, device=idx.device)
+    hot = (idx.long()[:, None] == bins[None, :]).float()
+    if w is not None:
+        hot = hot * w.float()[:, None]
+    return hot
+
+
+def assign_argmax(
+    x: torch.Tensor, centers: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Nearest center by dot product: ((n,) int32 index, ties -> lowest;
+    (n,) f32 similarity)."""
+    sims = _sims(x, centers)
+    return torch.argmax(sims, dim=1).int(), torch.amax(sims, dim=1)
+
+
+def assign_stats(
+    x: torch.Tensor, centers: torch.Tensor, w: torch.Tensor | None = None
+) -> tuple[torch.Tensor, ...]:
+    """One-hot oracle of the fused pass: (idx, best_sim, sums, counts,
+    min_sim, sumsq). Weight-0 rows count nowhere; empty clusters get BIG."""
+    k = centers.shape[0]
+    idx, best_sim = assign_argmax(x, centers)
+    hot = _one_hot(idx, k, w)
+    xf = x.float()
+    sums = hot.T @ xf
+    counts = hot.sum(dim=0)
+    sumsq = hot.T @ (xf * xf).sum(dim=1)
+    member = torch.where(hot > 0, best_sim[:, None], BIG)
+    if x.shape[0]:
+        min_sim = member.amin(dim=0)
+    else:
+        min_sim = torch.full((k,), BIG, device=x.device)
+    min_sim = torch.where(counts > 0, min_sim, BIG)
+    return idx, best_sim, sums, counts, min_sim, sumsq
+
+
+def assign_stats_scatter(
+    x: torch.Tensor, centers: torch.Tensor, w: torch.Tensor | None = None
+) -> tuple[torch.Tensor, ...]:
+    """The fused pass with segment reductions: O(n*d) adds instead of the
+    oracle's O(n*k*d). Same contract as ``assign_stats``."""
+    k = centers.shape[0]
+    idx, best_sim = assign_argmax(x, centers)
+    xf = x.float()
+    rowsq = (xf * xf).sum(dim=1)
+    if w is not None:
+        wf = w.float()
+        xf = xf * wf[:, None]
+        rowsq = rowsq * wf
+        counts = segment_sum(wf, idx, k)
+        sim_m = torch.where(wf > 0, best_sim, BIG)
+    else:
+        counts = segment_sum(torch.ones_like(best_sim), idx, k)
+        sim_m = best_sim
+    sums = segment_sum(xf, idx, k)
+    sumsq = segment_sum(rowsq, idx, k)
+    min_sim = torch.where(counts > 0, segment_min(sim_m, idx, k), BIG)
+    return idx, best_sim, sums, counts, min_sim, sumsq
+
+
+def label_stats(
+    x: torch.Tensor, idx: torch.Tensor, k: int, w: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One-hot oracle: ((k, d) per-label weighted sums, (k,) weight totals).
+    Labels outside [0, k) and weight-0 rows contribute nothing."""
+    hot = _one_hot(idx, k, w)
+    return hot.T @ x.float(), hot.sum(dim=0)
+
+
+def label_stats_scatter(
+    x: torch.Tensor, idx: torch.Tensor, k: int, w: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``label_stats`` with segment reductions (O(n*d) adds)."""
+    xf = x.float()
+    if w is not None:
+        wf = w.float()
+        xf = xf * wf[:, None]
+    else:
+        wf = torch.ones((x.shape[0],), dtype=torch.float32, device=x.device)
+    return segment_sum(xf, idx, k), segment_sum(wf, idx, k)
+
+
+def best_edge(
+    sim: torch.Tensor, labels_row: torch.Tensor, labels_col: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row best cross-component edge of a similarity block.
+
+    A column is a candidate iff its label differs from the row's and both
+    are >= 0 (negative labels mark padding). Returns ((r,) int32 column,
+    ties -> lowest, -1 if none; (r,) f32 similarity, NEG if none)."""
+    lr = labels_row[:, None]
+    lc = labels_col[None, :]
+    cross = (lr != lc) & (lr >= 0) & (lc >= 0)
+    masked = torch.where(cross, sim.float(), NEG)
+    best_s = torch.amax(masked, dim=1)
+    best_j = torch.argmax(masked, dim=1).int()
+    return torch.where(best_s == NEG, -1, best_j).int(), best_s
+
+
+def sim_best_edge(
+    xs_rows: torch.Tensor,
+    xs_all: torch.Tensor,
+    labels_row: torch.Tensor,
+    labels_col: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``best_edge(xs_rows @ xs_all.T, ...)``: this version does build the
+    (r, c) similarity block; the kernel never does."""
+    return best_edge(_sims(xs_rows, xs_all), labels_row, labels_col)
