@@ -5,29 +5,44 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
 
 Phases, in order; any failure raises and exits non-zero:
   1. Device: the card's name and power limit; build the CUDA kernels from
-     src/repro_torch/kernels/csrc with nvcc.
+     src/repro_torch/kernels/csrc with nvcc (one process per source).
   2. Kernel parity: each kernel against its plain PyTorch version on the same
-     CUDA tensors, at the main path's shapes and on integer-valued edge cases
+     CUDA tensors, at the main paths' shapes and on integer-valued edge cases
      (ties across tiles, pad labels, weight-0 rows, empty clusters, sizes off
-     the tiles); each kernel runs twice and must repeat its bits.
+     the tiles; for the bounded pass also duplicate centers visited out of id
+     order, sentinel, carried and invalidated bounds); each kernel runs twice
+     and must repeat its bits.
   3. Timing (CUDA events): kernel, plain version, one library call, and the
      card's lower bound for the same work.
-  4. Main path at full size: the ~1 GB collection (n = 250,000, d = 2,048,
-     50 topics), tf-idf on the card, Buckshot with k = 50 (s = 3,536), then
-     the K-Means baseline; every kernel's launch counter must move.
-  5. End-to-end oracle at the 20 Newsgroups shape: the kernel path on the
-     card against the plain path on the CPU, on the same sample.
+  4. Paths at full size on the ~1 GB collection (n = 250,000, d = 2,048,
+     50 topics), each with its launch counters set to 0 just before and read
+     just after: tf-idf on the card, Buckshot with k = 50 (s = 3,536) and the
+     K-Means baseline; then BKC with k = 400, BigK = 800 through the
+     bound-pruned pass, its fused and two-pass routes, bounded against
+     unbounded K-Means at k = 400, bounded Buckshot, and assign_batch in
+     64-row micro-batches.
+  5. End-to-end oracles at the 20 Newsgroups shape: Buckshot (k = 20) and BKC
+     (Table 1: k = 50, BigK = 250) on the card against the plain path on the
+     CPU, on the same draws; BKC also on that collection with 5 % off-topic
+     documents added, where joinToGroups bisects over real pair values
+     (threshold above 1e-3, pair values on both sides of it; thresholds of
+     card and CPU within 1e-5, groups equal but at a near-tie).
   6. Summary: a {"kernels": [...]} line, then {"ok": true, "device": ...} last.
 
 Tolerances. Integer-valued inputs make every product and sum exact in f32, so
-there the kernels must equal the plain versions bit for bit. On real tf-idf
-rows the kernels add in another order than the plain versions, so:
-similarities within 1e-5 absolute (unit-norm rows, d = 2,048); sums, weight
-totals and squared norms within 1e-4 relative + 1e-5 absolute (non-negative
-sums of up to ~10^4 terms); an index may differ only at a near-tie, where the
-plain similarity of the kernel's pick is within 1e-5 of the plain best (such
-rows are counted and printed). End to end: assignment agreement >= 99.9% and
-RSS within 1e-4 relative, for the same reason.
+there the kernels must equal the plain versions bit for bit (the bounded
+pass's hi excepted: where a slab was skipped it is the slab's cone bound, an
+upper bound on the exact second value). On real tf-idf rows the kernels add
+in another order than the plain versions, so: similarities within 1e-5
+absolute; sums, weight totals and squared norms within 1e-4 relative + 1e-5
+absolute (non-negative sums of up to ~10^4 terms); an index may differ only at
+a near-tie, where the plain similarity of the kernel's pick is within 1e-5 of
+the plain best (such rows are counted and printed); a pruned mask only where
+the deflated bounds clear the margin by less than 1e-5. Kernels that compute
+similarities by the same fmaf chain (assign_stats, assign_argmax,
+assign_stats_bounded) must agree with each other bit for bit. End to end:
+assignment agreement >= 99.9% and RSS within 1e-4 relative, for the same
+reason.
 """
 
 from __future__ import annotations
@@ -40,6 +55,8 @@ from pathlib import Path
 
 K = 50  # clusters on the main path
 SEED = 21  # the 1 GB shape's own seed
+BKC_K, BIG_K = 400, 800  # Table 4's BKC width (k = 400, BigK = 2k)
+BATCH = 64  # the online service's max_batch
 SIM_TOL = 1e-5
 SUM_RTOL, SUM_ATOL = 1e-4, 1e-5
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 without tensor cores (data sheet)
@@ -50,12 +67,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def sync_time(fn, *args):
+def sync_time(fn, *args, **kwargs):
     import torch
 
     torch.cuda.synchronize()
     t = time.perf_counter()
-    out = fn(*args)
+    out = fn(*args, **kwargs)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t
 
@@ -361,19 +378,23 @@ def phase_main_path(corpus, dev):
         f"{metrics.purity(base.assignment, truth_t, K, corpus.n_topics).item()}, launches {km_counts}")
     if km_counts["assign_stats"] != base.iterations + 1:
         raise AssertionError(f"kmeans did not go through assign_stats: {km_counts}")
-    return counts
+    return counts, km.assignment, x, truth
 
 
 def profile_buckshot(x, sample_idx):
-    """One warm buckshot_fit under torch.profiler: the device's busy share
-    of the wall time and the device ops that took the most time."""
+    from repro_torch.core.buckshot import buckshot_fit
+
+    profile_run("buckshot_fit", buckshot_fit, x, sample_idx, K)
+
+
+def profile_run(label, fn, *args, **kwargs):
+    """One warm call under torch.profiler: the device's busy share of the
+    wall time and the device ops that took the most time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.buckshot import buckshot_fit
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = sync_time(buckshot_fit, x, sample_idx, K)
+        _, wall = sync_time(lambda: fn(*args, **kwargs))
     # device-side events only (kernels, copies): the ATen rows repeat their
     # kernels' time. One stream, so the events do not overlap.
     rows = sorted(
@@ -383,20 +404,21 @@ def profile_buckshot(x, sample_idx):
     )
     busy = sum(r[0] for r in rows) / 1e6
     if not rows:
-        log("phase 4 profile: the profiler recorded no device time (not measured)")
+        log(f"phase 4 profile {label}: the profiler recorded no device time (not measured)")
         return
     top = "; ".join(f"{key[:60]} x{cnt} {us / 1e3:.3f} ms" for us, cnt, key in rows[:8])
-    log(f"phase 4 profile (warm buckshot_fit, profiled): wall {wall:.4f} s, device busy "
+    log(f"phase 4 profile (warm {label}, profiled): wall {wall:.4f} s, device busy "
         f"{busy:.4f} s ({100 * busy / wall:.1f}%); top device ops: {top}")
 
 
-def check_result(name, km, n, d):
+def check_result(name, km, n, d, k=None):
     import torch
 
+    k = K if k is None else k
     a = km.assignment
-    if a.shape != (n,) or int(a.min()) < 0 or int(a.max()) >= K:
+    if a.shape != (n,) or int(a.min()) < 0 or int(a.max()) >= k:
         raise AssertionError(f"{name}: assignment out of shape or range")
-    if km.centers.shape != (K, d) or not torch.isfinite(km.centers).all():
+    if km.centers.shape != (k, d) or not torch.isfinite(km.centers).all():
         raise AssertionError(f"{name}: centers not finite or of the wrong shape")
     norms = km.centers.norm(dim=1)
     if not (((norms - 1).abs() < 1e-4) | (norms == 0)).all():
@@ -430,6 +452,464 @@ def phase_oracle(dev):
         raise AssertionError("the card's Buckshot disagrees with the plain CPU path")
 
 
+# ------------------------------------------------------------ the BKC slice
+
+
+def _sentinel(n, dev):
+    from repro_torch.kernels import ops
+
+    return ops.bounds_identity(n, dev)
+
+
+def check_bounded_hi(name, hi, exact, rows=None) -> None:
+    """hi is an upper bound on the exact second value (the cone bound of a
+    skipped slab, or the kernel's own second value, which may differ from
+    the plain one by rounding)."""
+    if rows is not None:
+        hi, exact = hi[rows], exact[rows]
+    slack = SIM_TOL * (1 + exact.abs())
+    if not (hi >= exact - slack).all():
+        raise AssertionError(f"{name}: hi is below the exact second value")
+
+
+def plain_stats(x, idx, sim, k, w=None):
+    """(sums, counts, min_sim, sumsq) of the rows under the given labels, by
+    plain segment reductions."""
+    import torch
+
+    from repro_torch.common import segment_min, segment_sum
+    from repro_torch.kernels import ref
+
+    if w is None:
+        w = torch.ones((x.shape[0],), device=x.device)
+    counts = segment_sum(w, idx, k)
+    return (
+        segment_sum(x * w[:, None], idx, k),
+        counts,
+        torch.where(counts > 0, segment_min(torch.where(w > 0, sim, ref.BIG), idx, k), ref.BIG),
+        segment_sum((x * x).sum(1) * w, idx, k),
+    )
+
+
+def bounded_bytes(n, k, d, f4=4):
+    """Bytes the bounded pass must move: x, centers, the carried bounds, w
+    and drift in; labels, similarities, the refreshed bounds, the pruned
+    mask and the statistics out."""
+    return (n * d * f4 + k * d * f4 + 4 * n * f4 + k * f4
+            + 5 * n * f4 + n + k * d * f4 + 3 * k * f4)
+
+
+def phase_parity_edges_bkc(dev):
+    """Integer-valued edge cases of assign_argmax and assign_stats_bounded:
+    exact agreement (hi: an upper bound, exact where the centers fit one slab
+    or the row was pruned) and repeat bits."""
+    import numpy as np
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.assign_argmax import assign_argmax_cuda
+    from repro_torch.kernels.assign_stats import assign_stats_bounded_cuda, assign_stats_cuda
+
+    rng = np.random.default_rng(1)
+    for n, d, k in [(1000, 130, 70), (300, 16, 5), (0, 4, 2)]:
+        x = interop.data(rng.integers(-4, 5, size=(n, d)), dev)
+        centers = interop.data(rng.integers(-4, 5, size=(k, d)), dev)
+        if k > 64:
+            centers[65] = centers[1]  # a tie across center tiles
+        a = assign_argmax_cuda(x, centers)
+        check_repeat("assign_argmax", a, assign_argmax_cuda(x, centers))
+        check_equal(f"assign_argmax {n}x{d} k={k}", a, ref.assign_argmax(x, centers))
+
+    def run(name, args, perm, k):
+        got = assign_stats_bounded_cuda(*args, perm=perm)
+        check_repeat(name, got, assign_stats_bounded_cuda(*args, perm=perm))
+        want = ref.assign_stats_bounded(*args)
+        check_equal(name, got[:8] + got[9:], want[:8] + want[9:])
+        check_bounded_hi(name, got[8], want[8])
+        exact = got[9] if k > 64 else torch.ones_like(got[9])  # pruned rows, or one slab
+        if not torch.equal(got[8][exact], want[8][exact]):
+            raise AssertionError(f"{name}: hi differs where it must be exact")
+        return got, want
+
+    for n, d, k in [(1000, 130, 70), (300, 16, 5), (257, 40, 130), (0, 8, 3)]:
+        centers_i = rng.integers(-4, 5, size=(k, d))
+        rows = centers_i[rng.integers(0, k, size=n)] + rng.integers(-1, 2, size=(n, d))
+        x = interop.data(rows, dev)
+        centers = interop.data(centers_i, dev)
+        centers[k - 1] = centers[0]  # loses every tie to center 0: an empty cluster
+        if k > 9:
+            centers[9] = centers[3]  # a duplicate visited before its twin when reversed
+        w = interop.data(rng.integers(0, 3, size=n), dev)  # weight-0 rows
+        for order in ("identity", "reversed", "index"):
+            perm = {
+                "identity": None,
+                "reversed": torch.arange(k - 1, -1, -1, dtype=torch.int32, device=dev),
+                "index": ops.build_center_index(centers).perm,
+            }[order]
+            name = f"assign_stats_bounded {n}x{d} k={k} {order}"
+            b = _sentinel(n, dev)
+            _, want = run(name + " sentinel", (x, centers, b.idx, b.lo, b.hi,
+                                               torch.zeros(k, device=dev), w), perm, k)
+            moved = centers.clone()
+            moved[0, 0] += 1
+            moved[k // 2, d - 1] -= 1
+            drift = torch.linalg.vector_norm(moved - centers, dim=1)
+            stale = torch.zeros(n, dtype=torch.bool, device=dev)
+            stale[::5] = True
+            b = ops.bounds_invalidate(ops.Bounds(*want[6:9]), stale)
+            got, want = run(name + " carried", (x, moved, b.idx, b.lo, b.hi, drift, w), perm, k)
+            if n and not (want[9].any() and not want[9][stale].any()):
+                raise AssertionError(f"{name}: carried bounds must prune, "
+                                     "invalidated rows must not")
+            check_equal(name + " vs assign_stats", got[:6], assign_stats_cuda(x, moved, w))
+    log("phase 2 parity: assign_argmax and assign_stats_bounded integer edge cases exact, "
+        "repeats bit-identical")
+
+
+def phase_parity_main_bkc(x, dev):
+    """The two new kernels on real tf-idf rows at n = 250,000."""
+    import torch
+
+    from repro_torch.common import l2_normalize
+    from repro_torch.core import sampling
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.assign_argmax import assign_argmax_cuda
+    from repro_torch.kernels.assign_stats import assign_stats_bounded_cuda, assign_stats_cuda
+
+    n = x.shape[0]
+    g = torch.Generator().manual_seed(3)
+    pick = sampling.sample_indices(n, BIG_K, g, dev)
+    c800 = l2_normalize(x[pick]).contiguous()
+    c400 = c800[:BKC_K].contiguous()
+    errs, ties = {}, {}
+
+    a = assign_argmax_cuda(x, c400)
+    check_repeat("assign_argmax", a, assign_argmax_cuda(x, c400))
+    want = ref.assign_argmax(x, c400)
+    ties["assign_argmax"] = check_argmax(
+        "assign_argmax", a[0], a[1], want[0], want[1],
+        lambda rows, cols: (x[rows] * c400[cols]).sum(1),
+    )
+    errs["assign_argmax"] = check_close("assign_argmax best_sim", a[1], want[1], 0.0, SIM_TOL)
+    del want
+
+    # sentinel bounds at BigK through a center index: the same labels and
+    # statistics as assign_stats, bit for bit; the plain version within the
+    # stated tolerances
+    index = ops.build_center_index(c800)
+    b = _sentinel(n, dev)
+    zero = torch.zeros(BIG_K, device=dev)
+    got = assign_stats_bounded_cuda(x, c800, b.idx, b.lo, b.hi, zero, perm=index.perm)
+    check_repeat("assign_stats_bounded",
+                 got, assign_stats_bounded_cuda(x, c800, b.idx, b.lo, b.hi, zero, perm=index.perm))
+    check_equal("assign_stats_bounded vs assign_stats", got[:6], assign_stats_cuda(x, c800))
+    want = ref.assign_stats_bounded_scatter(x, c800, b.idx, b.lo, b.hi, zero)
+    ties["assign_stats_bounded"] = check_argmax(
+        "assign_stats_bounded", got[0], got[1], want[0], want[1],
+        lambda rows, cols: (x[rows] * c800[cols]).sum(1),
+    )
+    err = check_close("assign_stats_bounded best_sim", got[1], want[1], 0.0, SIM_TOL)
+    same = got[0] == want[0]
+    check_bounded_hi("assign_stats_bounded", got[8], want[8], same)
+    if got[9].any():
+        raise AssertionError("assign_stats_bounded: sentinel bounds pruned a row")
+    # the statistics against the plain fold over the kernel's own labels, so
+    # a near-tie row cannot move a sum across clusters
+    for name, gt, wt, tol in zip(
+        ("sums", "counts", "min_sim", "sumsq"), got[2:6], plain_stats(x, got[0], got[1], BIG_K),
+        ((SUM_RTOL, SUM_ATOL), (SUM_RTOL, SUM_ATOL), (0.0, SIM_TOL), (SUM_RTOL, SUM_ATOL)),
+    ):
+        err = max(err, check_close(f"assign_stats_bounded {name}", gt, wt, *tol))
+    errs["assign_stats_bounded"] = err
+    del got, want
+
+    # carried bounds after one K-Means step at k = 400
+    st0 = ops.assign_stats_bounded(x, c400, _sentinel(n, dev), zero[:BKC_K])
+    means = st0.sums / torch.clamp(st0.counts, min=1.0)[:, None]
+    c1 = torch.where(st0.counts[:, None] > 0, l2_normalize(means), c400).contiguous()
+    drift = torch.linalg.vector_norm(c1 - c400, dim=1)
+    bnd = st0.bounds
+    args = (x, c1, bnd.idx, bnd.lo, bnd.hi, drift)
+    got = assign_stats_bounded_cuda(*args)
+    check_repeat("assign_stats_bounded carried", got, assign_stats_bounded_cuda(*args))
+    check_equal("assign_stats_bounded carried vs assign_stats", got[:6], assign_stats_cuda(x, c1))
+    want = ref.assign_stats_bounded_scatter(*args)
+    xf = x.float()
+    rownorm = torch.sqrt(torch.sum(xf * xf, dim=1))
+    del xf
+    _, _, lo_adj, hi_adj = ref.deflate_bounds(bnd.idx, bnd.lo, bnd.hi, rownorm, drift)
+    near = (lo_adj - hi_adj - ref.PRUNE_MARGIN).abs() < 1e-5
+    off = got[9] != want[9]
+    if bool((off & ~near).any()):
+        raise AssertionError("assign_stats_bounded: pruned mask differs away from the margin")
+    ties["assign_stats_bounded carried"] = check_argmax(
+        "assign_stats_bounded carried", got[0], got[1], want[0], want[1],
+        lambda rows, cols: (x[rows] * c1[cols]).sum(1),
+    )
+    keep = ~off & (got[0] == want[0])
+    check_bounded_hi("assign_stats_bounded carried", got[8], want[8], keep)
+    share = got[9].float().mean().item()
+    log(f"phase 2 parity: assign_argmax k={BKC_K} and assign_stats_bounded k={BIG_K} (index) "
+        f"within tolerance, equal to assign_stats; max abs err {errs}; near-tie index "
+        f"differences {ties}; carried bounds after one step at k={BKC_K}: pruned share "
+        f"{share:.4f}, pruned-mask differences {int(off.sum())} (rows within 1e-5 of the "
+        f"margin: {int(near.sum())})")
+    return errs, (c400, c800, index, st0.bounds, c1, drift)
+
+
+def phase_timing_bkc(x, state, dev):
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.assign_argmax import assign_argmax_cuda
+    from repro_torch.kernels.assign_stats import assign_stats_bounded_cuda
+
+    c400, c800, index, bnd, c1, drift = state
+    n, d = x.shape
+    f4 = 4
+    rows = {}
+    k = BKC_K
+    rows["assign_argmax"] = dict(
+        ms=event_ms(lambda: assign_argmax_cuda(x, c400), 10),
+        plain_ms=event_ms(lambda: ref.assign_argmax(x, c400), 10),
+        library_ms=event_ms(lambda: x @ c400.T, 10),
+        bound=bound_ms(2.0 * n * k * d, n * d * f4 + k * d * f4 + 2 * n * f4),
+    )
+    # the bounded pass at BigK: sentinel bounds in identity order (the table
+    # row: a full sweep), sentinel bounds through the index, carried bounds
+    k = BIG_K
+    b = _sentinel(n, dev)
+    zero = torch.zeros(k, device=dev)
+    # carried bounds at zero drift (the centers a converged fit ends on):
+    # every row whose gap clears the margin is settled
+    first = assign_stats_bounded_cuda(x, c800, b.idx, b.lo, b.hi, zero)
+    settings = {
+        "sentinel": ((x, c800, b.idx, b.lo, b.hi, zero), None),
+        "sentinel+index": ((x, c800, b.idx, b.lo, b.hi, zero), index.perm),
+        "carried, zero drift": ((x, c800, first[6], first[7], first[8], zero), None),
+        "carried, zero drift+index": ((x, c800, first[6], first[7], first[8], zero), index.perm),
+        # after one K-Means step at k = 400: the work is the unpruned rows'
+        "carried after one K-Means step": ((x, c1, bnd.idx, bnd.lo, bnd.hi, drift), None),
+    }
+    del first
+    for name, (args, perm) in settings.items():
+        kk = args[1].shape[0]
+        active = n - int(assign_stats_bounded_cuda(*args, perm=perm)[9].sum())
+        ms = event_ms(lambda: assign_stats_bounded_cuda(*args, perm=perm), 5)
+        plain = event_ms(lambda: ref.assign_stats_bounded_scatter(*args), 5)
+        lib = event_ms(lambda: x @ args[1].T, 5)
+        bnd_ms = bound_ms(2.0 * active * kk * d + 4.0 * n * d, bounded_bytes(n, kk, d))
+        log(f"phase 3 timing assign_stats_bounded {name} (k={kk}): kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, library {lib:.4f} ms, bound {bnd_ms[0]:.4f} ms "
+            f"({bnd_ms[1]}; 2*n_active*k*d + 4*n*d flops), pruned share {1 - active / n:.4f}")
+        if name == "sentinel":  # the table row: a full sweep
+            rows["assign_stats_bounded"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound=bnd_ms)
+    for name, r in rows.items():
+        log(f"phase 3 timing {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    return rows
+
+
+def phase_bkc_path(x, truth, n_topics, buckshot_labels, dev):
+    """BKC at Table 4's width through the bound-pruned pass, its other
+    routes, bounded K-Means and Buckshot, and assign_batch."""
+    import statistics
+
+    import torch
+
+    from repro_torch.common import l2_normalize
+    from repro_torch.core import metrics, sampling
+    from repro_torch.core.bkc import _group_centers, bkc, bkc_fit
+    from repro_torch.core.buckshot import buckshot
+    from repro_torch.core.kmeans import (
+        assign_batch,
+        init_random_centers,
+        kmeans,
+        kmeans_step_bounded,
+    )
+    from repro_torch.core.microcluster import build_microclusters
+    from repro_torch.kernels import ops, ref
+
+    n, d = x.shape
+    truth_t = torch.from_numpy(truth).to(dev)
+
+    def quality(labels, k):
+        return dict(purity=metrics.purity(labels, truth_t, k, n_topics).item(),
+                    nmi=metrics.nmi(labels, truth_t, k, n_topics).item())
+
+    # (a) the entry point, bound-pruned
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res, t_bkc = sync_time(bkc, x, BIG_K, BKC_K, torch.Generator().manual_seed(SEED), bounded=True)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_result("bkc", res, n, d, BKC_K)
+    log(f"phase 4 bkc: n={n} d={d} k={BKC_K} BigK={BIG_K} bounded: {t_bkc:.3f} s (cold), "
+        f"threshold {res.threshold.item()!r}, rss {res.rss.item()}, "
+        f"{quality(res.assignment, BKC_K)}; "
+        f"launches {counts}; peak device memory {peak / 2**30:.2f} GiB")
+    if not (counts["assign_stats_bounded"] == 2 and counts["assign_argmax"] > 0
+            and counts["label_stats"] > 0):
+        raise AssertionError(f"bkc did not go through the bounded kernels: {counts}")
+    # the same draw as bkc's
+    pick = sampling.sample_indices(n, BIG_K, torch.Generator().manual_seed(SEED), dev)
+    init = l2_normalize(x[pick])
+    (mc, _, _), t1 = sync_time(lambda: build_microclusters(x, init, BIG_K, bounded=True))
+    (centers, group, _), tj = sync_time(_group_centers, mc, BKC_K)
+
+    def pass2():
+        index = ops.build_center_index(centers)
+        return ops.assign_stats_bounded(x, centers, _sentinel(n, dev),
+                                        torch.zeros(BKC_K, device=dev), index=index)
+
+    _, t2 = sync_time(pass2)
+    warm, t_warm = sync_time(bkc_fit, x, init, BIG_K, BKC_K, bounded=True)
+    log(f"phase 4 bkc phases (separate warm runs): pass 1 {t1:.4f} s, join_to_groups + "
+        f"centers {tj:.4f} s, pass 2 (index + bounded pass) {t2:.4f} s; "
+        f"warm bkc_fit {t_warm:.4f} s")
+    if not (torch.equal(group, res.group_of_mc) and torch.equal(warm.assignment, res.assignment)):
+        raise AssertionError("bkc: a repeat run gave another grouping or assignment")
+    profile_run("bkc_fit bounded", bkc_fit, x, init, BIG_K, BKC_K, bounded=True)
+
+    # (b) the fused and two-pass routes from the same draw
+    for route, kw in (("fused", {}), ("two-pass", {"fused": False})):
+        ops.reset_launch_counts()
+        other, t_o = sync_time(bkc_fit, x, init, BIG_K, BKC_K, **kw)
+        rc = ops.launch_counts()
+        if not (torch.equal(other.group_of_mc, res.group_of_mc)
+                and torch.equal(other.assignment, res.assignment)):
+            raise AssertionError(f"bkc {route} route disagrees with the bounded route")
+        if route == "two-pass" and rc["assign_argmax"] != 2:
+            raise AssertionError(f"bkc two-pass did not go through assign_argmax: {rc}")
+        log(f"phase 4 bkc {route} route: {t_o:.4f} s, same groups and labels; launches {rc}")
+
+    # (c) bounded against unbounded K-Means at k = 400, from the same seed
+    ops.reset_launch_counts()
+    kb, t_kb = sync_time(kmeans, x, BKC_K, torch.Generator().manual_seed(SEED), bounded=True)
+    kb_counts = ops.launch_counts()
+    ku, t_ku = sync_time(kmeans, x, BKC_K, torch.Generator().manual_seed(SEED), bounded=False)
+    if not (torch.equal(kb.centers, ku.centers) and torch.equal(kb.assignment, ku.assignment)
+            and kb.iterations == ku.iterations):
+        raise AssertionError("bounded and unbounded K-Means differ")
+    if kb_counts["assign_stats_bounded"] != kb.iterations + 1:
+        raise AssertionError(f"bounded kmeans did not go through its kernel: {kb_counts}")
+    log(f"phase 4 kmeans k={BKC_K}: bounded {t_kb:.4f} s, unbounded {t_ku:.4f} s (cold); "
+        f"{kb.iterations} iterations, centers and labels bit-identical; rss {kb.rss.item()}, "
+        f"{quality(kb.assignment, BKC_K)}; launches {kb_counts}")
+    # the same fit step by step: each pass's pruned share, and why the bounds
+    # prune or not (a row settles when its carried gap lo - hi clears its own
+    # center's drift plus the largest other drift)
+    centers = init_random_centers(x, BKC_K, torch.Generator().manual_seed(SEED))
+    prev, bounds, diag = centers + 10.0, _sentinel(n, dev), []
+    for _ in range(kb.iterations):
+        new, st = kmeans_step_bounded(x, centers, prev, bounds, BKC_K,
+                                      index=ops.center_index_for(x, centers))
+        drift = torch.linalg.vector_norm(new - centers, dim=1)
+        gap = st.bounds.lo - st.bounds.hi
+        clear = (gap > 2 * drift.max() + ref.PRUNE_MARGIN).float().mean().item()
+        diag.append(f"pruned {st.pruned.float().mean().item():.4f} drift max "
+                    f"{drift.max().item():.4f} median {drift.median().item():.4f} gap median "
+                    f"{gap.median().item():.4f} clear {clear:.4f}")
+        prev, centers, bounds = centers, new, st.bounds
+    if not torch.equal(centers, kb.centers):
+        raise AssertionError("bounded K-Means step by step differs from kmeans()")
+    log(f"phase 4 kmeans k={BKC_K} per pass (pruned share; center drift; carried gap "
+        f"lo - hi; share of rows whose gap clears twice the largest drift): {'; '.join(diag)}")
+
+    # (d) bounded Buckshot gives the unbounded run's labels
+    ops.reset_launch_counts()
+    bb, t_bb = sync_time(buckshot, x, K, torch.Generator().manual_seed(SEED), bounded=True)
+    if not torch.equal(bb.kmeans.assignment, buckshot_labels):
+        raise AssertionError("bounded Buckshot differs from the unbounded run")
+    log(f"phase 4 buckshot bounded: {t_bb:.4f} s, labels equal the unbounded run; "
+        f"launches {ops.launch_counts()}")
+
+    # (e) the service's micro-batches against (c)'s centers
+    index = ops.build_center_index(kb.centers)
+    times = []
+    for lo in range(0, 300 * BATCH, BATCH):
+        (idx, _), t = sync_time(assign_batch, x[lo:lo + BATCH], kb.centers, index=index)
+        if not torch.equal(idx, kb.assignment[lo:lo + BATCH]):
+            raise AssertionError("assign_batch disagrees with the full bounded pass")
+        times.append(t)
+    log(f"phase 4 assign_batch: 300 batches of {BATCH} rows at k={BKC_K}, labels equal the "
+        f"full pass; median {1e3 * statistics.median(times):.4f} ms per batch, "
+        f"min {1e3 * min(times):.4f} ms")
+    return counts
+
+
+def off_topic_corpus(shape: dict, share: float, doc_len: int = 120):
+    """The collection of ``shape`` plus ``share`` of it again in off-topic
+    documents: words drawn uniformly from the vocabulary (mail that belongs
+    to no newsgroup). A micro-cluster that takes one gets a low min_i, so
+    centers of one topic have pair values cos - min_i - min_j above 0."""
+    import numpy as np
+
+    from repro_torch.text import synth
+
+    c = synth.make_corpus(**shape)
+    vocab = shape["vocab"]
+    m = int(share * shape["n_docs"])
+    noise = np.random.default_rng(shape["seed"] + 1).multinomial(
+        doc_len, np.full(vocab, 1.0 / vocab), size=m).astype(np.float32)
+    return synth.Corpus(counts=np.concatenate([c.counts, noise]),
+                        labels=np.concatenate([c.labels, np.full(m, c.n_topics, np.int32)]),
+                        n_topics=c.n_topics + 1)
+
+
+def phase_oracle_bkc(dev):
+    """BKC at Table 1's shape, card against CPU on the same draw: on the 20
+    Newsgroups collection (every pair value is 0 there, so the bisection
+    ends at its lowest step) and on the same collection with 5 % off-topic
+    documents, where the threshold lies between real pair values."""
+    import torch
+
+    from repro_torch.common import l2_normalize
+    from repro_torch.core import sampling
+    from repro_torch.core.bkc import bkc_fit
+    from repro_torch.core.microcluster import build_microclusters, pair_similarity
+    from repro_torch.text import pipeline, synth
+
+    k, big_k = 50, 250  # Table 1
+    for name, corpus in (
+        ("20ng", synth.make_corpus(**synth.paper_20ng_shape())),
+        ("20ng+off-topic", off_topic_corpus(synth.paper_20ng_shape(), 0.05)),
+    ):
+        x_cpu, _ = pipeline.prepare_local(corpus, device="cpu")
+        n = x_cpu.shape[0]
+        pick = sampling.sample_indices(n, big_k, torch.Generator().manual_seed(0), device="cpu")
+        init = l2_normalize(x_cpu[pick])
+        want = bkc_fit(x_cpu, init, big_k, k, bounded=True)
+        got = bkc_fit(x_cpu.to(dev), init.to(dev), big_k, k, bounded=True)
+        agree = (got.assignment.cpu() == want.assignment).double().mean().item()
+        rel = abs(got.rss.item() - want.rss.item()) / abs(want.rss.item())
+        same_groups = torch.equal(got.group_of_mc.cpu(), want.group_of_mc)
+        thr, thr_cpu = got.threshold, want.threshold.to(dev)
+        pair = pair_similarity(build_microclusters(x_cpu.to(dev), init.to(dev), big_k)[0])[0]
+        above = int((pair >= thr).sum()) // 2
+        below = int(((pair > 0) & (pair < thr)).sum()) // 2
+        log(f"phase 5 bkc oracle {name} at n={n} k={k} BigK={big_k}: assignment agreement "
+            f"{agree}, RSS card {got.rss.item()} vs CPU {want.rss.item()} (rel {rel:.2e}), "
+            f"threshold card {thr.item()!r} vs CPU {thr_cpu.item()!r}, pair values above / "
+            f"below it {above} / {below}, group_of_mc equal: {same_groups}")
+        if not same_groups:
+            # the groups may differ only through an edge whose pair value lies
+            # within 1e-5 of the threshold (a near-tie of the bisection)
+            pair_cpu = pair_similarity(build_microclusters(x_cpu, init, big_k)[0])[0].to(dev)
+            flipped = (pair >= thr) != (pair_cpu >= thr_cpu)
+            gap = (pair[flipped] - thr).abs().max().item() if flipped.any() else float("inf")
+            log(f"phase 5 bkc oracle {name}: {int(flipped.sum()) // 2} edges differ, the "
+                f"farthest {gap!r} from the threshold")
+            if gap >= 1e-5:
+                raise AssertionError(f"{name}: the card's BKC groups differ from the CPU's, "
+                                     "not at a near-tie")
+        if agree < 0.999 or rel > 1e-4 or abs(thr.item() - thr_cpu.item()) > 1e-5:
+            raise AssertionError(f"{name}: the card's BKC disagrees with the plain CPU path")
+        if name != "20ng" and not (thr.item() > 1e-3 and above > 0 and below > 0):
+            raise AssertionError(f"{name}: the bisection did not run over real pair values")
+
+
 def main() -> int:
     import torch
 
@@ -458,13 +938,31 @@ def main() -> int:
     sidx = sampling.sample_indices(n, s, torch.Generator().manual_seed(SEED), dev)
     xs = l2_normalize(x[sidx])
 
+    t = time.perf_counter()
     phase_parity_edges(dev)
     errs = phase_parity_main(x, xs, dev)
+    phase_parity_edges_bkc(dev)
+    errs_bkc, state = phase_parity_main_bkc(x, dev)
+    errs.update(errs_bkc)
+    log(f"phase 2 parity took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     times = phase_timing(x, xs, dev)
-    del x, xs
+    times.update(phase_timing_bkc(x, state, dev))
+    log(f"phase 3 timing took {time.perf_counter() - t:.1f} s")
+    del x, xs, state
     torch.cuda.empty_cache()
-    counts = phase_main_path(corpus, dev)
+    t = time.perf_counter()
+    counts, buckshot_labels, x, truth = phase_main_path(corpus, dev)
+    bkc_counts = phase_bkc_path(x, truth, corpus.n_topics, buckshot_labels, dev)
+    for name in ("assign_argmax", "assign_stats_bounded"):  # the kernels BKC brings
+        counts[name] = bkc_counts[name]
+    log(f"phase 4 paths took {time.perf_counter() - t:.1f} s")
+    del x
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
     phase_oracle(dev)
+    phase_oracle_bkc(dev)
+    log(f"phase 5 oracles took {time.perf_counter() - t:.1f} s")
 
     replaces = {
         "sim_best_edge": ("src/repro_torch/kernels/csrc/sim_best_edge.cu",
@@ -473,6 +971,10 @@ def main() -> int:
                         "src/repro/kernels/assign_stats.py:614"),
         "assign_stats": ("src/repro_torch/kernels/csrc/assign_stats.cu",
                          "src/repro/kernels/assign_stats.py:191"),
+        "assign_argmax": ("src/repro_torch/kernels/csrc/assign_argmax.cu",
+                          "src/repro/kernels/assign_argmax.py:98"),
+        "assign_stats_bounded": ("src/repro_torch/kernels/csrc/assign_stats_bounded.cu",
+                                 "src/repro/kernels/assign_stats.py:481"),
     }
     kernels = []
     for name, (source, tpu) in replaces.items():

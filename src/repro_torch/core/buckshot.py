@@ -8,7 +8,8 @@ Phase 1 is matrix-free by default (``hac="boruvka"``): O(log s) rounds of
 the fused sim+best-edge kernel, so the (s, s) sample similarity never
 exists. ``hac="prim"`` keeps the dense Prim path as the exact oracle. The
 initial centers come from one ``label_stats`` pass over the sample. Phase 2
-is ``kmeans_fit``.
+is ``kmeans_fit``; ``bounded=True`` runs it through the bound-pruned pass
+(iteration 1 seeds the bounds, the next ones prune against them).
 """
 
 from __future__ import annotations
@@ -63,11 +64,13 @@ def buckshot_fit(
     kmeans_iters: int = 3,
     fused: bool = True,
     hac: str = "boruvka",
+    bounded: bool = False,
 ) -> BuckshotResult:
     """Run Buckshot given the sampled document indices."""
     labels, init_centers = buckshot_phase1(x, sample_idx, k, hac=hac)
     km = kmeans_fit(
-        x, init_centers, k, max_iters=kmeans_iters, tol=0.0, fused=fused
+        x, init_centers, k, max_iters=kmeans_iters, tol=0.0, fused=fused,
+        bounded=bounded,
     )
     return BuckshotResult(
         kmeans=km,
@@ -86,12 +89,15 @@ def buckshot(
     kmeans_iters: int = 3,
     fused: bool = True,
     hac: str = "boruvka",
+    bounded: bool | None = None,
 ) -> BuckshotResult:
     """Paper defaults: s = sqrt(k n), 2-3 assignment iterations. The sample
-    is drawn with ``generator`` (a CPU generator) onto x's device."""
+    is drawn with ``generator`` (a CPU generator) onto x's device.
+    ``bounded=None`` defers to REPRO_ASSIGN_BOUNDS (``ops.bounds_enabled``)."""
     n = x.shape[0]
     s = sample_size or sampling.buckshot_sample_size(n, k)
     sample_idx = sampling.sample_indices(n, s, generator, device=x.device)
     return buckshot_fit(
-        x, sample_idx, k, kmeans_iters=kmeans_iters, fused=fused, hac=hac
+        x, sample_idx, k, kmeans_iters=kmeans_iters, fused=fused, hac=hac,
+        bounded=ops.bounds_enabled(bounded),
     )

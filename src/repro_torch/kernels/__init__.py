@@ -1,3 +1,4 @@
 """Kernel layer: plain PyTorch versions (``ref``), hand-written CUDA kernels
-for Hopper (``csrc``, bound in ``sim_best_edge`` and ``assign_stats``) and the
-dispatch between them (``ops``), which core code calls."""
+for Hopper (``csrc``, bound in ``sim_best_edge``, ``assign_stats`` and
+``assign_argmax``) and the dispatch between them (``ops``), which core code
+calls."""

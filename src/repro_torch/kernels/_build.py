@@ -30,7 +30,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("sim_best_edge", "label_stats", "assign_stats")
+SOURCES = (
+    "sim_best_edge", "label_stats", "assign_stats", "assign_argmax",
+    "assign_stats_bounded",
+)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -13,86 +13,22 @@
 // so the fp32 rate (0.76 ms at 67 TFLOP/s) and the read of x (0.61 ms at
 // 3.35 TB/s) are close; the arithmetic is the larger.
 //
-// What the design does about it: launch 1 (assign_tile) runs the register
-// tile of tile_dot.cuh with 128 rows x 64 centers per block (k = 50 fits one
-// center tile; larger k loops over center tiles, strict '>' across them),
-// and also sums each row's squared norm while the row passes through shared
-// memory. Launches 2-3 are label_stats' deterministic fold with the extra
+// What the design does about it: launch 1 (assign_tile.cuh) runs the
+// register tile of tile_dot.cuh with 128 rows x 64 centers per block (k = 50
+// fits one center tile; larger k loops over center tiles, strict '>' across
+// them), and also sums each row's squared norm while the row passes through
+// shared memory. Launches 2-3 are label_stats' deterministic fold with the extra
 // scalars (label_stats.cuh). The TPU kernel folded the stats while the x tile
 // was still in VMEM and read x once; this first version reads x twice (once
 // per launch), which costs one more pass over x. The TPU kernel's ACC_BUDGET
 // split existed only because its whole (k, d) accumulator lived in VMEM; the
 // tiled fold has no such limit.
 
+#include "assign_tile.cuh"
 #include "label_stats.cuh"
-#include "tile_dot.cuh"
-
-namespace {
-
-using namespace repro;
-
-constexpr int BM = 128, BN = 64, TM = 8, TN = 4;
-
-__global__ void __launch_bounds__(kThreads, 2)
-    assign_tile(const float* __restrict__ x, const float* __restrict__ centers,
-                int n, int k, int d, int* __restrict__ idx,
-                float* __restrict__ best_sim, float* __restrict__ rowsq) {
-  __shared__ __align__(16) float as[kBK][BM + 4];
-  __shared__ __align__(16) float bs[kBK][BN + 4];
-  constexpr int kTx = TileShape<BM, BN, TM, TN>::kTx;
-  const int row0 = blockIdx.x * BM;
-  const int tx = threadIdx.x % kTx, ty = threadIdx.x / kTx;
-
-  float best[TM];
-  int bidx[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    best[i] = kNeg;
-    bidx[i] = -1;
-  }
-  float rsq = 0.f;
-  for (int col0 = 0; col0 < k; col0 += BN) {
-    float acc[TM][TN];
-    if (col0 == 0)
-      tile_dot<BM, BN, TM, TN, true>(x, n, centers, k, d, row0, col0, as, bs, acc, rsq);
-    else
-      tile_dot<BM, BN, TM, TN, false>(x, n, centers, k, d, row0, col0, as, bs, acc, rsq);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      float tb = kNeg;
-      int tj = -1;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {  // centers ascend with j
-        const int col = col0 + tile_row<BN, TN>(tx, j);
-        if (col < k && beats(acc[i][j], col, tb, tj)) {
-          tb = acc[i][j];
-          tj = col;
-        }
-      }
-      row_argmax<kTx>(tb, tj);
-      if (tb > best[i]) {  // strict: earlier center tiles win ties
-        best[i] = tb;
-        bidx[i] = tj;
-      }
-    }
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int row = row0 + tile_row<BM, TM>(ty, i);
-      if (row < n) {
-        idx[row] = bidx[i];
-        best_sim[row] = best[i];
-      }
-    }
-  }
-  if (threadIdx.x < BM && row0 + threadIdx.x < n) rowsq[row0 + threadIdx.x] = rsq;
-}
-
-}  // namespace
 
 extern "C" int assign_stats_chunks(int n, int k, int d) {
-  return stats_chunks(n, k, d);
+  return repro::stats_chunks(n, k, d);
 }
 
 // Scratch: rowsq holds n floats, part chunks * k * d, part_k chunks * 3 * k.
@@ -103,11 +39,10 @@ extern "C" int assign_stats(const float* x, const float* centers,
                             float* counts, float* min_sim, float* sumsq,
                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n > 0) {
-    assign_tile<<<(n + BM - 1) / BM, kThreads, 0, st>>>(x, centers, n, k, d,
-                                                        idx, best_sim, rowsq);
-    REPRO_CHECK_LAUNCH();
-  }
-  return launch_stats<true>(x, idx, w, rowsq, best_sim, n, d, k, chunks, part,
-                            part_k, sums, counts, min_sim, sumsq, st);
+  const int err = repro::launch_assign_tile<true>(x, centers, n, k, d, idx,
+                                                  best_sim, rowsq, st);
+  if (err != 0) return err;
+  return repro::launch_stats<true>(x, idx, w, rowsq, best_sim, n, d, k, chunks,
+                                   part, part_k, sums, counts, min_sim, sumsq,
+                                   st);
 }

@@ -12,10 +12,13 @@ through the kernels.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
 
+from repro_torch.common import resolve_device
+from repro_torch.kernels import assign_argmax as _assign_argmax_k
 from repro_torch.kernels import assign_stats as _assign_stats_k
 from repro_torch.kernels import ref
 from repro_torch.kernels import sim_best_edge as _sim_best_edge_k
@@ -26,11 +29,14 @@ def launch_counts() -> dict[str, int]:
         "sim_best_edge": _sim_best_edge_k.launches,
         "label_stats": _assign_stats_k.launches["label_stats"],
         "assign_stats": _assign_stats_k.launches["assign_stats"],
+        "assign_argmax": _assign_argmax_k.launches,
+        "assign_stats_bounded": _assign_stats_k.launches["assign_stats_bounded"],
     }
 
 
 def reset_launch_counts() -> None:
     _sim_best_edge_k.launches = 0
+    _assign_argmax_k.launches = 0
     for name in _assign_stats_k.launches:
         _assign_stats_k.launches[name] = 0
 
@@ -49,16 +55,10 @@ def _on_card(t: torch.Tensor) -> bool:
 def assign_argmax(
     x: torch.Tensor, centers: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(n,d),(k,d) -> ((n,) best center idx, (n,) best similarity).
-
-    Only the fused K-Means path is ported to the card; this one's kernel
-    is not written yet.
-    """
+    """(n,d),(k,d) -> ((n,) best center idx, ties -> lowest; (n,) best
+    similarity)."""
     if _on_card(x):
-        raise NotImplementedError(
-            "assign_argmax has no CUDA kernel yet (ROADMAP queue 2, item 6); "
-            "use fused=True"
-        )
+        return _assign_argmax_k.assign_argmax_cuda(x.contiguous(), centers.contiguous())
     return ref.assign_argmax(x, centers)
 
 
@@ -155,3 +155,148 @@ def sim_best_edge(
             lc.contiguous(),
         )
     return ref.sim_best_edge(xs_rows, xs_all, lr, lc)
+
+
+# ---------------------------------------------------------------- bounded
+
+
+def bounds_enabled(flag: bool | None = None) -> bool:
+    """Resolve the bound-pruned assignment default: an explicit flag wins;
+    otherwise REPRO_ASSIGN_BOUNDS=1 turns it on process-wide."""
+    if flag is not None:
+        return bool(flag)
+    return os.environ.get("REPRO_ASSIGN_BOUNDS", "") == "1"
+
+
+class Bounds(NamedTuple):
+    """Per-row Elkan/Hamerly carry for bound-pruned assignment.
+
+    ``idx == -1`` marks the unknown sentinel (first pass, or invalidated
+    after a reseed); sentinel rows always take the full sweep, so the bounds
+    state is a pure performance hint.
+    """
+
+    idx: torch.Tensor  # (n,) int32 prior assignment; -1 = unknown
+    lo: torch.Tensor  # (n,) f32 lower bound on sim(x, c_idx)
+    hi: torch.Tensor  # (n,) f32 upper bound on sim(x, any OTHER center)
+
+
+def bounds_identity(n: int, device: str | torch.device | None = None) -> Bounds:
+    """The unknown-sentinel Bounds every bounded pass can start from.
+    ``device=None`` means the CUDA device."""
+    dev = resolve_device(device)
+    return Bounds(
+        torch.full((n,), -1, dtype=torch.int32, device=dev),
+        torch.full((n,), -ref.BIG, dtype=torch.float32, device=dev),
+        torch.full((n,), ref.BIG, dtype=torch.float32, device=dev),
+    )
+
+
+def bounds_invalidate(b: Bounds, rows: torch.Tensor) -> Bounds:
+    """Force the unknown sentinel on a (n,) bool row mask (reseed guard)."""
+    return Bounds(
+        torch.where(rows, -1, b.idx).to(torch.int32),
+        torch.where(rows, -ref.BIG, b.lo),
+        torch.where(rows, ref.BIG, b.hi),
+    )
+
+
+class CenterIndex(NamedTuple):
+    """Two-level center index: a clustered ORDER over the centers.
+
+    ``perm[slot] = original center id``: similar centers (the same ~sqrt(k)
+    Lloyd group) sit in the same slab, so the kernel can bound whole slabs
+    and skip those that cannot hold a row's winner. The index changes only
+    the visit order: labels stay in original ids, equal to the flat sweep's.
+    """
+
+    perm: torch.Tensor  # (k,) int32 original center id per slab-ordered slot
+    group_of: torch.Tensor  # (k,) int32 Lloyd group of each original center
+
+
+# mini-Lloyd rounds that refine the index's group representatives
+INDEX_LLOYD_ROUNDS = 2
+
+
+def build_center_index(centers: torch.Tensor) -> CenterIndex:
+    """Cluster the k centers into round(sqrt(k)) groups (mini-Lloyd over
+    ``assign_argmax`` and ``label_stats``, the kernels on the card) and emit
+    the slab order. Deterministic: the representatives start as a fixed
+    stride of the centers, ties go to the lowest index."""
+    k = centers.shape[0]
+    dev = centers.device
+    g = max(1, int(round(k ** 0.5)))
+    arange_k = torch.arange(k, dtype=torch.int32, device=dev)
+    if g >= k:
+        return CenterIndex(arange_k, arange_k)
+    stride = -(-k // g)  # ceil
+    cf = centers.float().contiguous()
+    reps = cf[::stride]
+    g = reps.shape[0]
+    for _ in range(INDEX_LLOYD_ROUNDS):
+        gidx, _ = assign_argmax(cf, reps)
+        sums, cnts = label_stats(cf, gidx, g)
+        norm = torch.sqrt(torch.sum(sums * sums, dim=1, keepdim=True))
+        reps = torch.where(cnts[:, None] > 0, sums / torch.clamp(norm, min=1e-12), reps)
+    gidx, _ = assign_argmax(cf, reps)
+    # (group, original id) order; the keys are distinct, so the sort is exact
+    perm = torch.argsort(gidx.long() * k + arange_k, stable=True).to(torch.int32)
+    return CenterIndex(perm, gidx.to(torch.int32))
+
+
+def center_index_for(x: torch.Tensor, centers: torch.Tensor) -> CenterIndex | None:
+    """The slab order ``assign_stats_bounded`` takes for rows x: built where
+    x lies on the card, whose kernel skips slabs; None on the CPU, whose
+    plain version sweeps every center."""
+    return build_center_index(centers) if _on_card(x) else None
+
+
+class AssignStatsBounded(NamedTuple):
+    """AssignStats + the refreshed bounds carry + the prune mask."""
+
+    idx: torch.Tensor  # (n,) int32 nearest-center assignment (original ids)
+    best_sim: torch.Tensor  # (n,) f32 best similarity
+    sums: torch.Tensor  # (k, d) f32 weighted per-cluster sums
+    counts: torch.Tensor  # (k,) f32 per-cluster weight totals
+    min_sim: torch.Tensor  # (k,) f32 lowest member similarity (ref.BIG if empty)
+    sumsq: torch.Tensor  # (k,) f32 weighted sum of squared row norms
+    bounds: Bounds  # refreshed carry, valid against THESE centers
+    pruned: torch.Tensor  # (n,) bool: the row skipped the center sweep
+
+
+def _pack_bounded(raw) -> AssignStatsBounded:
+    idx, sim, sums, counts, min_sim, sumsq, bidx, lo, hi, pruned = raw
+    return AssignStatsBounded(
+        idx, sim, sums, counts, min_sim, sumsq, Bounds(bidx, lo, hi), pruned
+    )
+
+
+def assign_stats_bounded(
+    x: torch.Tensor,
+    centers: torch.Tensor,
+    bounds: Bounds,
+    drift: torch.Tensor,
+    w: torch.Tensor | None = None,
+    *,
+    index: CenterIndex | None = None,
+) -> AssignStatsBounded:
+    """Bound-pruned fused pass: ``assign_stats`` plus an Elkan/Hamerly carry
+    that lets provably settled rows skip the center sweep.
+
+    Labels and statistics equal ``assign_stats``' for ANY bounds state. On
+    the card the kernel skips the work of pruned rows and of slabs whose
+    cone bound cannot reach a row's running best (``index`` orders the
+    slabs); the plain version on the CPU sweeps everything and ignores
+    ``index``.
+    """
+    if _on_card(x):
+        return _pack_bounded(_assign_stats_k.assign_stats_bounded_cuda(
+            x.contiguous(), centers.contiguous(),
+            bounds.idx.to(torch.int32).contiguous(), bounds.lo.contiguous(),
+            bounds.hi.contiguous(), drift.float().contiguous(),
+            None if w is None else w.float().contiguous(),
+            perm=None if index is None else index.perm,
+        ))
+    return _pack_bounded(ref.assign_stats_bounded_scatter(
+        x, centers, bounds.idx, bounds.lo, bounds.hi, drift, w
+    ))

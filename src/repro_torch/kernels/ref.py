@@ -24,6 +24,9 @@ BIG = float(torch.finfo(torch.float32).max)
 BIG_I = int(torch.iinfo(torch.int32).max)
 # Masked similarity: every real similarity beats it.
 NEG = float(torch.finfo(torch.float32).min)
+# Rows prune only when the deflated bounds clear each other by this much, so
+# f32 rounding in the bounds cannot move a label.
+PRUNE_MARGIN = 1e-4
 
 
 def _sims(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -92,6 +95,132 @@ def assign_stats_scatter(
     sumsq = segment_sum(rowsq, idx, k)
     min_sim = torch.where(counts > 0, segment_min(sim_m, idx, k), BIG)
     return idx, best_sim, sums, counts, min_sim, sumsq
+
+
+def deflate_bounds(
+    prev_idx: torch.Tensor,
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+    rownorm: torch.Tensor,
+    drift: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Deflate carried similarity bounds by per-center drift (Cauchy-Schwarz).
+
+    lo bounds sim(x, c_prev_idx) from below and hi bounds the similarity to
+    every other center from above, both under the centers of the pass that
+    produced them. |sim(x, c') - sim(x, c)| <= |x| |c' - c| moves them to the
+    current centers: lo' = lo - |x| drift[prev_idx], hi' = hi + |x| max of
+    the other centers' drift. prev_idx outside [0, k) is the unknown sentinel.
+
+    Returns (ok (n,) bool: prev_idx is real, pidx (n,) int32 clipped into
+    [0, k), lo_adj, hi_adj (n,) f32).
+    """
+    k = drift.shape[0]
+    ok = (prev_idx >= 0) & (prev_idx < k)
+    pidx = torch.clamp(prev_idx, 0, k - 1).to(torch.int32)
+    argd = torch.argmax(drift)
+    maxd = torch.amax(drift)
+    # largest drift among the centers OTHER than the row's own (top-2)
+    others = torch.where(torch.arange(k, device=drift.device) == argd, -1.0, drift)
+    sec = torch.clamp(torch.amax(others), min=0.0)
+    d_other = torch.where(pidx == argd, sec, maxd)
+    lo_adj = lo - rownorm * drift[pidx.long()]
+    hi_adj = hi + rownorm * d_other
+    return ok, pidx, lo_adj, hi_adj
+
+
+def _bounded_assign(
+    x: torch.Tensor,
+    centers: torch.Tensor,
+    prev_idx: torch.Tensor,
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+    drift: torch.Tensor,
+) -> tuple[torch.Tensor, ...]:
+    """Assignment half of the bounded plain versions: (idx, best_sim, lo_out,
+    hi_out, pruned, rowsq). The full (n, k) sweep is computed; pruned rows
+    take their carried index, so a pruning fault shows in the labels."""
+    k = centers.shape[0]
+    xf = x.float()
+    rowsq = torch.sum(xf * xf, dim=1)
+    ok, pidx, lo_adj, hi_adj = deflate_bounds(prev_idx, lo, hi, torch.sqrt(rowsq), drift)
+    pruned = ok & (lo_adj > hi_adj + PRUNE_MARGIN)
+    sims = _sims(x, centers)
+    brute_idx = torch.argmax(sims, dim=1).int()
+    brute_best = torch.amax(sims, dim=1)
+    # second-best VALUE: mask one instance of the winner column only, so a
+    # duplicate center counts as the second best
+    cols = torch.arange(k, device=x.device)
+    second = torch.amax(torch.where(cols[None, :] == brute_idx[:, None], NEG, sims), dim=1)
+    idx = torch.where(pruned, pidx, brute_idx)
+    at_prev = torch.gather(sims, 1, pidx.long()[:, None])[:, 0]
+    best_sim = torch.where(pruned, at_prev, brute_best)
+    # refreshed bounds against THESE centers: lo is the winner's similarity,
+    # hi the exact second value where the sweep ran, the deflated carry
+    # (still an upper bound) where the row was pruned
+    hi_out = torch.where(pruned, hi_adj, second)
+    return idx, best_sim, best_sim, hi_out, pruned, rowsq
+
+
+def assign_stats_bounded(
+    x: torch.Tensor,
+    centers: torch.Tensor,
+    prev_idx: torch.Tensor,
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+    drift: torch.Tensor,
+    w: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, ...]:
+    """One-hot oracle of the bound-pruned pass: (idx, best_sim, sums, counts,
+    min_sim, sumsq, idx, lo_out, hi_out, pruned). The first six are exactly
+    ``assign_stats``' for ANY bounds state: a row prunes only when its
+    deflated bounds prove the carried winner unchanged."""
+    k = centers.shape[0]
+    idx, best_sim, lo_out, hi_out, pruned, rowsq = _bounded_assign(
+        x, centers, prev_idx, lo, hi, drift
+    )
+    hot = _one_hot(idx, k, w)
+    sums = hot.T @ x.float()
+    counts = hot.sum(dim=0)
+    sumsq = hot.T @ rowsq
+    member = torch.where(hot > 0, best_sim[:, None], BIG)
+    if x.shape[0]:
+        min_sim = member.amin(dim=0)
+    else:
+        min_sim = torch.full((k,), BIG, device=x.device)
+    min_sim = torch.where(counts > 0, min_sim, BIG)
+    return idx, best_sim, sums, counts, min_sim, sumsq, idx, lo_out, hi_out, pruned
+
+
+def assign_stats_bounded_scatter(
+    x: torch.Tensor,
+    centers: torch.Tensor,
+    prev_idx: torch.Tensor,
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+    drift: torch.Tensor,
+    w: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, ...]:
+    """``assign_stats_bounded`` with segment reductions for the statistics
+    (the contract of ``assign_stats_scatter``)."""
+    k = centers.shape[0]
+    idx, best_sim, lo_out, hi_out, pruned, rowsq = _bounded_assign(
+        x, centers, prev_idx, lo, hi, drift
+    )
+    xf = x.float()
+    if w is not None:
+        wf = w.float()
+        xf = xf * wf[:, None]
+        rowsq = rowsq * wf
+        counts = segment_sum(wf, idx, k)
+        sim_m = torch.where(wf > 0, best_sim, BIG)
+    else:
+        counts = segment_sum(torch.ones_like(best_sim), idx, k)
+        sim_m = best_sim
+    sums = segment_sum(xf, idx, k)
+    sumsq = segment_sum(rowsq, idx, k)
+    min_sim = torch.where(counts > 0, segment_min(sim_m, idx, k), BIG)
+    return idx, best_sim, sums, counts, min_sim, sumsq, idx, lo_out, hi_out, pruned
 
 
 def label_stats(

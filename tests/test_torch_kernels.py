@@ -22,7 +22,12 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch import interop
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.assign_stats import assign_stats_cuda, label_stats_cuda
+from repro_torch.kernels.assign_argmax import assign_argmax_cuda
+from repro_torch.kernels.assign_stats import (
+    assign_stats_bounded_cuda,
+    assign_stats_cuda,
+    label_stats_cuda,
+)
 from repro_torch.kernels.sim_best_edge import sim_best_edge_cuda
 
 RTOL = 1e-5
@@ -202,7 +207,13 @@ def test_cpu_tensors_take_the_plain_versions(rng):
     ops.label_stats(x, lab, 3)
     ops.assign_stats(x, x[:3])
     ops.assign_argmax(x, x[:3])
-    assert ops.launch_counts() == {"sim_best_edge": 0, "label_stats": 0, "assign_stats": 0}
+    ops.assign_stats_bounded(x, x[:3], ops.bounds_identity(30, "cpu"), torch.zeros(3))
+    ops.build_center_index(x[:9])
+    assert set(ops.launch_counts()) == {
+        "sim_best_edge", "label_stats", "assign_stats", "assign_argmax",
+        "assign_stats_bounded",
+    }
+    assert not any(ops.launch_counts().values())
 
 
 def test_kernel_wrappers_refuse_cpu_tensors(rng):
@@ -214,6 +225,11 @@ def test_kernel_wrappers_refuse_cpu_tensors(rng):
         label_stats_cuda(x, lab, 3)
     with pytest.raises(ValueError, match="CUDA"):
         assign_stats_cuda(x, x[:3])
+    with pytest.raises(ValueError, match="CUDA"):
+        assign_argmax_cuda(x, x[:3])
+    b = ops.bounds_identity(30, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        assign_stats_bounded_cuda(x, x[:3], b.idx, b.lo, b.hi, torch.zeros(3))
 
 
 @pytest.mark.parametrize("name", _build.SOURCES)
