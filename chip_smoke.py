@@ -10,17 +10,30 @@ Phases, in order; any failure raises and exits non-zero:
      CUDA tensors, at the main paths' shapes and on integer-valued edge cases
      (ties across tiles, pad labels, weight-0 rows, empty clusters, sizes off
      the tiles; for the bounded pass also duplicate centers visited out of id
-     order, sentinel, carried and invalidated bounds); each kernel runs twice
-     and must repeat its bits.
+     order, sentinel, carried and invalidated bounds; for component_best_edge
+     f32.min rows, row-id ties on either side, ids -1 and c, c > r, -0.0
+     against +0.0, r = 0); each kernel runs twice and must repeat its bits.
+     component_best_edge's main-path shapes are held in phase 4.
   3. Timing (CUDA events): kernel, plain version, one library call, and the
-     card's lower bound for the same work.
+     card's lower bound for the same work (component_best_edge's in phase 4,
+     on round 1's candidates: r = 3,536, c = 1,768).
   4. Paths at full size on the ~1 GB collection (n = 250,000, d = 2,048,
      50 topics), each with its launch counters set to 0 just before and read
      just after: tf-idf on the card, Buckshot with k = 50 (s = 3,536) and the
      K-Means baseline; then BKC with k = 400, BigK = 800 through the
      bound-pruned pass, its fused and two-pass routes, bounded against
      unbounded K-Means at k = 400, bounded Buckshot, and assign_batch in
-     64-row micro-batches.
+     64-row micro-batches; then distributed Buckshot (k = 50, s = 3,536)
+     through the multi-device engine over a NCCL group of world size 1 made
+     from a FileStore: the distributed sample (s distinct real rows, equal to
+     x at their ids), the sharded Borůvka phase 1 and distributed K-Means,
+     held against the resident fit from the same ids (K-Means labels equal,
+     RSS within 1e-5 relative); the sharded sweep, sweep="bcast" and
+     merge="point" against the resident phase 1 (expanded MST edges bit for
+     bit, labels and initial centers equal); and, every round of one run,
+     component_best_edge on the job's candidates against both plain versions
+     bit for bit, and three row blocks of the sample folded on the one card,
+     merged in two orders, against the world-size-1 reduce.
   5. End-to-end oracles at the 20 Newsgroups shape: Buckshot (k = 20) and BKC
      (Table 1: k = 50, BigK = 250) on the card against the plain path on the
      CPU, on the same draws; BKC also on that collection with 5 % off-topic
@@ -910,6 +923,332 @@ def phase_oracle_bkc(dev):
             raise AssertionError(f"{name}: the bisection did not run over real pair values")
 
 
+
+# ------------------------------------------- the multi-device engine slice
+
+
+def cbe_bits_equal(name, got, want):
+    """component_best_edge outputs equal bit for bit (w compared as bits)."""
+    import torch
+
+    check_equal(name, (got[0].view(torch.int32),) + tuple(got[1:]),
+                (want[0].view(torch.int32),) + tuple(want[1:]))
+
+
+def check_cbe(name, args, c):
+    """The kernel against both plain versions, bit for bit, and its repeat.
+    Returns the outputs and the largest |kernel - plain| over them."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.component_reduce import component_best_edge_cuda
+
+    got = component_best_edge_cuda(*args, c)
+    check_repeat(name, got, component_best_edge_cuda(*args, c))
+    err = 0.0
+    for plain, want in (("lexsort", ref.component_best_edge(*args, c)),
+                        ("segment", ref.component_best_edge_segment(*args, c))):
+        if got[0].numel():
+            err = max([err] + [(g.double() - w.double()).abs().max().item()
+                               for g, w in zip(got, want)])
+        cbe_bits_equal(f"{name} vs {plain}", got, want)
+    return got, err
+
+
+def phase_parity_edges_cbe(dev):
+    """component_best_edge on the reference's edge cases: f32.min rows,
+    duplicate weights with lower row ids on either side, ids -1 and c, c > r,
+    r off any block size, -0.0 against +0.0, r = 0."""
+    import numpy as np
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(4)
+    err = 0.0
+    for r, c in [(7, 3), (64, 64), (130, 9), (513, 40), (300, 700), (257, 1), (0, 5)]:
+        w = rng.normal(size=r).astype(np.float32)
+        w[::5] = ref.NEG
+        if r > 10:
+            w[3] = w[8]  # duplicate weight
+            w[1], w[2] = -0.0, 0.0
+        args = (interop.data(w, dev), interop.labels(rng.integers(-1, 64, size=r), dev),
+                interop.labels(rng.permutation(2 * r)[:r], dev),
+                interop.labels(rng.integers(-1, c + 1, size=r), dev))
+        err = max(err, check_cbe(f"component_best_edge r={r} c={c}", args, c)[1])
+    # equal weights, the winner's lower row ids on either side; -0.0 vs +0.0
+    r = 40
+    rows = torch.arange(r - 1, -1, -1, dtype=torch.int32, device=dev)
+    rows[[0, 39]] = rows[[39, 0]]
+    w = torch.full((r,), 0.5, device=dev)
+    w[::2] = -0.0
+    w[1::2] = 0.0
+    comp = (torch.arange(r, device=dev) % 3).int()
+    col = torch.arange(100, 100 + r, dtype=torch.int32, device=dev)
+    got, e = check_cbe("component_best_edge ties", (w, col, rows, comp), 3)
+    err = max(err, e)
+    lowest = [int(rows[comp == j].min()) for j in range(3)]  # all weights tie
+    if got[1].tolist() != lowest:
+        raise AssertionError(f"component_best_edge ties: winners {got[1].tolist()}, not {lowest}")
+    log(f"phase 2 parity: component_best_edge edge cases bit for bit against both plain "
+        f"versions (max |kernel - plain| {err}), repeats bit-identical")
+    return err
+
+
+def l2_normalize_twice(xs):
+    """The sample as phase 1 searches it: ``_phase1_init_centers`` normalizes,
+    and ``boruvka_mst_distributed`` normalizes again."""
+    from repro_torch.common import l2_normalize
+
+    return l2_normalize(l2_normalize(xs)).contiguous()
+
+
+def timing_cbe(args, cap):
+    """component_best_edge at round 1 of the main path (r = 3,536, c = 1,768)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.component_reduce import component_best_edge_cuda
+
+    bw = args[0]
+    r = bw.shape[0]
+    seg = args[3].long()
+    lib_out = torch.full((cap + 1,), float("-inf"), device=bw.device)
+    row = dict(
+        ms=event_ms(lambda: component_best_edge_cuda(*args, cap), 200),
+        plain_ms=event_ms(lambda: ref.component_best_edge_segment(*args, cap), 50),
+        # no single PyTorch call computes the whole function: the library
+        # yardstick is its first pass, one segment max of w (a sink slot
+        # takes the dropped ids)
+        library_ms=event_ms(lambda: lib_out.scatter_reduce_(0, seg, bw, "amax"), 200),
+        bound=bound_ms(0.0, 16 * r + 12 * cap),
+    )
+    lex = event_ms(lambda: ref.component_best_edge(*args, cap), 50)
+    log(f"phase 4 timing component_best_edge r={r} c={cap}: kernel {row['ms']:.4f} ms, plain "
+        f"(segment) {row['plain_ms']:.4f} ms, plain (lexsort) {lex:.4f} ms, library "
+        f"(scatter_reduce_ amax) {row['library_ms']:.4f} ms, bound {row['bound'][0]:.6f} ms "
+        f"({row['bound'][1]}: 16 B per row + 12 B per segment)")
+    return row
+
+
+def nccl_world_1(tmp):
+    """A NCCL group of one rank, from a FileStore in ``tmp``: no network."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                            rank=0, world_size=1)
+
+
+def phase_distributed(x, dev):
+    """Distributed Buckshot on the 1 GB collection through the engine over
+    NCCL at world size 1, as a user calls it (the distributed sample, then
+    the sharded Borůvka phase 1, then distributed K-Means), held against the
+    resident path on the card from the same sample indices. Returns the
+    launch counts of that run, and component_best_edge's parity error and
+    timing row from the three-shard fold."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.common import l2_normalize
+    from repro_torch.core import sampling
+    from repro_torch.core.buckshot import buckshot_fit, phase1_from_sample
+    from repro_torch.core.hac import boruvka_mst, cut_mst_edges, single_link_labels_boruvka
+    from repro_torch.distrib import cluster as dc
+    from repro_torch.distrib.hac_parallel import boruvka_mst_distributed
+    from repro_torch.distrib.sharding import make_flat_mesh
+    from repro_torch.kernels import ops
+
+    n, d = x.shape
+    s = sampling.buckshot_sample_size(n, K)
+    w = torch.ones((n,), device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        nccl_world_1(tmp)
+        try:
+            mesh, axes = make_flat_mesh(), ("data",)
+
+            # the distributed sample: its collectives are the group's first,
+            # which set up the NCCL communicator
+            gidx, t_idx_cold = sync_time(dc.sample_indices_distributed, mesh, axes, w, s, SEED)
+            rows, t_rows = sync_time(dc.sample_rows_distributed, mesh, axes, x, w, s, SEED)
+            sidx = gidx.long()
+            if not (gidx.shape == (s,) and gidx.dtype == torch.int32
+                    and int(gidx.min()) >= 0 and int(gidx.max()) < n
+                    and bool((w[sidx] > 0).all()) and torch.unique(gidx).shape[0] == s):
+                raise AssertionError("sample_indices_distributed: not s distinct real rows")
+            if not torch.equal(rows, x[sidx]):
+                raise AssertionError("sample_rows_distributed: rows differ from x[ids]")
+            again_idx, t_idx = sync_time(dc.sample_indices_distributed, mesh, axes, w, s, SEED)
+            if not torch.equal(again_idx, gidx):
+                raise AssertionError("sample_indices_distributed: a repeat draw differs")
+            xs = x[sidx]
+
+            def fit():
+                return dc.buckshot_distributed(mesh, axes, x, w, K, SEED, sample_size=s,
+                                               hac="boruvka")
+
+            _, t_p1_cold = sync_time(dc._phase1_init_centers, mesh, axes, xs, K, hac="boruvka")
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            res, t_cold = sync_time(fit)
+            counts = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            again, t_warm = sync_time(fit)
+            check_result("buckshot_distributed", res, n, d)
+            if not (torch.equal(again.assignment, res.assignment)
+                    and torch.equal(again.rss, res.rss)):
+                raise AssertionError("buckshot_distributed: a repeat run gave other bits")
+            _, t_p1 = sync_time(dc._phase1_init_centers, mesh, axes, xs, K, hac="boruvka")
+
+            # the resident path on the card, from the same sample indices;
+            # phase 1 normalizes the sample once before the Borůvka call
+            xs1 = l2_normalize(xs)
+            ops.reset_launch_counts()
+            ref_edges = boruvka_mst(xs1)
+            rounds_resident = ops.launch_counts()["sim_best_edge"]
+            want, t_res = sync_time(buckshot_fit, x, sidx, K)
+            (labels_res, centers_res), t_res_p1 = sync_time(phase1_from_sample, xs, K)
+            rounds = counts["sim_best_edge"]  # one ring step per round at world size 1
+            expect = min(len(ref_edges.u) // s, 3 * -(-rounds_resident // 3))
+            if not (rounds == expect and counts["component_best_edge"] == 2 * rounds
+                    and counts["label_stats"] >= 1
+                    and counts["assign_stats"] == res.iterations + 1):
+                raise AssertionError(f"distributed Buckshot: launches {counts}, rounds "
+                                     f"{rounds}, expected {expect}")
+            same = torch.equal(res.assignment, want.kmeans.assignment)
+            rel = abs(res.rss.item() - want.kmeans.rss.item()) / abs(want.kmeans.rss.item())
+            if not same or rel > 1e-5:
+                raise AssertionError(f"distributed Buckshot: labels equal {same}, rss rel {rel}")
+            log(f"phase 4 distributed buckshot (NCCL, world size 1): n={n} d={d} k={K} s={s}; "
+                f"sample ids first call (the group's first collectives) {t_idx_cold:.4f} s, "
+                f"again {t_idx:.4f} s; sample rows (ids drawn anew, then collected) "
+                f"{t_rows:.4f} s: {s} distinct real rows, equal to x[ids]; "
+                f"phase 1 alone first call {t_p1_cold:.4f} s, warm {t_p1:.4f} s; whole fit "
+                f"first call {t_cold:.4f} s, warm {t_warm:.4f} s; resident buckshot_fit "
+                f"(warm, same ids) {t_res:.4f} s, phase 1 {t_res_p1:.4f} s; {rounds} Borůvka "
+                f"rounds (resident {rounds_resident}), {res.iterations} K-Means iterations; "
+                f"launches {counts}; peak device memory {peak / 2**30:.2f} GiB; labels equal "
+                f"the resident fit, rss {res.rss.item()} vs {want.kmeans.rss.item()} "
+                f"(rel {rel:.2e})")
+            profile_run("buckshot_distributed", fit)
+
+            # each mode's expanded edges, and its compact edges cut into the
+            # labels and initial centers of phase 1
+            for kw in ({}, {"sweep": "bcast"}, {"merge": "point"}):
+                edges, t_e = sync_time(boruvka_mst_distributed, mesh, axes, xs1,
+                                       compact=False, **kw)
+                m = edges.u.shape[0]
+                for f, got in edges._asdict().items():
+                    ref_f = getattr(ref_edges, f)[:m]
+                    if got.dtype == torch.float32:
+                        got, ref_f = got.view(torch.int32), ref_f.view(torch.int32)
+                    if not torch.equal(got, ref_f):
+                        raise AssertionError(f"boruvka_mst_distributed {kw}: {f} differs")
+                if ref_edges.valid[m:].any():
+                    raise AssertionError(f"boruvka_mst_distributed {kw}: stopped early")
+                labels = cut_mst_edges(boruvka_mst_distributed(mesh, axes, xs1, **kw), s, K)
+                if not torch.equal(labels, single_link_labels_boruvka(xs1, K)):
+                    raise AssertionError(f"single-link labels {kw} differ")
+                sums, cnt = ops.label_stats(xs1, labels, K)
+                centers = torch.where(cnt[:, None] > 0, l2_normalize(sums), 0.0)
+                if not (torch.equal(centers, centers_res)
+                        and torch.equal(labels, labels_res)):
+                    raise AssertionError(f"phase 1 {kw}: labels or centers differ")
+                log(f"phase 4 distributed {kw or 'sharded'}: expanded edges ({m // s} rounds) "
+                    f"equal resident boruvka_mst bit for bit in {t_e:.4f} s; labels and initial "
+                    f"centers equal")
+            err, timing = three_shard_fold(mesh, axes, l2_normalize_twice(xs))
+        finally:
+            dist.destroy_process_group()
+    return counts, err, timing
+
+
+def three_shard_fold(mesh, axes, xs, n_shards=3):
+    """P = 3 on one card, in one process: every round of one run, each of
+    three row blocks (3,536 does not divide by 3: one pad row) folds the
+    other blocks in ring order and pre-reduces with the kernel; the three
+    winner sets merged in two orders equal the world-size-1 reduce. Each
+    round also holds the kernel against both plain versions on the inputs
+    the world-size-1 job's shard passes it, and round 1's are timed.
+    Returns (max |kernel - plain|, the timing row)."""
+    import functools
+
+    import torch
+
+    from repro_torch.core.hac import _merge_round_comp, _rounds_for
+    from repro_torch.distrib.engine import _component_merge
+    from repro_torch.distrib.hac_parallel import (
+        CHECK_EVERY,
+        _cand_job,
+        _relabel_job,
+        round_cap,
+        sharded_candidates,
+        sharded_row_winners,
+    )
+
+    s, d = xs.shape
+    dev = xs.device
+    job = _cand_job(mesh, axes, "comp_sharded", True)
+    relabel_job = _relabel_job(mesh, axes)
+    pad = (-s) % n_shards
+    b = (s + pad) // n_shards
+    xs3 = torch.cat([xs, xs.new_zeros((pad, d))])
+    rowid = torch.arange(s + pad, dtype=torch.int32, device=dev)
+    comp = rowid[:s].clone()
+    c2r = rowid[:s].clone()
+    n_real = torch.tensor(s, dtype=torch.int32, device=dev)
+    caps, err, timed = [], 0.0, None
+    for r in range(_rounds_for(s)):
+        cap = round_cap(s, r)
+        caps.append(cap)
+        data = {"rows": xs, "rowid": rowid[:s], "comp": comp}
+        best = job(data, {"comp_to_root": c2r})["best"]
+        # the one shard's combiner inputs (its ring has one step: its own block)
+        rw = sharded_row_winners(data, cap, lambda block, fold, acc: fold(acc, block))
+        for payload in ("col", "tcomp"):
+            args = (rw["w"], rw[payload], rw["rowid"], rw["seg"])
+            got, e = check_cbe(f"component_best_edge cap={cap} ({payload})", args, cap)
+            err = max(err, e)
+            want = (best["w"], best["row"], best[payload])
+            cbe_bits_equal(f"component_best_edge cap={cap} ({payload}) vs the job", got, want)
+            if r == 1 and payload == "col":
+                timed = (args, cap)
+        comp3 = torch.cat([comp, torch.full((pad,), -1, dtype=torch.int32, device=dev)])
+        blocks = [{"rows": xs3[i * b:(i + 1) * b], "rowid": rowid[i * b:(i + 1) * b],
+                   "comp": comp3[i * b:(i + 1) * b]} for i in range(n_shards)]
+
+        def visit(i):
+            ring = [blocks[(i - t) % n_shards] for t in range(n_shards)]  # the ring's order
+            return lambda block, fold, acc: functools.reduce(fold, ring, acc)
+
+        wins = [sharded_candidates(blocks[i], cap, visit(i)) for i in range(n_shards)]
+        for order in ((0, 1, 2), (2, 1, 0)):
+            merged = functools.reduce(_component_merge, [wins[i] for i in order])
+            for key in best:
+                g, want = merged[key], best[key]
+                if g.dtype == torch.float32:
+                    g, want = g.view(torch.int32), want.view(torch.int32)
+                if not torch.equal(g, want):
+                    raise AssertionError(f"three-shard fold, order {order}, cap {cap}: "
+                                         f"{key} differs from the world-size-1 reduce")
+        relabel, c2r, *_, n_real = _merge_round_comp(
+            best["w"], best["row"], best["col"], best["tcomp"], c2r, n_real,
+            next_cap=round_cap(s, r + 1))
+        comp = relabel_job({"comp": comp}, {"relabel": relabel})["comp"]
+        if (r + 1) % CHECK_EVERY == 0 and int(n_real) == 1:
+            break
+    log(f"phase 4 component_best_edge on the main path's candidates, r={s}, caps {caps}: bit "
+        f"for bit against both plain versions (max |kernel - plain| {err}) and the job's "
+        "reduce, repeats bit-identical")
+    log(f"phase 4 three-shard fold: {n_shards} row blocks of {b} rows ({pad} pad), caps {caps}: "
+        "the winner sets merged in two orders equal the world-size-1 reduce bit for bit")
+    return err, timing_cbe(*timed)
+
+
 def main() -> int:
     import torch
 
@@ -944,6 +1283,7 @@ def main() -> int:
     phase_parity_edges_bkc(dev)
     errs_bkc, state = phase_parity_main_bkc(x, dev)
     errs.update(errs_bkc)
+    errs["component_best_edge"] = phase_parity_edges_cbe(dev)
     log(f"phase 2 parity took {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     times = phase_timing(x, xs, dev)
@@ -956,6 +1296,11 @@ def main() -> int:
     bkc_counts = phase_bkc_path(x, truth, corpus.n_topics, buckshot_labels, dev)
     for name in ("assign_argmax", "assign_stats_bounded"):  # the kernels BKC brings
         counts[name] = bkc_counts[name]
+    # the kernel distributed Buckshot brings; its main-path parity and
+    # timing come from the three-shard fold's rounds
+    dist_counts, err, times["component_best_edge"] = phase_distributed(x, dev)
+    counts["component_best_edge"] = dist_counts["component_best_edge"]
+    errs["component_best_edge"] = max(errs["component_best_edge"], err)
     log(f"phase 4 paths took {time.perf_counter() - t:.1f} s")
     del x
     torch.cuda.empty_cache()
@@ -975,6 +1320,8 @@ def main() -> int:
                           "src/repro/kernels/assign_argmax.py:98"),
         "assign_stats_bounded": ("src/repro_torch/kernels/csrc/assign_stats_bounded.cu",
                                  "src/repro/kernels/assign_stats.py:481"),
+        "component_best_edge": ("src/repro_torch/kernels/csrc/component_reduce.cu",
+                                "src/repro/kernels/component_reduce.py:130"),
     }
     kernels = []
     for name, (source, tpu) in replaces.items():

@@ -1,7 +1,7 @@
 """Single-link hierarchical agglomerative clustering via the MST (paper §4).
 
 Single-link HAC is the maximum-similarity spanning tree with its k-1
-weakest edges cut. Single-device subset of the JAX package's ``core/hac.py``:
+weakest edges cut. Counterpart of the JAX package's ``core/hac.py``:
 
   * ``boruvka_mst`` / ``single_link_labels_boruvka``: the production path,
     matrix-free Borůvka over ``ops.sim_best_edge`` in O(log s) rounds; the
@@ -9,11 +9,17 @@ weakest edges cut. Single-device subset of the JAX package's ``core/hac.py``:
   * ``mst_prim`` / ``single_link_labels``: dense O(s^2) Prim, the exact
     oracle for callers that already hold a similarity matrix.
   * ``components_from_edges``: min-label propagation + pointer jumping.
+  * ``_round_prep``, ``_merge_round_pre``, ``_merge_round_comp`` and
+    ``_expand_round_edges``: the round helpers of distributed Borůvka
+    (``distrib/hac_parallel.py``), on pre-reduced per-component winners.
 
 Tie handling (Borůvka): edges are ordered by (weight desc, row asc, col
 asc), so each component's proposal is unique and the only duplicate
-proposals are mutual pairs (dropped on the higher root). With that total
-order Borůvka emits a max spanning forest of s-1 edges.
+proposals are mutual pairs (dropped on the higher root). With distinct
+weights Borůvka emits a max spanning forest of s-1 edges. The order is per
+component, not one order over undirected edges: where two components are
+joined by two different edges of exactly equal weight, both may be kept (one
+edge too many), as in the JAX package.
 
 JAX's loops become Python loops that keep their early exits; each exit test
 reads one flag back from the device.
@@ -167,6 +173,121 @@ def _merge_round(
     ev = torch.where(propose, row_j[win_row], 0).int()
     ew = torch.where(propose, row_w[win_row], NEG)
     return _align_merge(labels, eu, ev, ew, propose)
+
+
+def _scatter_slots(n: int, slot: torch.Tensor, values: torch.Tensor, fill) -> torch.Tensor:
+    """(n,) tensor filled with ``fill``, ``values`` written at ``slot``;
+    slots outside [0, n) go to a sink entry and are dropped."""
+    out = torch.full((n + 1,), fill, dtype=values.dtype, device=values.device)
+    out[torch.where((slot >= 0) & (slot < n), slot, n).long()] = values
+    return out[:n]
+
+
+def _merge_round_pre(
+    labels: torch.Tensor,  # (s,) current component labels (min-id)
+    best_w: torch.Tensor,  # (c,) pre-reduced best weight per dense component
+    best_row: torch.Tensor,  # (c,) winning global row id per dense component
+    best_j: torch.Tensor,  # (c,) winning col per dense component (-1 if none)
+    comp_to_root: torch.Tensor,  # (c,) dense component id -> root point id
+) -> tuple[torch.Tensor, ...]:
+    """Pre-reduced Borůvka alignment: per-COMPONENT winners off the
+    distributed combiner are scattered into the point-id slots that
+    ``_align_merge`` takes. The winner order (w desc, row asc) is
+    ``_merge_round``'s, so both build the same forest."""
+    s = labels.shape[0]
+    has_edge = best_j >= 0
+    slot = torch.where(has_edge, comp_to_root, s)  # no-edge comps are dropped
+    eu = _scatter_slots(s, slot, best_row.int(), 0)
+    ev = _scatter_slots(s, slot, torch.clamp(best_j, min=0).int(), 0)
+    ew = _scatter_slots(s, slot, best_w.float(), NEG)
+    propose = _scatter_slots(s, slot, has_edge, False)
+    return _align_merge(labels, eu, ev, ew, propose)
+
+
+def _merge_round_comp(
+    best_w: torch.Tensor,  # (cap,) pre-reduced best weight per dense component
+    best_row: torch.Tensor,  # (cap,) winning global row id per dense component
+    best_j: torch.Tensor,  # (cap,) winning col per dense component (-1 if none)
+    best_tcomp: torch.Tensor,  # (cap,) dense component id of the winning col
+    comp_to_root: torch.Tensor,  # (cap,) dense component id -> root point id
+    n_real: torch.Tensor,  # () real component count entering the round (<= cap)
+    *,
+    next_cap: int,  # halving bound entering the NEXT round
+) -> tuple[torch.Tensor, ...]:
+    """Component-graph Borůvka alignment: dedupe, propagation and densify on
+    (cap,) arrays, never on an (s,) one. Point labels follow through one
+    gather by the returned ``relabel`` map.
+
+    Old dense ids are root ranks, so the min-old-dense-id representative is
+    the min-root-point-id one ``_align_merge`` picks; expanded through
+    ``_expand_round_edges`` the forest equals the point-level path's.
+
+    Slots [n_real, cap) are PHANTOM ids: empty segments (no proposal) that
+    stay isolated singletons. Every real id is below every phantom id, so the
+    densify ranks real roots first; phantom roots past ``next_cap`` are
+    dropped from the new root map, and ``n_real`` counts only live ones.
+
+    Returns (relabel (cap,) old dense -> new dense id, new_comp_to_root
+    (next_cap,), eu, ev, ew, evalid (cap,) compact edge slots indexed by OLD
+    dense id, n_real () LIVE component count after the merge).
+    """
+    cap = best_w.shape[0]
+    u = torch.arange(cap, dtype=torch.int32, device=best_w.device)
+    propose = best_j >= 0
+    target = torch.where(propose, best_tcomp, u).int()
+    tl = target.long()
+    # mutual dedupe on the POINT-level endpoints, _align_merge's rule: the
+    # higher old dense id (the higher root point id) drops its copy
+    mutual_same = (best_row[tl] == best_j) & (best_j[tl] == best_row)
+    drop = propose & propose[tl] & mutual_same & (u > target)
+    evalid = propose & ~drop
+    eu = torch.where(propose, best_row, 0).int()
+    ev = torch.where(propose, torch.clamp(best_j, min=0), 0).int()
+    ew = torch.where(propose, best_w, NEG)
+
+    group = components_from_edges(cap, u, target, propose)  # min old dense id
+    is_root = group == u
+    dense = (torch.cumsum(is_root.int(), 0) - 1).int()  # rank of each new root
+    relabel = dense[group.long()]
+    new_root = _scatter_slots(next_cap, torch.where(is_root, dense, next_cap),
+                              comp_to_root.int(), 0)
+    n_real_new = torch.sum(is_root & (u < n_real)).int()
+    return relabel, new_root, eu, ev, ew, evalid, n_real_new
+
+
+def _expand_round_edges(
+    slots: torch.Tensor | int,  # (s,) template tensor OR the slot count itself
+    eu: torch.Tensor,  # (cap,) compact edge slots, indexed by dense comp id
+    ev: torch.Tensor,
+    ew: torch.Tensor,
+    evalid: torch.Tensor,
+    comp_to_root: torch.Tensor,  # (cap,) dense comp id -> root point id
+) -> tuple[torch.Tensor, ...]:
+    """Scatter one round's compact (cap,) edges into the (s,) point-id slot
+    layout ``_merge_round_pre`` emits: the parity bridge between the
+    component-level and point-level merges. ``slots`` may be the count
+    itself: the sharded sweep keeps no (s,) array to pass."""
+    s = slots if isinstance(slots, int) else slots.shape[0]
+    slot = torch.where(ew > NEG, comp_to_root, s)
+    return (
+        _scatter_slots(s, slot, eu.int(), 0),
+        _scatter_slots(s, slot, ev.int(), 0),
+        _scatter_slots(s, slot, ew.float(), NEG),
+        _scatter_slots(s, slot, evalid, False),
+    )
+
+
+def _round_prep(labels: torch.Tensor, cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense component ids for one Borůvka round: (comp (s,) dense id per
+    point, comp_to_root (cap,) dense id -> root point id), with cap the
+    halving bound ceil(s / 2^round) >= #components."""
+    s = labels.shape[0]
+    rows = torch.arange(s, dtype=torch.int32, device=labels.device)
+    is_root = labels == rows
+    dense = (torch.cumsum(is_root.int(), 0) - 1).int()  # rank of each root
+    comp = dense[labels.long()]
+    comp_to_root = _scatter_slots(cap, torch.where(is_root, dense, cap), rows, 0)
+    return comp, comp_to_root
 
 
 def _rounds_for(s: int) -> int:

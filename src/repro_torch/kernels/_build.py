@@ -32,7 +32,7 @@ NVCC_FLAGS = (
 )
 SOURCES = (
     "sim_best_edge", "label_stats", "assign_stats", "assign_argmax",
-    "assign_stats_bounded",
+    "assign_stats_bounded", "component_reduce",
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}

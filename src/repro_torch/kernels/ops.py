@@ -20,6 +20,7 @@ import torch
 from repro_torch.common import resolve_device
 from repro_torch.kernels import assign_argmax as _assign_argmax_k
 from repro_torch.kernels import assign_stats as _assign_stats_k
+from repro_torch.kernels import component_reduce as _component_reduce_k
 from repro_torch.kernels import ref
 from repro_torch.kernels import sim_best_edge as _sim_best_edge_k
 
@@ -31,12 +32,14 @@ def launch_counts() -> dict[str, int]:
         "assign_stats": _assign_stats_k.launches["assign_stats"],
         "assign_argmax": _assign_argmax_k.launches,
         "assign_stats_bounded": _assign_stats_k.launches["assign_stats_bounded"],
+        "component_best_edge": _component_reduce_k.launches,
     }
 
 
 def reset_launch_counts() -> None:
     _sim_best_edge_k.launches = 0
     _assign_argmax_k.launches = 0
+    _component_reduce_k.launches = 0
     for name in _assign_stats_k.launches:
         _assign_stats_k.launches[name] = 0
 
@@ -155,6 +158,34 @@ def sim_best_edge(
             lc.contiguous(),
         )
     return ref.sim_best_edge(xs_rows, xs_all, lr, lc)
+
+
+# ---------------------------------------------------------------- component pre-reduce
+
+
+def component_best_edge(
+    row_w: torch.Tensor,
+    row_j: torch.Tensor,
+    rows: torch.Tensor,
+    comp: torch.Tensor,
+    c: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-shard Borůvka combiner: per-COMPONENT lexicographic best candidate.
+
+    Folds a shard's per-row best-edge candidates into one (weight, row, col)
+    triple per dense component id, ordered (w desc, row asc), so only
+    O(#components) values cross the shuffle instead of O(rows). Ids outside
+    [0, c) (pad rows) contribute nothing; empty segments get
+    (f32.min, BIG_I, -1). On the CPU: the three segment passes of
+    ``ref.component_best_edge_segment``.
+    """
+    args = (
+        row_w.float().contiguous(), row_j.to(torch.int32).contiguous(),
+        rows.to(torch.int32).contiguous(), comp.to(torch.int32).contiguous(), c,
+    )
+    if _on_card(row_w):
+        return _component_reduce_k.component_best_edge_cuda(*args)
+    return ref.component_best_edge_segment(*args)
 
 
 # ---------------------------------------------------------------- bounded

@@ -271,3 +271,71 @@ def sim_best_edge(
     """``best_edge(xs_rows @ xs_all.T, ...)``: this version does build the
     (r, c) similarity block; the kernel never does."""
     return best_edge(_sims(xs_rows, xs_all), labels_row, labels_col)
+
+
+def component_best_edge(
+    row_w: torch.Tensor,
+    row_j: torch.Tensor,
+    rows: torch.Tensor,
+    comp: torch.Tensor,
+    c: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-COMPONENT lexicographic best candidate, (w desc, row asc): the
+    combiner of distributed Borůvka. Lexsort oracle, made of stable sorts.
+
+    ``rows`` are GLOBAL row ids, assumed unique; ids of ``comp`` outside
+    [0, c) (pad rows) fall into no segment. Returns (c,) f32 best_w, (c,)
+    int32 best_row, (c,) int32 best_j; an empty segment gets (NEG, BIG_I,
+    -1). The winner's w is the row's own bits (-0.0 included); -0.0 and
+    +0.0 tie, as they compare equal.
+    """
+    dev = row_w.device
+    w = row_w.float()
+    # comp asc, w desc, row asc: stable sorts from the minor key up
+    order = torch.argsort(rows, stable=True)
+    order = order[torch.argsort(-w[order], stable=True)]
+    order = order[torch.argsort(comp[order], stable=True)]
+    comp_s = comp[order].long()
+    first = torch.ones(comp_s.shape, dtype=torch.bool, device=dev)
+    first[1:] = comp_s[1:] != comp_s[:-1]
+    slot = torch.where(first & (comp_s >= 0) & (comp_s < c), comp_s, c)  # c: sink
+    best_w = torch.full((c + 1,), NEG, dtype=torch.float32, device=dev)
+    best_row = torch.full((c + 1,), BIG_I, dtype=torch.int32, device=dev)
+    best_j = torch.full((c + 1,), -1, dtype=torch.int32, device=dev)
+    best_w[slot] = w[order]
+    best_row[slot] = rows[order].int()
+    best_j[slot] = row_j[order].int()
+    return best_w[:c], best_row[:c], best_j[:c]
+
+
+def component_best_edge_segment(
+    row_w: torch.Tensor,
+    row_j: torch.Tensor,
+    rows: torch.Tensor,
+    comp: torch.Tensor,
+    c: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``component_best_edge`` in three segment passes, O(r) and no sort:
+    a max on w, a min on row among the w-winners, then the unique winner
+    writes its w and column. Dropped ids go to a sink slot c.
+
+    The JAX package's XLA path writes the segment max as w, which is +0.0
+    where the winner's w is -0.0; here, as in the lexsort oracle and the
+    kernel, the winner writes its own bits.
+    """
+    dev = row_w.device
+    w = row_w.float()
+    rows = rows.int()
+    seg = torch.where((comp >= 0) & (comp < c), comp, c).long()
+    w_max = torch.full((c + 1,), float("-inf"), dtype=torch.float32, device=dev)
+    w_max = w_max.scatter_reduce(0, seg, w, "amax")
+    on_max = w == w_max[seg]
+    best_row = torch.full((c + 1,), BIG_I, dtype=torch.int32, device=dev)
+    best_row = best_row.scatter_reduce(0, seg, torch.where(on_max, rows, BIG_I), "amin")
+    winner = on_max & (rows == best_row[seg]) & (seg < c)  # unique per segment
+    slot = torch.where(winner, seg, c)
+    best_w = torch.full((c + 1,), NEG, dtype=torch.float32, device=dev)
+    best_j = torch.full((c + 1,), -1, dtype=torch.int32, device=dev)
+    best_w[slot] = w
+    best_j[slot] = row_j.int()
+    return best_w[:c], best_row[:c], best_j[:c]

@@ -25,6 +25,7 @@ from repro_torch.kernels.assign_stats import (
     assign_stats_cuda,
     label_stats_cuda,
 )
+from repro_torch.kernels.component_reduce import component_best_edge_cuda
 from repro_torch.kernels.sim_best_edge import sim_best_edge_cuda
 
 pytestmark = pytest.mark.gpu
@@ -139,9 +140,11 @@ def test_ops_dispatch_counts_launches(card):
     ops.assign_stats(x, x[:4].contiguous())
     ops.assign_argmax(x, x[:4])
     ops.assign_stats_bounded(x, x[:4], ops.bounds_identity(64), torch.zeros(4, device=card))
+    rows = torch.arange(64, dtype=torch.int32, device=card)
+    ops.component_best_edge(x[:, 0], lab, rows, lab, 4)
     assert ops.launch_counts() == {
         "sim_best_edge": 1, "label_stats": 1, "assign_stats": 1,
-        "assign_argmax": 1, "assign_stats_bounded": 1,
+        "assign_argmax": 1, "assign_stats_bounded": 1, "component_best_edge": 1,
     }
     with pytest.raises(TypeError):
         ops.assign_stats(x.double(), x[:4].double())
@@ -357,3 +360,77 @@ def test_assign_batch_matches_the_full_pass_on_card(card):
         idx, sim = assign_batch(x[lo:lo + 64], centers, index=index)
         assert torch.equal(idx, full[0][lo:lo + 64])
         assert torch.equal(sim, full[1][lo:lo + 64])
+
+
+# ------------------------------------------------------ component pre-reduce
+
+
+def _cbe_case(rng, r, c, card):
+    w = rng.normal(size=r).astype(np.float32)
+    w[::5] = ref.NEG  # real rows at f32.min: they beat the empty sentinel
+    if r > 10:
+        w[3] = w[8]  # duplicate weight: the row id breaks the tie
+        w[1], w[2] = -0.0, 0.0  # -0.0 ties with +0.0
+    col = rng.integers(-1, 64, size=r)
+    rows = rng.permutation(2 * r)[:r]
+    comp = rng.integers(-1, c + 1, size=r)  # -1 and c: dropped
+    return (interop.data(w, card), interop.labels(col, card), interop.labels(rows, card),
+            interop.labels(comp, card))
+
+
+def _bits_equal(got, want):
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    _equal(got[1:], want[1:])
+
+
+@pytest.mark.parametrize("r,c", [(7, 3), (64, 64), (130, 9), (513, 40), (300, 700), (0, 5),
+                                 (3536, 1768)])
+def test_component_best_edge_matches_plain(card, r, c):
+    """Bit for bit against both plain versions, -0.0 included."""
+    args = _cbe_case(np.random.default_rng(r + c), r, c, card)
+    got = _twice(component_best_edge_cuda, *args, c)
+    _bits_equal(got, ref.component_best_edge(*args, c))
+    _bits_equal(got, ref.component_best_edge_segment(*args, c))
+
+
+def test_component_best_edge_row_ties(card):
+    """Equal weights, lower row ids on either side of the winner."""
+    r = 40
+    w = torch.full((r,), 0.5, device=card)
+    col = torch.arange(100, 100 + r, dtype=torch.int32, device=card)
+    rows = torch.arange(r - 1, -1, -1, dtype=torch.int32, device=card)
+    comp = (torch.arange(r, device=card) % 3).int()
+    got = component_best_edge_cuda(w, col, rows, comp, 3)
+    _bits_equal(got, ref.component_best_edge(w, col, rows, comp, 3))
+    assert got[1].tolist() == [0, 2, 1]  # the lowest row id of each segment
+
+
+def test_boruvka_distributed_nccl_world_1_matches_resident(card, tmp_path):
+    """World-size-1 NCCL group from a FileStore: every mode's expanded edges
+    equal the resident boruvka_mst bit for bit on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.core.hac import boruvka_mst
+    from repro_torch.distrib.hac_parallel import boruvka_mst_distributed
+    from repro_torch.distrib.sharding import make_flat_mesh
+
+    rng = np.random.default_rng(5)
+    xs = interop.data(rng.normal(size=(500, 64)), card)
+    want = boruvka_mst(xs)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_flat_mesh()
+        for kw in ({}, {"sweep": "bcast"}, {"merge": "point"}):
+            ops.reset_launch_counts()
+            got = boruvka_mst_distributed(mesh, ("data",), xs, compact=False, **kw)
+            n = got.u.shape[0]
+            assert n % 500 == 0
+            for g, w in zip(got, want):
+                assert torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
+                                   (w.view(torch.int32) if w.dtype == torch.float32 else w)[:n])
+            assert not want.valid[n:].any()
+            assert ops.launch_counts()["component_best_edge"] > 0
+    finally:
+        dist.destroy_process_group()

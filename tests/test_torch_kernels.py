@@ -28,6 +28,7 @@ from repro_torch.kernels.assign_stats import (
     assign_stats_cuda,
     label_stats_cuda,
 )
+from repro_torch.kernels.component_reduce import component_best_edge_cuda
 from repro_torch.kernels.sim_best_edge import sim_best_edge_cuda
 
 RTOL = 1e-5
@@ -209,9 +210,10 @@ def test_cpu_tensors_take_the_plain_versions(rng):
     ops.assign_argmax(x, x[:3])
     ops.assign_stats_bounded(x, x[:3], ops.bounds_identity(30, "cpu"), torch.zeros(3))
     ops.build_center_index(x[:9])
+    ops.component_best_edge(x[:, 0], lab, torch.arange(30, dtype=torch.int32), lab, 3)
     assert set(ops.launch_counts()) == {
         "sim_best_edge", "label_stats", "assign_stats", "assign_argmax",
-        "assign_stats_bounded",
+        "assign_stats_bounded", "component_best_edge",
     }
     assert not any(ops.launch_counts().values())
 
@@ -223,6 +225,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(rng):
         sim_best_edge_cuda(x, x, lab, lab)
     with pytest.raises(ValueError, match="CUDA"):
         label_stats_cuda(x, lab, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        component_best_edge_cuda(x[:, 0].contiguous(), lab, lab, lab, 3)
     with pytest.raises(ValueError, match="CUDA"):
         assign_stats_cuda(x, x[:3])
     with pytest.raises(ValueError, match="CUDA"):
