@@ -12,11 +12,20 @@ Phases, in order; any failure raises and exits non-zero:
      the tiles; for the bounded pass also duplicate centers visited out of id
      order, sentinel, carried and invalidated bounds; for component_best_edge
      f32.min rows, row-id ties on either side, ids -1 and c, c > r, -0.0
-     against +0.0, r = 0); each kernel runs twice and must repeat its bits.
-     component_best_edge's main-path shapes are held in phase 4.
+     against +0.0, r = 0; for best_edge ties across warp steps and row
+     blocks, rows all in one component, -0.0, r = 0 and c = 0, the main
+     path's round-1 block xs @ xs.T and a block with round-2 labels, all with
+     torch.equal; for flash_decode lengths 0, 1, 511, 512, 513, 20,000, s and
+     s + 7 with g = 1, 3 and 4, in f32 within 2e-5 and in bf16 within one bf16
+     ulp of the plain value); each kernel runs twice and
+     must repeat its bits. component_best_edge's main-path shapes are held in
+     phase 4.
   3. Timing (CUDA events): kernel, plain version, one library call, and the
      card's lower bound for the same work (component_best_edge's in phase 4,
-     on round 1's candidates: r = 3,536, c = 1,768).
+     on round 1's candidates: r = 3,536, c = 1,768; best_edge at the kernel
+     bench's 2,000 x 2,000 block and the main path's 3,536 x 3,536, with the
+     L2 cache flushed before each call; flash_decode at the kernel bench's
+     cache, f32, and at llama3.2-3b's heads, bf16, length 20,000 of 32,768).
   4. Paths at full size on the ~1 GB collection (n = 250,000, d = 2,048,
      50 topics), each with its launch counters set to 0 just before and read
      just after: tf-idf on the card, Buckshot with k = 50 (s = 3,536) and the
@@ -33,7 +42,28 @@ Phases, in order; any failure raises and exits non-zero:
      bit, labels and initial centers equal); and, every round of one run,
      component_best_edge on the job's candidates against both plain versions
      bit for bit, and three row blocks of the sample folded on the one card,
-     merged in two orders, against the world-size-1 reduce.
+     merged in two orders, against the world-size-1 reduce. Then the public
+     ops.best_edge and ops.flash_decode at the phase 3 shapes. Then the
+     streaming paths: the collection's tf-idf rows held in host memory as a
+     CorpusStream of 8 chunks of 32,768 rows, through kmeans_fit_stream
+     (k = 50, the baseline's initial centers: iterations equal, agreement
+     >= 99.9 % and RSS within 1e-4 relative of the resident fit; prefetch on
+     and off bit-identical; one chunk equal to kmeans_fit bit for bit;
+     assign_stats launches = passes x chunks), buckshot_stream (k = 50: the
+     reservoir's ids distinct and real, its rows equal to x at them, the
+     resident buckshot_fit on those ids within the same limits) and
+     bkc_fit_stream (k = 400, BigK = 800, bounded equal to unbounded bit for
+     bit, groups equal to the resident fit's but at a near-tie); each with
+     its time per pass, bytes copied, device memory and launches, and a
+     profiled run (device busy share, copy time and its overlap with the
+     kernels). Last the quickstart's chain on a regenerated stream:
+     prepare_synthetic_stream (its tf-idf chunks equal to the resident tfidf
+     of make_corpus bit for bit, prefetch on and off) -> kmeans_stream,
+     bkc_stream (BigK = 2k), buckshot_stream. That chain runs at
+     paper_1gb_shape(scale=0.1), n = 25,000, chunks of 8,192: every pass
+     regenerates the multinomial draws on the host, and the whole 1 GB
+     corpus takes 22-28 s to generate, so at full size its ~20 passes would
+     not fit the smoke's time.
   5. End-to-end oracles at the 20 Newsgroups shape: Buckshot (k = 20) and BKC
      (Table 1: k = 50, BigK = 250) on the card against the plain path on the
      CPU, on the same draws; BKC also on that collection with 5 % off-topic
@@ -1249,6 +1279,543 @@ def three_shard_fold(mesh, axes, xs, n_shards=3):
     return err, timing_cbe(*timed)
 
 
+# ------------------------------------------------------ the streaming slice
+
+STREAM_CHUNK = 32_768  # host-resident stream: 8 chunks of the 1 GB collection
+REGEN_CHUNK = 8_192  # the JAX package's default chunk for regenerated streams
+DECODE_TOL = 2e-5  # flash_decode f32: another summation order and exp
+# flash_decode shapes: the kernel bench's cache (f32, length = s) and
+# llama3.2-3b's heads (bf16, length 20,000 of a 32,768-slot cache)
+DECODE_CASES = {
+    "kernel_bench f32": (32, 8, 128, 32_768, "float32", 32_768),
+    "llama3.2-3b bf16": (24, 8, 128, 32_768, "bfloat16", 20_000),
+}
+
+
+def event_ms_cold(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of one call with the 50 MB L2 flushed before each
+    (a 512 MB write between calls, outside the timed events; it keeps the
+    device busy ~0.2 ms, long enough for the host to enqueue the call, so
+    the events time the device and not the host)."""
+    import torch
+
+    flush = torch.empty(128 * 2**20, dtype=torch.float32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    pairs = []
+    for _ in range(iters):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def profiled_kernel_ms(fn, iters: int, names: tuple[str, ...]) -> float:
+    """Device time per call of the kernels whose names contain one of
+    ``names``, from torch.profiler over ``iters`` calls: the kernels alone,
+    without launch gaps."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and any(n in e.key for n in names))
+    return us / 1e3 / iters
+
+
+def check_bf16_ulp(name, got, want) -> float:
+    """|got - want| within one bf16 ulp of the plain value: both versions
+    round an f32 result to bf16 once."""
+    import torch
+
+    w = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=1e-30))) - 7)
+    err = (got.float() - w).abs()
+    if not (err <= ulp).all():
+        i = int((err - ulp).flatten().argmax())
+        raise AssertionError(f"{name}: {int((err > ulp).sum())} values beyond one bf16 ulp, "
+                             f"the worst {err.flatten()[i].item()!r} at {w.flatten()[i].item()!r}")
+    return err.max().item()
+
+
+def best_edge_inputs(xs, dev):
+    """The kernel bench's 2,000 x 2,000 N(0, 1) block with 40 components, and
+    the main path's round-1 block xs @ xs.T with labels arange(s)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    sim = torch.randn((2000, 2000), generator=g, device=dev)
+    lab = torch.randint(0, 40, (2000,), generator=g, device=dev, dtype=torch.int32)
+    s = xs.shape[0]
+    return {
+        "2000x2000": (sim, lab, lab),
+        f"{s}x{s}": (xs @ xs.T, *(2 * [torch.arange(s, dtype=torch.int32, device=dev)])),
+    }
+
+
+def decode_inputs(name, dev):
+    import torch
+
+    h, hk, dh, s, dtype, length = DECODE_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(6)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
+               for shape in ((h, dh), (s, hk, dh), (s, hk, dh)))  # distinct k and v
+    return q, k, v, torch.tensor(length, dtype=torch.int32, device=dev)
+
+
+def phase_parity_best_edge(xs, dev) -> float:
+    """best_edge against its plain version with torch.equal, on integer and
+    float blocks: sizes off the tiles, ties across warp steps and row
+    blocks, rows all in one component, labels -1 on rows and columns,
+    -0.0 against +0.0, r = 0 and c = 0, the main path's round-1 block and a
+    block with round-2 labels. Each case runs twice and repeats its bits."""
+    import numpy as np
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.core.hac import components_from_edges
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.best_edge import best_edge_cuda
+
+    rng = np.random.default_rng(3)
+
+    def check(name, sim, lr, lc):
+        got = best_edge_cuda(sim, lr, lc)
+        check_repeat(f"best_edge {name}", got, best_edge_cuda(sim, lr, lc))
+        check_equal(f"best_edge {name}", got, ref.best_edge(sim, lr, lc))
+        return got
+
+    for r, c in [(300, 270), (1, 129), (33, 1), (13, 1000), (257, 4097), (0, 5), (5, 0)]:
+        lr = interop.labels(rng.integers(-1, 5, size=r), dev)  # -1 = pad
+        lc = interop.labels(rng.integers(-1, 5, size=c), dev)
+        check(f"{r}x{c} integer", interop.data(rng.integers(-3, 4, size=(r, c)), dev), lr, lc)
+        check(f"{r}x{c} float", interop.data(rng.normal(size=(r, c)), dev), lr, lc)
+    r, c = 70, 1500
+    sim = torch.full((r, c), -1.0, device=dev)
+    sim[:, [37, 300, 1300]] = 2.0  # the row max in three warp steps
+    sim[11] = 0.0
+    sim[11, :200] = -0.0  # -0.0 and +0.0 tie
+    lr = torch.zeros((r,), dtype=torch.int32, device=dev)
+    lc = torch.ones((c,), dtype=torch.int32, device=dev)
+    lc[37] = -1  # a pad column: 300 wins
+    lr[5], lr[9] = 1, -1  # a row in the columns' component, a pad row
+    j, _ = check("ties", sim, lr, lc)
+    if j[[0, 69, 5, 9, 11]].tolist() != [300, 300, -1, -1, 0]:
+        raise AssertionError(f"best_edge ties: {j[[0, 69, 5, 9, 11]].tolist()}")
+    s = xs.shape[0]
+    ids = torch.arange(s, dtype=torch.int32, device=dev)
+    sim = xs @ xs.T
+    j1, _ = check("main path round 1", sim, ids, ids)
+    comp = components_from_edges(s, ids, torch.where(j1 >= 0, j1, ids), j1 >= 0)
+    check("main path round 2", sim, comp, comp)
+    log(f"phase 2 parity: best_edge equal to its plain version on every case (ties across warp "
+        f"steps and row blocks, pads, one component, -0.0, r = 0, c = 0, the main path's round-1 "
+        f"block and its round-2 labels: {int(torch.unique(comp).shape[0])} components), "
+        f"repeats bit-identical")
+    return 0.0
+
+
+def phase_parity_flash_decode(dev) -> float:
+    """flash_decode against its plain version at length 0, 1, 511, 512, 513,
+    20,000, s and s + 7 with g = 1, 3 and 4, f32 (max abs err <= 2e-5) and
+    bf16 (within one bf16 ulp); the length as a device tensor and as an int
+    give the same bits."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import flash_decode_cuda
+
+    hk, dh, s = 8, 128, 32_768
+    g = torch.Generator(device=dev).manual_seed(4)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        k, v = (torch.randn((s, hk, dh), generator=g, device=dev).to(dtype) for _ in range(2))
+        for grp in (1, 3, 4):
+            q = torch.randn((hk * grp, dh), generator=g, device=dev).to(dtype)
+            for length in (0, 1, 511, 512, 513, 20_000, s, s + 7):
+                got = flash_decode_cuda(q, k, v, torch.tensor(length, dtype=torch.int32, device=dev))
+                check_repeat("flash_decode", (got,), (flash_decode_cuda(q, k, v, length),))
+                want = ref.flash_decode(q, k, v, length)
+                name = f"flash_decode {dtype} g={grp} length={length}"
+                if dtype == torch.float32:
+                    err = (got - want).abs().max().item()
+                    if err > DECODE_TOL:
+                        raise AssertionError(f"{name}: max abs err {err} > {DECODE_TOL}")
+                else:
+                    err = check_bf16_ulp(name, got, want)
+                errs[str(dtype)] = max(errs.get(str(dtype), 0.0), err)
+    log(f"phase 2 parity: flash_decode at 8 lengths x g = 1, 3, 4 (hk = 8, dh = 128, s = {s}): "
+        f"max abs err {errs} (f32 limit {DECODE_TOL}; bf16 within one ulp), repeats "
+        f"bit-identical")
+    return errs["torch.float32"]
+
+
+def phase_timing_stream_kernels(xs, dev):
+    """best_edge and flash_decode: kernel, plain version, one library call
+    and the bound, at the kernel bench's and the main path's shapes. Returns
+    the rows of the kernels line (best_edge at the main path's block,
+    flash_decode at the kernel bench's cache) and the others."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.best_edge import best_edge_cuda
+    from repro_torch.kernels.flash_decode import flash_decode_cuda
+
+    rows = {}
+    for name, (sim, lr, lc) in best_edge_inputs(xs, dev).items():
+        r, c = sim.shape
+        row = dict(
+            ms=event_ms_cold(lambda: best_edge_cuda(sim, lr, lc), 30),
+            plain_ms=event_ms_cold(lambda: ref.best_edge(sim, lr, lc), 10),
+            library_ms=event_ms_cold(lambda: torch.max(sim, dim=1), 30),
+            warm_ms=event_ms(lambda: best_edge_cuda(sim, lr, lc), 30),
+            bound=bound_ms(0.0, r * c * 4 + (r + c) * 4 + r * 8),
+        )
+        row["profiled_ms"] = profiled_kernel_ms(lambda: best_edge_cuda(sim, lr, lc), 20,
+                                                ("best_edge_rows",))
+        rows[f"best_edge {name}"] = row
+        log(f"phase 3 timing best_edge {name} (L2 flushed before each call): kernel "
+            f"{row['ms']:.4f} ms (back to back, L2 warm: {row['warm_ms']:.4f} ms; the kernel "
+            f"alone, profiled, L2 warm: {row['profiled_ms']:.4f} ms), plain "
+            f"{row['plain_ms']:.4f} ms, library torch.max(sim, dim=1) {row['library_ms']:.4f} ms "
+            f"(the unmasked row max only), bound {row['bound'][0]:.4f} ms ({row['bound'][1]}: "
+            f"{r}*{c}*4 B read, no arithmetic)")
+    for name in DECODE_CASES:
+        h, hk, dh, s, _, length = DECODE_CASES[name]
+        q, k, v, ln = decode_inputs(name, dev)
+        kt, vt = (a[:length].permute(1, 0, 2).contiguous()[None] for a in (k, v))
+        qt = q[None, :, None, :]
+        nb = k.element_size()
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+
+        want = ref.flash_decode(q, k, v, length)
+        lib_err = (library()[0, :, 0, :].float() - want.float()).abs().max().item()
+        row = dict(
+            ms=event_ms(lambda: flash_decode_cuda(q, k, v, ln), 30),
+            plain_ms=event_ms(lambda: ref.flash_decode(q, k, v, ln), 5),
+            library_ms=event_ms(library, 30),
+            bound=bound_ms(4.0 * h * length * dh, 2 * length * hk * dh * nb + 2 * h * dh * nb),
+        )
+        row["profiled_ms"] = profiled_kernel_ms(lambda: flash_decode_cuda(q, k, v, ln), 10,
+                                                ("flash_decode_split", "flash_decode_merge"))
+        merge_ms = profiled_kernel_ms(lambda: flash_decode_cuda(q, k, v, ln), 10,
+                                      ("flash_decode_merge",))
+        rows[f"flash_decode {name}"] = row
+        del kt, vt
+        log(f"phase 3 timing flash_decode {name} (h={h} hk={hk} dh={dh} s={s} length={length}): "
+            f"kernel {row['ms']:.4f} ms (its two launches alone, profiled: "
+            f"{row['profiled_ms']:.4f} ms, the merge {merge_ms:.4f} ms of it), plain "
+            f"{row['plain_ms']:.4f} ms, library "
+            f"scaled_dot_product_attention(enable_gqa=True) over k[:length] {row['library_ms']:.4f} "
+            f"ms (|library - plain| {lib_err:.2e}), bound {row['bound'][0]:.4f} ms "
+            f"({row['bound'][1]}: 2*length*hk*dh*{nb} B)")
+    return rows
+
+
+def phase_ops_stream_kernels(xs, dev):
+    """The two kernels' path: ops.best_edge and ops.flash_decode at the
+    phase 3 shapes, with the launch counters set to 0 before and read
+    after."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    be = best_edge_inputs(xs, dev)
+    dec = {name: decode_inputs(name, dev) for name in DECODE_CASES}
+    ops.reset_launch_counts()
+    outs = [ops.best_edge(*args) for args in be.values()]
+    dec_outs = [ops.flash_decode(*args) for args in dec.values()]
+    counts = ops.launch_counts()
+    for got, args in zip(outs, be.values()):
+        check_equal("ops.best_edge", got, ref.best_edge(*args))
+    for got, (name, args) in zip(dec_outs, dec.items()):
+        want = ref.flash_decode(*args)
+        if got.dtype == torch.float32:
+            if (got - want).abs().max().item() > DECODE_TOL:
+                raise AssertionError(f"ops.flash_decode {name}: beyond {DECODE_TOL}")
+        else:
+            check_bf16_ulp(f"ops.flash_decode {name}", got, want)
+    others = {k: v for k, v in counts.items() if k not in ("best_edge", "flash_decode")}
+    if counts["best_edge"] != 2 or counts["flash_decode"] != 2 or any(others.values()):
+        raise AssertionError(f"ops.best_edge / ops.flash_decode did not run on their kernels: {counts}")
+    log(f"phase 4 ops.best_edge ({', '.join(be)}) and ops.flash_decode ({', '.join(dec)}): "
+        f"outputs held to the plain versions; launches {counts}")
+    return counts
+
+
+def stream_run(fn, *args, **kwargs):
+    """One streaming fit: (result, wall s, launch counts, device memory it
+    took above what was allocated before it)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out, wall = sync_time(fn, *args, **kwargs)
+    return out, wall, ops.launch_counts(), torch.cuda.max_memory_allocated() - base
+
+
+def profile_stream(label, fn, *args, **kwargs) -> str:
+    """One streaming fit under torch.profiler: the device's busy share (the
+    union of kernel and copy intervals over the wall time: the copies run on
+    a side stream), the host-to-device copies' time and bytes, and how much
+    of the copy time overlapped kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = sync_time(lambda: fn(*args, **kwargs))
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ev:
+        return f"{label}: the profiler recorded no device time (not measured)"
+    spans = sorted((e.time_range.start, e.time_range.end) for e in ev)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy, cur_s, cur_e = busy + cur_e - cur_s, a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy = (busy + cur_e - cur_s) / 1e6
+    copies = [e for e in ev if "HtoD" in e.name]
+    copy_s = sum(e.time_range.end - e.time_range.start for e in copies) / 1e6
+    kern_s = sum(e.time_range.end - e.time_range.start for e in ev if "Memcpy" not in e.name
+                 and "Memset" not in e.name) / 1e6
+    overlap = max(0.0, kern_s + copy_s - busy)
+    return (f"{label} (profiled): wall {wall:.4f} s, device busy {busy:.4f} s "
+            f"({100 * busy / wall:.1f}%), kernels {kern_s:.4f} s, host-to-device copies "
+            f"{len(copies)} taking {copy_s:.4f} s, overlap of copies and kernels ~{overlap:.4f} s")
+
+
+def stream_report(name, wall, passes, pass_bytes, counts, peak, extra=""):
+    log(f"phase 4 {name}: {wall:.4f} s, {passes} passes, {wall / passes:.4f} s per pass; "
+        f"{passes * pass_bytes / 2**30:.2f} GiB copied to the card "
+        f"({passes * pass_bytes / wall / 1e9:.1f} GB/s of wall time); device memory above the "
+        f"resident state {peak / 2**20:.0f} MiB; launches {counts}{extra}")
+
+
+def agreement(a, b) -> float:
+    return (a.cpu() == b.cpu()).double().mean().item()
+
+
+def rel(a, b) -> float:
+    return abs(float(a) - float(b)) / abs(float(b))
+
+
+def phase_stream_host(x, dev):
+    """Streaming K-Means, Buckshot and BKC over the 1 GB collection's tf-idf
+    rows held in host memory (CorpusStream.from_array, 8 chunks of 32,768
+    rows, the last with 12,144 pad rows), held against the resident fits on
+    the card."""
+    import os
+
+    import torch
+
+    from repro_torch.common import l2_normalize
+    from repro_torch.core import sampling
+    from repro_torch.core.bkc import bkc_fit, bkc_fit_stream
+    from repro_torch.core.buckshot import buckshot_fit, buckshot_stream
+    from repro_torch.core.kmeans import init_random_centers, kmeans_fit, kmeans_fit_stream
+    from repro_torch.text.stream import CorpusStream
+
+    n, d = x.shape
+    t = time.perf_counter()
+    x_host = x.cpu().numpy()
+    st = CorpusStream.from_array(x_host, chunk=STREAM_CHUNK)
+    nch = st.n_chunks
+    pass_bytes = nch * STREAM_CHUNK * (d + 1) * 4  # x and w of every chunk
+    log(f"phase 4 streaming from host memory: x {x_host.nbytes / 1e9:.2f} GB on the host "
+        f"({time.perf_counter() - t:.2f} s to copy it there), {nch} chunks of {STREAM_CHUNK} "
+        f"rows, the last with {nch * STREAM_CHUNK - n} pad rows")
+
+    # (1) K-Means, k = 50, from the baseline's initial centers
+    init = init_random_centers(x, K, torch.Generator().manual_seed(SEED))
+    res, t_res = sync_time(kmeans_fit, x, init, K)
+    km, wall, counts, peak = stream_run(kmeans_fit_stream, st, init, K)
+    passes = km.iterations + 1
+    check_result("kmeans_fit_stream", km, n, d)
+    agree, r = agreement(km.assignment, res.assignment), rel(km.rss, res.rss)
+    stream_report(f"kmeans_fit_stream k={K}", wall, passes, pass_bytes, counts, peak,
+                  f"; resident kmeans_fit {t_res:.4f} s ({t_res / passes:.4f} s per pass); "
+                  f"{km.iterations} iterations (resident {res.iterations}), agreement {agree}, "
+                  f"rss {km.rss.item()} vs {res.rss.item()} (rel {r:.2e})")
+    if not (km.iterations == res.iterations and agree >= 0.999 and r <= 1e-4):
+        raise AssertionError("kmeans_fit_stream disagrees with the resident fit")
+    if counts["assign_stats"] != passes * nch:
+        raise AssertionError(f"kmeans_fit_stream: {counts['assign_stats']} assign_stats "
+                             f"launches, expected {passes} passes x {nch} chunks")
+    os.environ["REPRO_STREAM_PREFETCH"] = "0"
+    try:
+        off, wall_off, _, peak_off = stream_run(kmeans_fit_stream, st, init, K)
+    finally:
+        del os.environ["REPRO_STREAM_PREFETCH"]
+    if not (torch.equal(off.centers, km.centers) and torch.equal(off.assignment, km.assignment)
+            and torch.equal(off.rss, km.rss)):
+        raise AssertionError("kmeans_fit_stream: prefetch on and off give other bits")
+    one, wall_one, _, peak_one = stream_run(kmeans_fit_stream, CorpusStream.from_array(x_host),
+                                            init, K)
+    if not (torch.equal(one.centers, res.centers)
+            and torch.equal(one.assignment, res.assignment.cpu())
+            and torch.equal(one.rss, res.rss) and one.iterations == res.iterations):
+        raise AssertionError("kmeans_fit_stream on one chunk differs from kmeans_fit")
+    log(f"phase 4 kmeans_fit_stream: prefetch off {wall_off:.4f} s ({wall_off / passes:.4f} s per "
+        f"pass, {peak_off / 2**20:.0f} MiB), the same bits as prefetch on; one chunk of {n} rows "
+        f"{wall_one:.4f} s ({peak_one / 2**20:.0f} MiB), equal to kmeans_fit bit for bit")
+    log("phase 4 profile " + profile_stream("kmeans_fit_stream", kmeans_fit_stream, st, init, K))
+
+    # (2) Buckshot, k = 50 (s = 3,536), 3 K-Means iterations
+    s = sampling.buckshot_sample_size(n, K)
+    bs, wall, counts, peak = stream_run(
+        buckshot_stream, st, K, torch.Generator().manual_seed(SEED), device=dev)
+    check_result("buckshot_stream", bs.kmeans, n, d)
+    rows, ids = sampling.reservoir_sample_stream(
+        st, s, torch.Generator().manual_seed(SEED), device=dev)
+    if not (torch.equal(torch.from_numpy(ids), bs.sample_idx) and ids.shape == (s,)
+            and len(set(ids.tolist())) == s and 0 <= ids.min() and ids.max() < n):
+        raise AssertionError("reservoir_sample_stream: not s distinct real rows, or not repeated")
+    if not torch.equal(rows.cpu(), torch.from_numpy(x_host[ids])):
+        raise AssertionError("reservoir_sample_stream: rows differ from x at their ids")
+    want = buckshot_fit(x, torch.from_numpy(ids).to(dev).long(), K)
+    passes = 1 + bs.kmeans.iterations + 1
+    agree, r = agreement(bs.kmeans.assignment, want.kmeans.assignment), rel(bs.kmeans.rss, want.kmeans.rss)
+    stream_report(f"buckshot_stream k={K}", wall, passes, pass_bytes, counts, peak,
+                  f"; s={s} distinct real ids, rows equal x_host at them; agreement with resident "
+                  f"buckshot_fit on those ids {agree}, rss rel {r:.2e}")
+    if agree < 0.999 or r > 1e-4:
+        raise AssertionError("buckshot_stream disagrees with the resident fit on its sample")
+    if not (counts["sim_best_edge"] >= 1 and counts["label_stats"] >= 1
+            and counts["assign_stats"] == (bs.kmeans.iterations + 1) * nch):
+        raise AssertionError(f"buckshot_stream did not go through its kernels: {counts}")
+    log("phase 4 profile " + profile_stream(
+        "buckshot_stream", buckshot_stream, st, K, torch.Generator().manual_seed(SEED), device=dev))
+
+    # (3) BKC, k = 400, BigK = 800, from phase 4's BKC draw, bounded and not
+    pick = sampling.sample_indices(n, BIG_K, torch.Generator().manual_seed(SEED), dev)
+    init = l2_normalize(x[pick])
+    want, t_res = sync_time(bkc_fit, x, init, BIG_K, BKC_K)
+    got = {}
+    for bounded in (True, False):
+        got[bounded], wall, counts, peak = stream_run(
+            bkc_fit_stream, st, init, BIG_K, BKC_K, bounded=bounded)
+        kernel = "assign_stats_bounded" if bounded else "assign_stats"
+        stream_report(f"bkc_fit_stream k={BKC_K} BigK={BIG_K} bounded={bounded}", wall, 2,
+                      pass_bytes, counts, peak, f"; resident bkc_fit {t_res:.4f} s")
+        if counts[kernel] != 2 * nch:
+            raise AssertionError(f"bkc_fit_stream: {counts[kernel]} {kernel} launches, "
+                                 f"expected 2 passes x {nch} chunks")
+    a, b = got[True], got[False]
+    if not all(torch.equal(getattr(a, f), getattr(b, f)) for f in
+               ("centers", "assignment", "group_of_mc", "threshold", "rss")):
+        raise AssertionError("bkc_fit_stream: bounded and unbounded differ")
+    check_result("bkc_fit_stream", a, n, d, BKC_K)
+    same_groups = torch.equal(a.group_of_mc, want.group_of_mc)
+    agree, r = agreement(a.assignment, want.assignment), rel(a.rss, want.rss)
+    log(f"phase 4 bkc_fit_stream: bounded and unbounded equal bit for bit; threshold "
+        f"{a.threshold.item()!r} (resident {want.threshold.item()!r}); groups equal the resident "
+        f"bkc_fit's: {same_groups}; agreement {agree}, rss rel {r:.2e}")
+    if not same_groups:
+        from repro_torch.core.kmeans import _stream_pass
+        from repro_torch.core.microcluster import (
+            MicroClusters,
+            build_microclusters,
+            pair_similarity,
+        )
+
+        sums, counts_mc, min_sim, sumsq = _stream_pass(st, init, BIG_K).stats
+        valid = counts_mc > 0
+        mc = MicroClusters(counts_mc, sums, sumsq, init, torch.where(valid, min_sim, 1.0), valid)
+        pair = pair_similarity(mc)[0]
+        pair_res = pair_similarity(build_microclusters(x, init, BIG_K)[0])[0]
+        flipped = (pair >= a.threshold) != (pair_res >= want.threshold)
+        gap = (pair[flipped] - a.threshold).abs().max().item() if flipped.any() else float("inf")
+        log(f"phase 4 bkc_fit_stream: {int(flipped.sum()) // 2} edges differ, the farthest "
+            f"{gap!r} from the threshold")
+        if gap >= 1e-5:
+            raise AssertionError("bkc_fit_stream: groups differ from the resident fit's, "
+                                 "not at a near-tie")
+    elif agree < 0.999 or r > 1e-4:
+        raise AssertionError("bkc_fit_stream disagrees with the resident fit")
+    log("phase 4 profile " + profile_stream(
+        "bkc_fit_stream bounded", bkc_fit_stream, st, init, BIG_K, BKC_K, bounded=True))
+
+
+def phase_stream_regen(dev):
+    """The quickstart's chain, regenerating the corpus on every pass:
+    prepare_synthetic_stream -> kmeans_stream / bkc_stream (BigK = 2k) /
+    buckshot_stream, at a tenth of the 1 GB shape (see the module
+    docstring), chunks of 8,192 rows."""
+    import torch
+
+    from repro_torch.core import metrics
+    from repro_torch.core.bkc import bkc_stream
+    from repro_torch.core.buckshot import buckshot_stream
+    from repro_torch.core.kmeans import kmeans_stream
+    from repro_torch.text import pipeline, synth, tfidf
+    from repro_torch.text.stream import run_pass, to_device
+
+    shape = synth.paper_1gb_shape(scale=0.1)
+    n, d, topics = shape["n_docs"], shape["vocab"], shape["n_topics"]
+    prep, t_prep = sync_time(pipeline.prepare_synthetic_stream, **shape, chunk=REGEN_CHUNK,
+                             device=dev)
+    nch = prep.x.n_chunks
+    t = time.perf_counter()
+    corpus = synth.make_corpus(**shape)
+    t_gen = time.perf_counter() - t
+    want = tfidf.tfidf(torch.from_numpy(corpus.counts).to(dev))
+    for prefetch in (2, 0):  # the mapped stream's rescale runs on the producer thread when 2
+        chunks, t_pass = sync_time(run_pass, prep.x, lambda acc, ch, ci: acc + [to_device(ch.x, dev)],
+                                   [], copy_to=dev, prefetch=prefetch)
+        if not torch.equal(torch.cat(chunks)[:n], want):
+            raise AssertionError(f"tfidf_stream (prefetch {prefetch}) differs from the resident tfidf")
+        log(f"phase 4 regenerated stream: tf-idf chunks with prefetch {prefetch} equal the "
+            f"resident tfidf of make_corpus bit for bit ({t_pass:.2f} s a pass)")
+    del chunks, want
+    log(f"phase 4 regenerated stream at n={n} (paper_1gb_shape(scale=0.1)), {nch} chunks of "
+        f"{REGEN_CHUNK}: prepare_synthetic_stream (the df pass) {t_prep:.2f} s; make_corpus of "
+        f"the same shape {t_gen:.2f} s on the host")
+    truth = torch.from_numpy(prep.labels)
+    pass_bytes = nch * REGEN_CHUNK * (d + 1) * 4
+    runs = (
+        ("kmeans_stream", lambda: kmeans_stream(prep.x, K, torch.Generator().manual_seed(SEED),
+                                                device=dev), K),
+        ("bkc_stream", lambda: bkc_stream(prep.x, 2 * K, K, torch.Generator().manual_seed(SEED),
+                                          device=dev), K),
+        ("buckshot_stream", lambda: buckshot_stream(prep.x, K, torch.Generator().manual_seed(SEED),
+                                                    kmeans_iters=2, device=dev), K),
+    )
+    for name, fn, k in runs:
+        out, wall, counts, peak = stream_run(fn)
+        km = out.kmeans if name == "buckshot_stream" else out
+        check_result(name, km, n, d, k)
+        iters = getattr(km, "iterations", 1)
+        passes = {"kmeans_stream": 1 + iters + 1, "bkc_stream": 3,
+                  "buckshot_stream": 1 + iters + 1}[name]
+        assign = passes - 1  # every pass but the reservoir's runs assign_stats
+        if counts["assign_stats"] != assign * nch:
+            raise AssertionError(f"{name}: {counts['assign_stats']} assign_stats launches, "
+                                 f"expected {assign} passes x {nch} chunks")
+        quality = dict(rss=km.rss.item(),
+                       purity=metrics.purity(km.assignment, truth, k, topics).item(),
+                       nmi=metrics.nmi(km.assignment, truth, k, topics).item())
+        stream_report(f"regenerated {name}", wall, passes, pass_bytes, counts, peak,
+                      f"; quality {quality}")
+
+
 def main() -> int:
     import torch
 
@@ -1284,10 +1851,15 @@ def main() -> int:
     errs_bkc, state = phase_parity_main_bkc(x, dev)
     errs.update(errs_bkc)
     errs["component_best_edge"] = phase_parity_edges_cbe(dev)
+    errs["best_edge"] = phase_parity_best_edge(xs, dev)
+    errs["flash_decode"] = phase_parity_flash_decode(dev)
     log(f"phase 2 parity took {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     times = phase_timing(x, xs, dev)
     times.update(phase_timing_bkc(x, state, dev))
+    stream_rows = phase_timing_stream_kernels(xs, dev)
+    times["best_edge"] = stream_rows[f"best_edge {s}x{s}"]
+    times["flash_decode"] = stream_rows["flash_decode kernel_bench f32"]
     log(f"phase 3 timing took {time.perf_counter() - t:.1f} s")
     del x, xs, state
     torch.cuda.empty_cache()
@@ -1301,9 +1873,16 @@ def main() -> int:
     dist_counts, err, times["component_best_edge"] = phase_distributed(x, dev)
     counts["component_best_edge"] = dist_counts["component_best_edge"]
     errs["component_best_edge"] = max(errs["component_best_edge"], err)
+    # the two kernels' own path: their public ops at the phase 3 shapes
+    op_counts = phase_ops_stream_kernels(l2_normalize(x[sidx]), dev)
+    counts["best_edge"], counts["flash_decode"] = op_counts["best_edge"], op_counts["flash_decode"]
     log(f"phase 4 paths took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_stream_host(x, dev)
     del x
     torch.cuda.empty_cache()
+    phase_stream_regen(dev)
+    log(f"phase 4 streaming paths took {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     phase_oracle(dev)
     phase_oracle_bkc(dev)
@@ -1322,6 +1901,10 @@ def main() -> int:
                                  "src/repro/kernels/assign_stats.py:481"),
         "component_best_edge": ("src/repro_torch/kernels/csrc/component_reduce.cu",
                                 "src/repro/kernels/component_reduce.py:130"),
+        "best_edge": ("src/repro_torch/kernels/csrc/best_edge.cu",
+                      "src/repro/kernels/best_edge.py:97"),
+        "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                         "src/repro/kernels/flash_decode.py:124"),
     }
     kernels = []
     for name, (source, tpu) in replaces.items():

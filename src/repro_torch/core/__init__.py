@@ -1,4 +1,5 @@
-"""The paper's clustering algorithms in PyTorch (single device).
+"""The paper's clustering algorithms in PyTorch (single device; resident,
+or streamed out of core through ``*_stream``).
 
   kmeans      — spherical K-Means over the PKMeans map/combine/reduce pattern
   bkc         — BigKClustering: micro-clusters -> joinToGroups -> final pass
@@ -8,12 +9,20 @@
 """
 
 from repro_torch.core import metrics, sampling
-from repro_torch.core.bkc import BKCResult, bkc, bkc_fit, join_to_groups
+from repro_torch.core.bkc import (
+    BKCResult,
+    bkc,
+    bkc_fit,
+    bkc_fit_stream,
+    bkc_stream,
+    join_to_groups,
+)
 from repro_torch.core.buckshot import (
     BuckshotResult,
     buckshot,
     buckshot_fit,
     buckshot_phase1,
+    buckshot_stream,
     phase1_from_sample,
 )
 from repro_torch.core.hac import (
@@ -35,8 +44,10 @@ from repro_torch.core.kmeans import (
     assign_batch,
     kmeans,
     kmeans_fit,
+    kmeans_fit_stream,
     kmeans_step,
     kmeans_step_bounded,
+    kmeans_stream,
 )
 from repro_torch.core.microcluster import (
     MicroClusters,
@@ -54,18 +65,23 @@ __all__ = [
     "assign_batch",
     "bkc",
     "bkc_fit",
+    "bkc_fit_stream",
+    "bkc_stream",
     "boruvka_mst",
     "build_microclusters",
     "buckshot",
     "buckshot_fit",
     "buckshot_phase1",
+    "buckshot_stream",
     "compact_labels",
     "cut_mst_edges",
     "join_to_groups",
     "kmeans",
     "kmeans_fit",
+    "kmeans_fit_stream",
     "kmeans_step",
     "kmeans_step_bounded",
+    "kmeans_stream",
     "label_components",
     "label_components_np",
     "merge_stats",

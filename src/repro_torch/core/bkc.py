@@ -13,14 +13,16 @@ Step 5 is a BISECTION on s over min-label-propagation connected components:
 #groups(s) is monotone non-decreasing in s, so the bisection finds an exact-k
 threshold whenever one exists; otherwise it takes the smallest s with
 #groups >= k and absorbs the smallest surplus groups into their most similar
-anchor group. Single-device counterpart of the JAX package's ``core/bkc.py``;
-the bisection keeps its f32 arithmetic step for step.
+anchor group. ``bkc_fit_stream`` streams steps 2 and 7 over a
+``CorpusStream``. Single-device counterpart of the JAX package's
+``core/bkc.py``; the bisection keeps its f32 arithmetic step for step.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.common import l2_normalize, segment_sum
@@ -192,4 +194,98 @@ def bkc(
     centers = l2_normalize(x[idx])
     return bkc_fit(
         x, centers, big_k, k, fused=fused, bounded=ops.bounds_enabled(bounded)
+    )
+
+
+# ------------------------------------------------------------------ streaming
+
+
+def bkc_fit_stream(
+    stream,
+    init_centers: torch.Tensor,
+    big_k: int,
+    k: int,
+    *,
+    checkpoint=None,
+    guard=None,
+    bounded: bool | None = None,
+) -> BKCResult:
+    """Out-of-core BKC: passes 1 and 3 stream chunks through the fused
+    kernel with carried accumulators on the centers' device (the executor
+    prefetches and copies chunk i+1 while chunk i folds); the K×K group
+    phase runs on the O(BigK·d) micro-cluster statistics as in ``bkc_fit``.
+    Peak residency O(chunk·d + BigK·d) for any collection size.
+
+    ``bounded`` (None → REPRO_ASSIGN_BOUNDS) routes both passes through the
+    bound-pruned op with sentinel bounds (and, on the card, a center index):
+    the same groups and labels bit for bit. Assignment and best_sim come back
+    as host tensors; ``checkpoint`` is not ported yet and must be None.
+    """
+    from repro_torch.core.kmeans import _host_labels, _stream_pass
+    from repro_torch.text.stream import require_no_checkpoint
+
+    require_no_checkpoint(checkpoint)
+    bounded = ops.bounds_enabled(bounded)
+
+    # pass 1: micro-cluster statistics folded over the stream (CF additivity
+    # is the chunk monoid)
+    out = _stream_pass(
+        stream, init_centers, big_k, pass_id="bkc/mc", guard=guard,
+        bounded=bounded,
+        index=ops.center_index_for(init_centers, init_centers) if bounded else None,
+    )
+    sums, counts, min_sim, sumsq = out.stats
+    valid = counts > 0
+    mc = MicroClusters(
+        n=counts,
+        cf1=sums,
+        cf2=sumsq,
+        centers=init_centers,
+        min_sim=torch.where(valid, min_sim, 1.0),
+        valid=valid,
+    )
+    centers, group, s = _group_centers(mc, k)
+
+    # pass 3: final assignment — the same streaming pass against the k centers
+    out = _stream_pass(
+        stream, centers, k, True, pass_id="bkc/final", guard=guard,
+        bounded=bounded,
+        index=ops.center_index_for(centers, centers) if bounded else None,
+    )
+    sums, counts, _, sumsq = out.stats
+    rss = metrics.rss_from_assignment_stats(sums, counts, torch.sum(sumsq), k)
+    return BKCResult(
+        centers=centers,
+        assignment=_host_labels(out.idx, np.int32),
+        best_sim=_host_labels(out.best_sim, np.float32),
+        rss=rss,
+        objective=out.objective,
+        group_of_mc=group,
+        threshold=s,
+    )
+
+
+def bkc_stream(
+    stream,
+    big_k: int,
+    k: int,
+    generator: torch.Generator | None = None,
+    *,
+    uniforms=None,
+    device: str | torch.device | None = None,
+    checkpoint=None,
+    guard=None,
+    bounded: bool | None = None,
+) -> BKCResult:
+    """Streaming entry point: the BigK random center documents come from the
+    one-pass reservoir (``generator`` a CPU generator, or the draws
+    ``uniforms`` gives) onto ``device`` (``None`` means the CUDA device),
+    then the streaming fit."""
+    rows, _ = sampling.reservoir_sample_stream(
+        stream, big_k, generator, uniforms=uniforms, device=device,
+        checkpoint=checkpoint, guard=guard,
+    )
+    return bkc_fit_stream(
+        stream, l2_normalize(rows), big_k, k, checkpoint=checkpoint, guard=guard,
+        bounded=bounded,
     )

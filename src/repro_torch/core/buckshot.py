@@ -10,6 +10,7 @@ exists. ``hac="prim"`` keeps the dense Prim path as the exact oracle. The
 initial centers come from one ``label_stats`` pass over the sample. Phase 2
 is ``kmeans_fit``; ``bounded=True`` runs it through the bound-pruned pass
 (iteration 1 seeds the bounds, the next ones prune against them).
+``buckshot_stream`` is the out-of-core form over a ``CorpusStream``.
 """
 
 from __future__ import annotations
@@ -100,4 +101,49 @@ def buckshot(
     return buckshot_fit(
         x, sample_idx, k, kmeans_iters=kmeans_iters, fused=fused, hac=hac,
         bounded=ops.bounds_enabled(bounded),
+    )
+
+
+def buckshot_stream(
+    stream,
+    k: int,
+    generator: torch.Generator | None = None,
+    *,
+    uniforms=None,
+    sample_size: int | None = None,
+    kmeans_iters: int = 3,
+    tol: float = 0.0,
+    hac: str = "boruvka",
+    device: str | torch.device | None = None,
+    checkpoint=None,
+    guard=None,
+    bounded: bool | None = None,
+) -> BuckshotResult:
+    """Out-of-core Buckshot: the s = √(kn) sample comes from a one-pass
+    running top-s reservoir over the chunk stream (an exact uniform sample,
+    ``core/sampling.reservoir_sample_stream``, drawn with ``generator`` or
+    the draws ``uniforms`` gives) onto ``device`` (``None`` means the CUDA
+    device); phase 1 runs matrix-free on the O(s·d) sample, and phase 2
+    streams the whole collection through the carried-accumulator K-Means
+    passes (``kmeans_fit_stream``). Peak residency O(chunk·d + s·d + k·d):
+    the dense (n, d) matrix never exists. ``sample_idx`` is a host tensor;
+    ``checkpoint`` is not ported yet and must be None.
+    """
+    from repro_torch.core.kmeans import kmeans_fit_stream
+
+    s = sample_size or sampling.buckshot_sample_size(stream.n, k)
+    rows, sample_idx = sampling.reservoir_sample_stream(
+        stream, s, generator, uniforms=uniforms, device=device,
+        checkpoint=checkpoint, guard=guard,
+    )
+    labels, init_centers = phase1_from_sample(rows, k, hac=hac)
+    km = kmeans_fit_stream(
+        stream, init_centers, k, max_iters=kmeans_iters, tol=tol,
+        checkpoint=checkpoint, guard=guard, bounded=bounded,
+    )
+    return BuckshotResult(
+        kmeans=km,
+        sample_idx=torch.from_numpy(sample_idx),
+        sample_labels=labels,
+        init_centers=init_centers,
     )

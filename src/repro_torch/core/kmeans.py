@@ -8,6 +8,9 @@ One iteration is one fused pass over the documents:
 ``label_stats``); ``bounded=True`` carries per-row Elkan/Hamerly bounds
 through ``ops.assign_stats_bounded``, with the same centers and labels.
 
+``kmeans_fit_stream`` runs the same iterations out of core, one streaming
+pass over a ``CorpusStream`` per iteration.
+
 Single-device counterpart of the JAX package's ``core/kmeans.py``. Documents
 are expected L2-normalized (cosine semantics, paper §3.1).
 """
@@ -16,6 +19,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.common import l2_normalize
@@ -238,3 +242,242 @@ def assign_batch(
         index=index,
     )
     return st.idx, st.best_sim
+
+
+# ------------------------------------------------------------------ streaming
+
+
+def _stream_fold_chunk(carry, x, w, centers):
+    """Fold one chunk: ONE fused kernel call, merged into the carry.
+
+    Also returns the chunk's (idx, best_sim, weighted objective term) — they
+    fall out of the same single read of the chunk, so the final pass collects
+    assignments at no extra cost.
+    """
+    st = ops.assign_stats(x, centers, w)
+    obj = torch.sum(w * (1.0 - st.best_sim))  # pad rows carry w == 0
+    return ops.merge_stats(carry, st), (st.idx, st.best_sim, obj)
+
+
+def _stream_fold_chunk_bounded(carry, x, w, centers, bounds, drift, *, index=None):
+    """Bounded sibling of ``_stream_fold_chunk``: the same fold, plus the
+    refreshed per-row bounds and the chunk's (pruned, real) row counts for
+    the prune rate."""
+    st = ops.assign_stats_bounded(x, centers, bounds, drift, w, index=index)
+    obj = torch.sum(w * (1.0 - st.best_sim))  # pad rows carry w == 0
+    real = w > 0
+    pruned = torch.sum((st.pruned & real).float())
+    rows = torch.sum(real.float())
+    return ops.merge_stats(carry, st), (
+        st.idx, st.best_sim, obj, st.bounds, pruned, rows,
+    )
+
+
+class StreamPassOut(NamedTuple):
+    """What one streaming assignment pass returns (see ``_stream_pass``)."""
+
+    stats: tuple  # (sums, counts, min_sim, sumsq) folded accumulators
+    idx: "np.ndarray | None"  # (n,) collected labels (None unless collect)
+    best_sim: "np.ndarray | None"  # (n,) collected similarities
+    objective: torch.Tensor  # weighted cosine objective
+    bounds: "list | None"  # per-chunk host (idx, lo, hi) blocks (bounded only)
+    pruned: float  # real rows that skipped the sweep (bounded only)
+    rows: float  # real rows seen (bounded only)
+
+
+def _stream_pass(
+    stream,
+    centers: torch.Tensor,
+    k: int,
+    collect: bool = False,
+    *,
+    pass_id: str = "kmeans/pass",
+    checkpoint=None,
+    guard=None,
+    bounded: bool = False,
+    bounds_blocks=None,
+    drift=None,
+    index=None,
+) -> StreamPassOut:
+    """One full pass driven by the streaming executor
+    (text/stream.run_pass): the prefetcher's background thread regenerates
+    chunk i+1 and copies it to the centers' device while that device folds
+    chunk i into the carried f32 accumulators — O(chunk·d + k·d) resident.
+    idx/best_sim come back as host arrays only if ``collect``.
+
+    bounded=True carries per-row Elkan/Hamerly bounds: each chunk's prior
+    bounds come from ``bounds_blocks`` (the previous pass's per-chunk host
+    blocks, aligned by chunk index — the unknown sentinel when absent),
+    deflated by the (k,) ``drift`` vector, and the refreshed blocks ride the
+    fold carry as host arrays."""
+    from repro_torch.text.stream import require_no_checkpoint, run_pass, to_device
+
+    require_no_checkpoint(checkpoint)
+    dev = centers.device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    if bounded:
+        drift_dev = torch.zeros((k,), dtype=torch.float32, device=dev) if drift is None else drift
+
+        def fold(state, ch, ci):
+            carry, obj, idxs, sims, blocks, pruned, rows = state
+            x = to_device(ch.x, dev)
+            if bounds_blocks is not None and ci < len(bounds_blocks):
+                b = ops.Bounds(*(to_device(a, dev) for a in bounds_blocks[ci]))
+            else:
+                b = ops.bounds_identity(x.shape[0], dev)
+            carry, (idx, sim, o, nb, p, r) = _stream_fold_chunk_bounded(
+                carry, x, to_device(ch.w, dev), centers, b, drift_dev, index=index
+            )
+            blocks = blocks + [tuple(t.cpu().numpy() for t in nb)]
+            if collect:
+                idxs = idxs + [idx.cpu().numpy()]
+                sims = sims + [sim.cpu().numpy()]
+            return carry, obj + o, idxs, sims, blocks, pruned + p, rows + r
+
+        carry, obj, idxs, sims, blocks, pruned, rows = run_pass(
+            stream,
+            fold,
+            (ops.stats_identity(k, stream.dim, dev), zero, [], [], [], zero, zero),
+            copy_to=dev,
+            pass_id=pass_id,
+            guard=guard,
+        )
+    else:
+
+        def fold(state, ch, ci):
+            carry, obj, idxs, sims = state
+            carry, (idx, sim, o) = _stream_fold_chunk(
+                carry, to_device(ch.x, dev), to_device(ch.w, dev), centers
+            )
+            if collect:
+                idxs = idxs + [idx.cpu().numpy()]
+                sims = sims + [sim.cpu().numpy()]
+            return carry, obj + o, idxs, sims
+
+        carry, obj, idxs, sims = run_pass(
+            stream,
+            fold,
+            (ops.stats_identity(k, stream.dim, dev), zero, [], []),
+            copy_to=dev,
+            pass_id=pass_id,
+            guard=guard,
+        )
+        blocks, pruned, rows = None, zero, zero
+    return StreamPassOut(
+        stats=carry,
+        idx=np.concatenate(idxs)[: stream.n] if collect else None,
+        best_sim=np.concatenate(sims)[: stream.n] if collect else None,
+        objective=obj,
+        bounds=blocks,
+        pruned=float(pruned),
+        rows=float(rows),
+    )
+
+
+def _host_labels(a: np.ndarray | None, dtype: np.dtype) -> torch.Tensor:
+    """Collected per-row output as a host tensor ((0,) for an empty stream)."""
+    return torch.from_numpy(np.zeros((0,), dtype) if a is None else a)
+
+
+def kmeans_fit_stream(
+    stream,
+    init_centers: torch.Tensor,
+    k: int,
+    *,
+    max_iters: int = 8,
+    tol: float = 1e-4,
+    checkpoint=None,
+    guard=None,
+    bounded: bool | None = None,
+    profile: dict | None = None,
+) -> KMeansResult:
+    """Out-of-core ``kmeans_fit``: the host drives iterations, each
+    iteration is one streaming pass through the fused assign+stats kernel
+    with carried accumulators on the centers' device — peak residency
+    O(chunk·d + k·d), any n.
+
+    The same convergence rule as the resident path (stop when the largest
+    squared center movement is <= tol**2); assignment and best_sim come back
+    as host tensors trimmed to the real rows. On a one-chunk stream the
+    result equals ``kmeans_fit``'s bit for bit.
+
+    ``bounded`` (None → REPRO_ASSIGN_BOUNDS) carries per-chunk
+    Elkan/Hamerly bounds between iterations as host blocks: the same labels
+    and centers bit for bit. ``profile`` (a dict) receives a per-pass
+    ``prune_rate`` list. ``guard='finite'`` raises GuardError naming the
+    pass and chunk that first produced a non-finite accumulator;
+    ``checkpoint`` is not ported yet and must be None.
+    """
+    from repro_torch.text.stream import require_no_checkpoint
+
+    require_no_checkpoint(checkpoint)
+    bounded = ops.bounds_enabled(bounded)
+    centers = init_centers
+    prev_centers = None  # None -> unknown drift -> sentinel bounds
+    bblocks = None
+    iters = 0
+
+    def _drift():
+        if prev_centers is None:
+            return None
+        return torch.sqrt(torch.sum((centers - prev_centers) ** 2, dim=1))
+
+    def _pass(collect, pass_id):
+        index = ops.center_index_for(centers, centers) if bounded else None
+        out = _stream_pass(
+            stream, centers, k, collect, pass_id=pass_id, guard=guard,
+            bounded=bounded, bounds_blocks=bblocks, drift=_drift(), index=index,
+        )
+        if profile is not None and bounded:
+            profile.setdefault("prune_rate", []).append(out.pruned / max(out.rows, 1.0))
+        return out
+
+    for i in range(max_iters):
+        out = _pass(False, f"kmeans/iter{i}")
+        sums, counts = out.stats[0], out.stats[1]
+        means = sums / torch.clamp(counts, min=1.0)[:, None]
+        new_centers = torch.where(counts[:, None] > 0, l2_normalize(means), centers)
+        moving = bool(_moved(new_centers, centers) > tol * tol)
+        prev_centers, bblocks = centers, out.bounds
+        centers = new_centers
+        iters += 1
+        if not moving:
+            break
+    # final assignment AND the RSS stats from the same streaming pass
+    out = _pass(True, "kmeans/final")
+    sums, counts, _, sumsq = out.stats
+    rss = metrics.rss_from_assignment_stats(sums, counts, torch.sum(sumsq), k)
+    return KMeansResult(
+        centers=centers,
+        assignment=_host_labels(out.idx, np.int32),
+        best_sim=_host_labels(out.best_sim, np.float32),
+        rss=rss,
+        objective=out.objective,
+        iterations=iters,
+    )
+
+
+def kmeans_stream(
+    stream,
+    k: int,
+    generator: torch.Generator | None = None,
+    *,
+    uniforms=None,
+    max_iters: int = 8,
+    tol: float = 1e-4,
+    device: str | torch.device | None = None,
+    checkpoint=None,
+    guard=None,
+) -> KMeansResult:
+    """Streaming entry point: the paper's random-document init drawn by the
+    one-pass reservoir (exact uniform k-sample, ``generator`` a CPU
+    generator, or the draws ``uniforms`` gives) onto ``device`` (``None``
+    means the CUDA device), then the streaming fit."""
+    rows, _ = sampling.reservoir_sample_stream(
+        stream, k, generator, uniforms=uniforms, device=device,
+        checkpoint=checkpoint, guard=guard,
+    )
+    return kmeans_fit_stream(
+        stream, l2_normalize(rows), k, max_iters=max_iters, tol=tol,
+        checkpoint=checkpoint, guard=guard,
+    )

@@ -32,7 +32,7 @@ NVCC_FLAGS = (
 )
 SOURCES = (
     "sim_best_edge", "label_stats", "assign_stats", "assign_argmax",
-    "assign_stats_bounded", "component_reduce",
+    "assign_stats_bounded", "component_reduce", "best_edge", "flash_decode",
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}

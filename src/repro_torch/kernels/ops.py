@@ -20,7 +20,9 @@ import torch
 from repro_torch.common import resolve_device
 from repro_torch.kernels import assign_argmax as _assign_argmax_k
 from repro_torch.kernels import assign_stats as _assign_stats_k
+from repro_torch.kernels import best_edge as _best_edge_k
 from repro_torch.kernels import component_reduce as _component_reduce_k
+from repro_torch.kernels import flash_decode as _flash_decode_k
 from repro_torch.kernels import ref
 from repro_torch.kernels import sim_best_edge as _sim_best_edge_k
 
@@ -33,6 +35,8 @@ def launch_counts() -> dict[str, int]:
         "assign_argmax": _assign_argmax_k.launches,
         "assign_stats_bounded": _assign_stats_k.launches["assign_stats_bounded"],
         "component_best_edge": _component_reduce_k.launches,
+        "best_edge": _best_edge_k.launches,
+        "flash_decode": _flash_decode_k.launches,
     }
 
 
@@ -40,6 +44,8 @@ def reset_launch_counts() -> None:
     _sim_best_edge_k.launches = 0
     _assign_argmax_k.launches = 0
     _component_reduce_k.launches = 0
+    _best_edge_k.launches = 0
+    _flash_decode_k.launches = 0
     for name in _assign_stats_k.launches:
         _assign_stats_k.launches[name] = 0
 
@@ -117,6 +123,34 @@ def merge_stats(
     )
 
 
+def assign_stats_chunked(
+    x: torch.Tensor,
+    centers: torch.Tensor,
+    w: torch.Tensor | None = None,
+    *,
+    chunk: int = 65_536,
+) -> AssignStats:
+    """The fused pass over row blocks of ``chunk`` rows, folded with
+    ``merge_stats`` from ``stats_identity``: one ``assign_stats`` call per
+    block, the per-row (idx, best_sim) concatenated. Labels are those of the
+    one-shot pass; the statistics are equal bit for bit on integer-valued
+    data (another summation order otherwise)."""
+    n, d = x.shape
+    k = centers.shape[0]
+    if n <= chunk:
+        return assign_stats(x, centers, w)
+    carry = stats_identity(k, d, x.device)
+    idxs, sims = [], []
+    for lo in range(0, n, chunk):
+        st = assign_stats(
+            x[lo:lo + chunk], centers, None if w is None else w[lo:lo + chunk]
+        )
+        carry = merge_stats(carry, st)
+        idxs.append(st.idx)
+        sims.append(st.best_sim)
+    return AssignStats(torch.cat(idxs), torch.cat(sims), *carry)
+
+
 # ---------------------------------------------------------------- label stats
 
 
@@ -134,6 +168,22 @@ def label_stats(
             None if w is None else w.float().contiguous(),
         )
     return ref.label_stats_scatter(x, idx, k, w)
+
+
+# ---------------------------------------------------------------- best edge
+
+
+def best_edge(
+    sim: torch.Tensor, labels_row: torch.Tensor, labels_col: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row best cross-component edge of an already-built (r, c)
+    similarity block (the single-link / Borůvka inner step): ((r,) int32
+    column, ties -> lowest, -1 if none; (r,) f32 similarity, NEG if none)."""
+    args = (sim.float().contiguous(), labels_row.to(torch.int32).contiguous(),
+            labels_col.to(torch.int32).contiguous())
+    if _on_card(sim):
+        return _best_edge_k.best_edge_cuda(*args)
+    return ref.best_edge(*args)
 
 
 # ---------------------------------------------------------------- fused sim+edge
@@ -186,6 +236,26 @@ def component_best_edge(
     if _on_card(row_w):
         return _component_reduce_k.component_best_edge_cuda(*args)
     return ref.component_best_edge_segment(*args)
+
+
+# ---------------------------------------------------------------- flash decode
+
+
+def flash_decode(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int | torch.Tensor
+) -> torch.Tensor:
+    """One-token GQA attention against a KV cache: q (h, dh), k and v
+    (s, hk, dh), positions below ``length`` attended (``length`` > s means
+    s; ``length`` <= 0 weighs every position alike). Output (h, dh) in q's
+    dtype. On the card ``length`` may be a 0-d int32 tensor there, which the
+    kernel reads without a host sync; a tensor on the CPU is read here."""
+    if _on_card(q):
+        if isinstance(length, torch.Tensor) and length.device.type == "cpu":
+            length = int(length)
+        return _flash_decode_k.flash_decode_cuda(
+            q.contiguous(), k.contiguous(), v.contiguous(), length
+        )
+    return ref.flash_decode(q, k, v, length)
 
 
 # ---------------------------------------------------------------- bounded
@@ -331,3 +401,35 @@ def assign_stats_bounded(
     return _pack_bounded(ref.assign_stats_bounded_scatter(
         x, centers, bounds.idx, bounds.lo, bounds.hi, drift, w
     ))
+
+
+def assign_stats_bounded_chunked(
+    x: torch.Tensor,
+    centers: torch.Tensor,
+    bounds: Bounds,
+    drift: torch.Tensor,
+    w: torch.Tensor | None = None,
+    *,
+    chunk: int = 65_536,
+    index: CenterIndex | None = None,
+) -> AssignStatsBounded:
+    """``assign_stats_bounded`` over row blocks of ``chunk`` rows, the
+    bounds sliced per block. Every row's sweep is independent, so labels,
+    bounds and the prune mask equal the one-shot pass's; the statistics fold
+    through ``merge_stats`` as in ``assign_stats_chunked``."""
+    n, d = x.shape
+    k = centers.shape[0]
+    if n <= chunk:
+        return assign_stats_bounded(x, centers, bounds, drift, w, index=index)
+    carry = stats_identity(k, d, x.device)
+    parts = []
+    for lo in range(0, n, chunk):
+        sl = slice(lo, lo + chunk)
+        st = assign_stats_bounded(
+            x[sl], centers, Bounds(bounds.idx[sl], bounds.lo[sl], bounds.hi[sl]),
+            drift, None if w is None else w[sl], index=index,
+        )
+        carry = merge_stats(carry, st)
+        parts.append((st.idx, st.best_sim, st.bounds.lo, st.bounds.hi, st.pruned))
+    idx, sim, lo_b, hi_b, pruned = (torch.cat(p) for p in zip(*parts))
+    return AssignStatsBounded(idx, sim, *carry, Bounds(idx, lo_b, hi_b), pruned)

@@ -252,7 +252,12 @@ def best_edge(
 
     A column is a candidate iff its label differs from the row's and both
     are >= 0 (negative labels mark padding). Returns ((r,) int32 column,
-    ties -> lowest, -1 if none; (r,) f32 similarity, NEG if none)."""
+    ties -> lowest, -1 if none; (r,) f32 similarity, NEG if none). c = 0
+    gives every row (-1, NEG), where the JAX package's version raises."""
+    if sim.shape[1] == 0:  # no column: no row has a candidate
+        r = sim.shape[0]
+        return (torch.full((r,), -1, dtype=torch.int32, device=sim.device),
+                torch.full((r,), NEG, dtype=torch.float32, device=sim.device))
     lr = labels_row[:, None]
     lc = labels_col[None, :]
     cross = (lr != lc) & (lr >= 0) & (lc >= 0)
@@ -339,3 +344,27 @@ def component_best_edge_segment(
     best_w[slot] = w
     best_j[slot] = row_j.int()
     return best_w[:c], best_row[:c], best_j[:c]
+
+
+def flash_decode(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int | torch.Tensor
+) -> torch.Tensor:
+    """One-token attention against a (possibly padded) KV cache.
+
+    q (h, dh) query of the new token; k, v (s, hk, dh) caches; positions
+    >= ``length`` are masked to NEG. GQA: query head i reads kv head
+    i // (h // hk). Logits and softmax in f32, output in q's dtype. At
+    length <= 0 every logit is NEG, so the softmax is uniform and the output
+    is the mean of v over all s positions (the Pallas kernel of the JAX
+    package returns zeros there).
+    """
+    s, hk, dh = k.shape
+    group = q.shape[0] // hk
+    kq = k.repeat_interleave(group, dim=1).float()  # (s, h, dh)
+    vq = v.repeat_interleave(group, dim=1).float()
+    scale = torch.sqrt(torch.tensor(dh, dtype=torch.float32, device=q.device))
+    logits = torch.einsum("hd,shd->hs", q.float(), kq) / scale
+    mask = torch.arange(s, device=q.device)[None, :] < length
+    logits = torch.where(mask, logits, NEG)
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("hs,shd->hd", w, vq).to(q.dtype)

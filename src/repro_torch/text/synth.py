@@ -1,8 +1,7 @@
 """Synthetic 20_newsgroups-like corpora with ground-truth topic labels.
 
-The port's own copy of the JAX package's numpy-only ``text/synth.py``
-(without the streaming generator): the same seed gives byte-identical
-counts.
+The port's own copy of the JAX package's numpy-only ``text/synth.py``:
+the same seed gives byte-identical counts, resident or streamed.
 
 The paper evaluates on 20_newsgroups (n~20k, 20 groups, 80.2MB of vectors) and
 a ~1GB synthetic collection built by replicating it (n~250k). Instead of
@@ -64,7 +63,8 @@ def iter_corpus_blocks(
     """Yield (counts (≤batch, vocab) f32, labels (≤batch,) i32) blocks.
 
     The chunk-yielding generator behind both ``make_corpus`` (which
-    concatenates it): rows are bit-identical across block sizes.
+    concatenates it) and ``stream_corpus`` (which streams it): rows are
+    bit-identical across block sizes, so resident == concat(stream) exactly.
     """
     rng, mix, labels, lengths = _corpus_prefix(
         n_docs, vocab, n_topics, doc_len, topic_sharpness, background_weight, seed
@@ -110,6 +110,50 @@ def make_corpus(
         labels[start : start + block.shape[0]] = lab
         start += block.shape[0]
     return Corpus(counts=counts, labels=labels, n_topics=n_topics)
+
+
+def stream_corpus(
+    n_docs: int,
+    vocab: int = 2048,
+    n_topics: int = 20,
+    *,
+    doc_len: int = 120,
+    topic_sharpness: float = 0.05,
+    background_weight: float = 0.35,
+    seed: int = 0,
+    chunk: int = 8192,
+):
+    """Out-of-core corpus: (CorpusStream of count chunks, labels (n,) i32).
+
+    Every pass over the stream regenerates the multinomial draws (recompute
+    over store); rows are bit-identical to ``make_corpus`` with the same
+    seed. Labels come from the cheap O(n) prefix replay, so ground-truth
+    evaluation never needs the dense counts resident.
+    """
+    from repro_torch.text.stream import CorpusStream
+
+    _, _, labels, _ = _corpus_prefix(
+        n_docs, vocab, n_topics, doc_len, topic_sharpness, background_weight, seed
+    )
+    stream = CorpusStream.from_blocks(
+        lambda: (
+            block
+            for block, _ in iter_corpus_blocks(
+                n_docs,
+                vocab,
+                n_topics,
+                doc_len=doc_len,
+                topic_sharpness=topic_sharpness,
+                background_weight=background_weight,
+                seed=seed,
+                batch=chunk,
+            )
+        ),
+        n=n_docs,
+        dim=vocab,
+        chunk=chunk,
+    )
+    return stream, labels
 
 
 def _multinomial_rows(

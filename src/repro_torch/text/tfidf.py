@@ -1,14 +1,19 @@
 """TF-IDF weighting in the vector space model (paper §2: 'most of them are
 based on the vector space model representation with tf-idf weights').
 
-Single-device subset of the JAX package's ``text/tfidf.py``.
+Single-device counterpart of the JAX package's ``text/tfidf.py``. The
+streaming (out-of-core) form is TWO passes over a ``text/stream.CorpusStream``:
+pass 1 folds (df, n) over chunks on the device, and pass 2 is a lazily
+mapped stream that rescales and L2-normalizes each chunk on the device as it
+arrives. df and n are integer-valued, so the chunked f32 fold is exact and
+the streamed rows equal the resident ``tfidf``'s bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.common import l2_normalize
+from repro_torch.common import l2_normalize, resolve_device
 
 
 def tf_weight(counts: torch.Tensor) -> torch.Tensor:
@@ -16,9 +21,9 @@ def tf_weight(counts: torch.Tensor) -> torch.Tensor:
     return torch.where(counts > 0, 1.0 + torch.log(torch.clamp(counts, min=1.0)), 0.0)
 
 
-def idf_weight(df: torch.Tensor, n_docs: int | float) -> torch.Tensor:
+def idf_weight(df: torch.Tensor, n_docs: int | float | torch.Tensor) -> torch.Tensor:
     """Smoothed idf: log(n / (1 + df))."""
-    n = torch.tensor(n_docs, dtype=torch.float32, device=df.device)
+    n = torch.as_tensor(n_docs, dtype=torch.float32, device=df.device)
     return torch.log(n / (1.0 + df))
 
 
@@ -33,7 +38,63 @@ def tfidf(counts: torch.Tensor) -> torch.Tensor:
     all-zero row (an empty document) stays the zero vector."""
     if counts.shape[0] == 0:
         raise ValueError("tfidf: empty collection (n == 0 documents)")
-    df = document_frequency(counts)
-    x = tf_weight(counts) * idf_weight(df, counts.shape[0])
+    return _rescale(counts, document_frequency(counts), counts.shape[0])
+
+
+def _rescale(counts: torch.Tensor, df: torch.Tensor, n) -> torch.Tensor:
+    x = tf_weight(counts) * idf_weight(df, n)
     x = torch.clamp(x, min=0.0)  # idf can go negative for terms in >n/e docs
     return l2_normalize(x)
+
+
+# ------------------------------------------------------------------ streaming
+
+
+def _df_map(counts: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk's weighted presence: ((d,) df, n); pad rows carry w == 0."""
+    present = (counts > 0).float() * w[:, None]
+    return torch.sum(present, dim=0), torch.sum(w)
+
+
+def df_stream(
+    stream, *, device: str | torch.device | None = None, checkpoint=None, guard=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pass 1 over a count-chunk stream: fold (df (d,), n) on ``device``
+    (``None`` means the CUDA device) — exact, since both are integer-valued
+    however the chunks split the rows. guard='finite' attributes the first
+    non-finite accumulator to its chunk."""
+    from repro_torch.text.stream import require_no_checkpoint, run_pass, to_device
+
+    require_no_checkpoint(checkpoint)
+    dev = resolve_device(device)
+    if stream.n == 0:
+        raise ValueError("df_stream: empty stream (n == 0 documents)")
+
+    def fold(carry, ch, ci):
+        df, n = _df_map(to_device(ch.x, dev), to_device(ch.w, dev))
+        return carry[0] + df, carry[1] + n
+
+    return run_pass(
+        stream,
+        fold,
+        (torch.zeros((stream.dim,), dtype=torch.float32, device=dev),
+         torch.zeros((), dtype=torch.float32, device=dev)),
+        copy_to=dev,
+        pass_id="tfidf/df",
+        guard=guard,
+    )
+
+
+def tfidf_stream(
+    stream, *, device: str | torch.device | None = None, checkpoint=None, guard=None
+):
+    """Streaming two-pass tf-idf: the (df, n) fold, then a lazily mapped
+    stream whose chunks are rescaled and L2-normalized on ``device`` on
+    arrival. Equal to the resident ``tfidf`` bit for bit: pass 1 folds
+    integers, pass 2 applies the same elementwise rescale per chunk. Peak
+    residency O(chunk·d)."""
+    dev = resolve_device(device)
+    df, n = df_stream(stream, device=dev, checkpoint=checkpoint, guard=guard)
+    from repro_torch.text.stream import to_device
+
+    return stream.map(lambda c, w: _rescale(to_device(c, dev), df, n))

@@ -25,7 +25,9 @@ from repro_torch.kernels.assign_stats import (
     assign_stats_cuda,
     label_stats_cuda,
 )
+from repro_torch.kernels.best_edge import best_edge_cuda
 from repro_torch.kernels.component_reduce import component_best_edge_cuda
+from repro_torch.kernels.flash_decode import flash_decode_cuda
 from repro_torch.kernels.sim_best_edge import sim_best_edge_cuda
 
 pytestmark = pytest.mark.gpu
@@ -142,9 +144,13 @@ def test_ops_dispatch_counts_launches(card):
     ops.assign_stats_bounded(x, x[:4], ops.bounds_identity(64), torch.zeros(4, device=card))
     rows = torch.arange(64, dtype=torch.int32, device=card)
     ops.component_best_edge(x[:, 0], lab, rows, lab, 4)
+    ops.best_edge(x @ x.T, lab, lab)
+    kv = x.reshape(64, 4, 8)
+    ops.flash_decode(x[:8, :8].contiguous(), kv, kv, torch.tensor(9, dtype=torch.int32, device=card))
     assert ops.launch_counts() == {
         "sim_best_edge": 1, "label_stats": 1, "assign_stats": 1,
         "assign_argmax": 1, "assign_stats_bounded": 1, "component_best_edge": 1,
+        "best_edge": 1, "flash_decode": 1,
     }
     with pytest.raises(TypeError):
         ops.assign_stats(x.double(), x[:4].double())
@@ -434,3 +440,94 @@ def test_boruvka_distributed_nccl_world_1_matches_resident(card, tmp_path):
             assert ops.launch_counts()["component_best_edge"] > 0
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("r,c", [(300, 270), (1, 129), (33, 1), (2000, 2000), (0, 5), (5, 0)])
+def test_best_edge_matches_plain(card, r, c):
+    """Exact on integer and on float blocks: the kernel only compares."""
+    rng = np.random.default_rng(r + c)
+    lr = interop.labels(rng.integers(-1, 5, size=r), card)
+    lc = interop.labels(rng.integers(-1, 5, size=c), card)
+    for sim in (_ints(rng, (r, c), -3, 3, card), interop.data(rng.normal(size=(r, c)), card)):
+        _equal(_twice(best_edge_cuda, sim, lr, lc), ref.best_edge(sim, lr, lc))
+
+
+def test_best_edge_ties_and_signed_zeros(card):
+    r, c = 64, 700
+    sim = torch.full((r, c), -1.0, device=card)
+    sim[:, 650] = 2.0
+    sim[:, 40] = 2.0  # the same best value in another warp step: column 40 wins
+    sim[1, :] = 0.0
+    sim[1, 300] = -0.0  # -0.0 and +0.0 tie: column 0 wins
+    lr = torch.zeros((r,), dtype=torch.int32, device=card)
+    lc = torch.ones((c,), dtype=torch.int32, device=card)
+    lr[2] = 1  # all one component: no candidate
+    lr[3] = -1  # a pad row
+    got = best_edge_cuda(sim, lr, lc)
+    _equal(got, ref.best_edge(sim, lr, lc))
+    assert got[0][0] == 40 and got[0][1] == 0 and got[0][2] == -1 and got[0][3] == -1
+    assert got[1][2] == ref.NEG
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hk,dh,s", [(8, 2, 16, 40), (24, 8, 128, 1300), (9, 9, 64, 513),
+                                       (20, 2, 200, 700), (6, 2, 30, 300)])
+def test_flash_decode_matches_plain(card, dtype, h, hk, dh, s):
+    g = torch.Generator().manual_seed(h + s)
+    q, k, v = (torch.randn(shape, generator=g).to(card, dtype)
+               for shape in ((h, dh), (s, hk, dh), (s, hk, dh)))
+    for length in (0, 1, 511, 512, 513, s, s + 7):
+        want = ref.flash_decode(q, k, v, length)
+        got = flash_decode_cuda(q, k, v, torch.tensor(length, dtype=torch.int32, device=card))
+        assert torch.equal(got, flash_decode_cuda(q, k, v, length))  # repeat bits
+        err = (got.float() - want.float()).abs()
+        if dtype == torch.float32:
+            assert err.max().item() <= 2e-5
+        else:  # one bf16 ulp of the plain value
+            ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp(min=1e-30))) - 7)
+            assert (err <= ulp).all()
+
+
+def test_kmeans_fit_stream_prefetch_on_off_bits_on_card(card, monkeypatch):
+    """Host chunks staged by the prefetch producer (pinned, side stream) and
+    copied by the fold itself give the same bits; so does the mapped tf-idf
+    stream, and a one-chunk stream equals the resident fit."""
+    from repro_torch.core.kmeans import kmeans_fit, kmeans_fit_stream
+    from repro_torch.text import pipeline
+    from repro_torch.text.stream import CorpusStream
+
+    prep = {}
+    fits = {}
+    for mode in ("0", "2"):
+        monkeypatch.setenv("REPRO_STREAM_PREFETCH", mode)
+        p = pipeline.prepare_synthetic_stream(n_docs=3000, vocab=256, n_topics=8, seed=3,
+                                              chunk=700, device=card)
+        prep[mode] = p.x.materialize()
+        x = prep[mode]
+        init = interop.data(x[:8], card)
+        fits[mode] = kmeans_fit_stream(CorpusStream.from_array(x, chunk=700), init, 8)
+        fits[mode + "mapped"] = kmeans_fit_stream(p.x, init, 8)
+    assert np.array_equal(prep["0"], prep["2"])
+    for a, b in ((fits["0"], fits["2"]), (fits["0mapped"], fits["2mapped"]),
+                 (fits["0"], fits["2mapped"])):
+        assert torch.equal(a.centers, b.centers) and torch.equal(a.assignment, b.assignment)
+        assert a.iterations == b.iterations
+    x = interop.data(prep["0"], card)
+    res = kmeans_fit(x, x[:8].contiguous(), 8)
+    one = kmeans_fit_stream(CorpusStream.from_array(prep["0"]), x[:8].contiguous(), 8)
+    assert torch.equal(one.centers, res.centers)
+    assert torch.equal(one.assignment, res.assignment.cpu())
+
+
+def test_flash_decode_unaligned_cache(card):
+    """k and v starting one element past an aligned address take the
+    one-value loads; the result equals the aligned copy's."""
+    g = torch.Generator().manual_seed(2)
+    s, hk, dh = 600, 2, 64
+    q = torch.randn((8, dh), generator=g).to(card)
+    flat = torch.randn((2, s * hk * dh + 1), generator=g).to(card)
+    k, v = (flat[i, 1:].view(s, hk, dh) for i in (0, 1))
+    assert k.is_contiguous() and k.data_ptr() % 16 != 0
+    got = flash_decode_cuda(q, k, v, 450)
+    assert (got - ref.flash_decode(q, k, v, 450)).abs().max().item() <= 2e-5
+    assert torch.equal(got, flash_decode_cuda(q, k.clone(), v.clone(), 450))

@@ -20,6 +20,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.flash_decode import flash_decode_pallas
 from repro_torch import interop
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.assign_argmax import assign_argmax_cuda
@@ -28,7 +29,9 @@ from repro_torch.kernels.assign_stats import (
     assign_stats_cuda,
     label_stats_cuda,
 )
+from repro_torch.kernels.best_edge import best_edge_cuda
 from repro_torch.kernels.component_reduce import component_best_edge_cuda
+from repro_torch.kernels.flash_decode import flash_decode_cuda
 from repro_torch.kernels.sim_best_edge import sim_best_edge_cuda
 
 RTOL = 1e-5
@@ -139,6 +142,35 @@ def test_best_edge_all_same_component(rng):
     assert (interop.to_numpy(j) == -1).all() and (interop.to_numpy(s) == ref.NEG).all()
 
 
+def test_best_edge_empty_inputs(rng):
+    """r = 0 gives the empty result, as the JAX package's plain version does;
+    c = 0 gives every row (-1, NEG), where that version raises."""
+    lab = rng.integers(0, 3, size=5).astype(np.int32)
+    want = jref.best_edge(np.zeros((0, 5), np.float32), np.zeros(0, np.int32), lab)
+    got = ops.best_edge(_t(np.zeros((0, 5), np.float32)), _t(np.zeros(0, np.int32)), _t(lab))
+    _same(got, want, exact=True)
+    j, s = ops.best_edge(_t(np.zeros((5, 0), np.float32)), _t(lab), _t(np.zeros(0, np.int32)))
+    assert (interop.to_numpy(j) == -1).all() and (interop.to_numpy(s) == ref.NEG).all()
+    with pytest.raises(ValueError):
+        jref.best_edge(np.zeros((5, 0), np.float32), lab, np.zeros(0, np.int32))
+
+
+def test_best_edge_float_data_and_signed_zeros(rng):
+    sim = _floats(rng, (40, 70))
+    sim[3, 10], sim[3, 2] = 0.0, -0.0  # -0.0 and +0.0 tie: the lower column wins
+    sim[3, :] = np.where(np.abs(sim[3]) > 0, -5.0, sim[3])
+    sim[7, :] = -np.inf  # a row of -inf candidates: the first column wins
+    lr = rng.integers(-1, 4, size=40).astype(np.int32)
+    lr[3] = lr[7] = 9
+    lc = rng.integers(-1, 4, size=70).astype(np.int32)
+    lc[2] = lc[10] = 0
+    lc[:] = np.where(np.arange(70) == 0, 1, lc)
+    want = jref.best_edge(sim, lr, lc)
+    got = ops.best_edge(_t(sim), _t(lr), _t(lc))
+    _same(got, want, exact=True)
+    assert interop.to_numpy(got[0])[3] == 2
+
+
 @pytest.mark.parametrize("r,c,d", [(9, 11, 4), (200, 150, 70)])
 def test_sim_best_edge_matches_jax(rng, r, c, d):
     xr, xc = _ints(rng, (r, d), -3, 3), _ints(rng, (c, d), -3, 3)
@@ -157,6 +189,72 @@ def test_sim_best_edge_float_data(rng):
     lc = rng.integers(0, 10, size=90).astype(np.int32)
     want = jref.sim_best_edge(xr, xc, lr, lc)
     _same(ref.sim_best_edge(_t(xr), _t(xc), _t(lr), _t(lc)), want, exact=False)
+
+
+# ------------------------------------------------------------------ flash decode
+
+
+def _decode_case(rng, h, hk, dh, s):
+    return (_floats(rng, (h, dh)), _floats(rng, (s, hk, dh)), _floats(rng, (s, hk, dh)))
+
+
+def _bf16(a):
+    """A JAX bf16 array and the port's bf16 tensor of the same values."""
+    j = jnp.asarray(a, jnp.bfloat16)
+    return j, torch.from_numpy(np.asarray(j.astype(jnp.float32))).bfloat16()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("h,hk", [(8, 8), (24, 8), (8, 2)])  # g = 1, 3, 4
+@pytest.mark.parametrize("length", [0, 1, 13, 40, 45])  # 0, 1, mid-tile, s, > s
+def test_flash_decode_matches_jax(rng, h, hk, dtype, length):
+    s, dh = 40, 16
+    q, k, v = _decode_case(rng, h, hk, dh, s)
+    if dtype == "f32":
+        want = np.asarray(jref.flash_decode(q, k, v, length))
+        got = ops.flash_decode(_t(q), _t(k), _t(v), length)
+        np.testing.assert_allclose(interop.to_numpy(got), want, rtol=0, atol=2e-6)
+        return
+    (jq, tq), (jk_, tk_), (jv, tv) = _bf16(q), _bf16(k), _bf16(v)
+    want = np.asarray(jref.flash_decode(jq, jk_, jv, length).astype(jnp.float32))
+    got = ops.flash_decode(tq, tk_, tv, torch.tensor(length, dtype=torch.int32))
+    assert got.dtype == torch.bfloat16
+    # both compute in f32 and round once to bf16: at most one bf16 ulp apart
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    assert (np.abs(got.float().numpy() - want) <= ulp).all()
+
+
+@pytest.mark.parametrize("h,hk,s,length", [(8, 8, 40, 1), (24, 8, 600, 300), (8, 2, 1024, 1024),
+                                           (8, 2, 1030, 700), (12, 4, 40, 40)])
+def test_flash_decode_matches_pallas_interpret(rng, h, hk, s, length):
+    """The Pallas kernel (interpret mode) for 1 <= length <= s."""
+    q, k, v = _decode_case(rng, h, hk, 16, s)
+    want = np.asarray(flash_decode_pallas(q, k, v, length, interpret=True))
+    got = ops.flash_decode(_t(q), _t(k), _t(v), length)
+    np.testing.assert_allclose(interop.to_numpy(got), want, rtol=0, atol=2e-6)
+
+
+def test_flash_decode_references_disagree_where_the_port_follows_ref(rng):
+    """At length <= 0 the JAX package's plain version gives the mean of v
+    (a uniform softmax over masked logits) and its Pallas kernel zeros; past
+    s, on a cache whose s is off the kernel's 512-position tile, the kernel
+    also attends the zero pad positions. The port follows the plain version:
+    the mean of v at length <= 0, length > s read as s."""
+    h, hk, dh, s = 8, 2, 16, 40
+    q, k, v = _decode_case(rng, h, hk, dh, s)
+    mean = np.repeat(v.mean(axis=0), h // hk, axis=0)
+    for length in (0, -3):
+        got = interop.to_numpy(ops.flash_decode(_t(q), _t(k), _t(v), length))
+        np.testing.assert_allclose(got, mean, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(got, np.asarray(jref.flash_decode(q, k, v, length)), atol=1e-6)
+        assert not np.asarray(flash_decode_pallas(q, k, v, length, interpret=True)).any()
+    s = 700  # two 512-position tiles, the second one padded
+    q, k, v = _decode_case(rng, h, hk, dh, s)
+    got = interop.to_numpy(ops.flash_decode(_t(q), _t(k), _t(v), s + 5))
+    np.testing.assert_array_equal(got, interop.to_numpy(ops.flash_decode(_t(q), _t(k), _t(v), s)))
+    np.testing.assert_allclose(got, np.asarray(jref.flash_decode(q, k, v, s + 5)), atol=2e-6)
+    pallas = np.asarray(flash_decode_pallas(q, k, v, s + 5, interpret=True))
+    assert np.abs(pallas - got).max() > 1e-4
 
 
 # ------------------------------------------------------------------ vs Pallas
@@ -211,9 +309,11 @@ def test_cpu_tensors_take_the_plain_versions(rng):
     ops.assign_stats_bounded(x, x[:3], ops.bounds_identity(30, "cpu"), torch.zeros(3))
     ops.build_center_index(x[:9])
     ops.component_best_edge(x[:, 0], lab, torch.arange(30, dtype=torch.int32), lab, 3)
+    ops.best_edge(x @ x.T, lab, lab)
+    ops.flash_decode(x[:4, :3], x.reshape(30, 2, 3), x.reshape(30, 2, 3), 7)
     assert set(ops.launch_counts()) == {
         "sim_best_edge", "label_stats", "assign_stats", "assign_argmax",
-        "assign_stats_bounded", "component_best_edge",
+        "assign_stats_bounded", "component_best_edge", "best_edge", "flash_decode",
     }
     assert not any(ops.launch_counts().values())
 
@@ -234,6 +334,11 @@ def test_kernel_wrappers_refuse_cpu_tensors(rng):
     b = ops.bounds_identity(30, "cpu")
     with pytest.raises(ValueError, match="CUDA"):
         assign_stats_bounded_cuda(x, x[:3], b.idx, b.lo, b.hi, torch.zeros(3))
+    with pytest.raises(ValueError, match="CUDA"):
+        best_edge_cuda(x @ x.T, lab, lab)
+    kv = x.reshape(30, 2, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_decode_cuda(x[:4, :3].contiguous(), kv, kv, 7)
 
 
 @pytest.mark.parametrize("name", _build.SOURCES)
@@ -262,6 +367,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
+        "new = ['text.stream', 'resilience.policy', 'testing.faults', 'text.hashing',\n"
+        "       'kernels.best_edge', 'kernels.flash_decode']\n"
+        "assert all('repro_torch.' + m in sys.modules for m in new)\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
     )
     out = subprocess.run(
@@ -269,4 +377,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         env={"PYTHONPATH": str(_build.CSRC.parents[2]), "PATH": "/usr/bin:/bin"},
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) >= 15  # every module of the port was imported
+    assert int(out.stdout) >= 30  # every module of the port was imported
