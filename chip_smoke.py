@@ -2,6 +2,9 @@
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU and check it.
 
 Run from the repository root, with no arguments:  python3 chip_smoke.py
+(``python3 chip_smoke.py --kernels`` runs phase 1 and phase 3's timings of
+label_stats and flash_decode on random unit rows of the 1 GB shape, and
+stops: copied into an older tree's root it times that tree's kernels too.)
 
 Phases, in order; any failure raises and exits non-zero:
   1. Device: the card's name and power limit; build the CUDA kernels from
@@ -16,8 +19,16 @@ Phases, in order; any failure raises and exits non-zero:
      blocks, rows all in one component, -0.0, r = 0 and c = 0, the main
      path's round-1 block xs @ xs.T and a block with round-2 labels, all with
      torch.equal; for flash_decode lengths 0, 1, 511, 512, 513, 20,000, s and
-     s + 7 with g = 1, 3 and 4, in f32 within 2e-5 and in bf16 within one bf16
-     ulp of the plain value); each kernel runs twice and
+     s + 7 with g = 1, 3 and 4, and at g = 12, dh = 64, 256 and 30, in f32
+     within 2e-5 and in bf16 within one bf16 ulp of the plain value (for
+     the g = 12 and dh cases plus 16 f32 ulps, 2^-20, of the size of each
+     output's terms, sum p|v| / sum p: an output that cancels far below its
+     terms moves past a bf16 ulp by the logits' f32 rounding alone), and two
+     equal calls around a call of another shape, so the ticket counters are
+     seen to reset; label_stats also at k = 800 and 1,600, d = 1 and 130,
+     k = 1,000 and 2,000 over 60,000 rows (a three-stage ring wrapped many
+     times, four runs), sorted label runs and w = None against ones; assign_stats and
+     assign_stats_bounded at k = 800); each kernel runs twice and
      must repeat its bits. component_best_edge's main-path shapes are held in
      phase 4.
   3. Timing (CUDA events): kernel, plain version, one library call, and the
@@ -25,7 +36,10 @@ Phases, in order; any failure raises and exits non-zero:
      on round 1's candidates: r = 3,536, c = 1,768; best_edge at the kernel
      bench's 2,000 x 2,000 block and the main path's 3,536 x 3,536, with the
      L2 cache flushed before each call; flash_decode at the kernel bench's
-     cache, f32, and at llama3.2-3b's heads, bf16, length 20,000 of 32,768).
+     cache, f32, and at llama3.2-3b's heads, bf16, length 20,000 of 32,768,
+     with the kernel alone, profiled; label_stats at Buckshot's centers
+     also with the L2 flushed and profiled, and the fold alone at
+     n = 250,000 for k = 50 and k = 800).
   4. Paths at full size on the ~1 GB collection (n = 250,000, d = 2,048,
      50 topics), each with its launch counters set to 0 just before and read
      just after: tf-idf on the card, Buckshot with k = 50 (s = 3,536) and the
@@ -204,8 +218,12 @@ def phase_parity_edges(dev):
     import torch
 
     from repro_torch import interop
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.assign_stats import assign_stats_cuda, label_stats_cuda
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.assign_stats import (
+        assign_stats_bounded_cuda,
+        assign_stats_cuda,
+        label_stats_cuda,
+    )
     from repro_torch.kernels.sim_best_edge import sim_best_edge_cuda
 
     rng = np.random.default_rng(0)
@@ -222,13 +240,34 @@ def phase_parity_edges(dev):
         a, b = sim_best_edge_cuda(xr, xc, lr, lc), sim_best_edge_cuda(xr, xc, lr, lc)
         check_repeat("sim_best_edge", a, b)
         check_equal(f"sim_best_edge {r}x{c}x{d}", a, ref.sim_best_edge(xr, xc, lr, lc))
-    for n, d, k in [(1000, 200, 70), (37, 5, 3), (0, 8, 4)]:
+    # k = 800 in one read, k = 1,600 past one block's shared memory (two
+    # label tiles), d = 1 and d = 130 (plain loads: rows off 16 bytes)
+    for n, d, k in [(1000, 200, 70), (37, 5, 3), (0, 8, 4), (5000, 128, 800), (3000, 1, 50),
+                    (2000, 130, 1600)]:
         x = ints((n, d), -8, 8)
         idx = interop.labels(rng.integers(-2, k + 2, size=n), dev)  # out of range too
         w = ints((n,), 0, 2)  # weight-0 rows
         a, b = label_stats_cuda(x, idx, k, w), label_stats_cuda(x, idx, k, w)
         check_repeat("label_stats", a, b)
         check_equal(f"label_stats {n}x{d} k={k}", a, ref.label_stats(x, idx, k, w))
+        # w = None reads as weight 1
+        check_equal(f"label_stats {n}x{d} k={k} w=None", label_stats_cuda(x, idx, k),
+                    label_stats_cuda(x, idx, k, torch.ones((n,), device=dev)))
+    # k = 1,000 and 2,000: a ring of three stages, which each block of
+    # 60,000 rows wraps dozens of times; four runs, each equal to the plain
+    # (their own generator, so the other cases keep their data)
+    ring_rng = np.random.default_rng(10)
+    for k in (1000, 2000):
+        x = interop.data(ring_rng.integers(-8, 9, size=(60_000, 256)), dev)
+        idx = interop.labels(ring_rng.integers(-1, k + 1, size=60_000), dev)
+        w = interop.data(ring_rng.integers(0, 3, size=60_000), dev)
+        want = ref.label_stats(x, idx, k, w)
+        for _ in range(4):
+            check_equal(f"label_stats 60000x256 k={k}", label_stats_cuda(x, idx, k, w), want)
+    # sorted labels: long runs of one label in one warp's register
+    x = ints((6000, 256), -8, 8)
+    idx = torch.sort(interop.labels(rng.integers(0, 40, size=6000), dev))[0]
+    check_equal("label_stats sorted runs", label_stats_cuda(x, idx, 40), ref.label_stats(x, idx, 40))
     for n, d, k in [(1000, 130, 70), (300, 16, 5), (0, 4, 2)]:
         x, centers = ints((n, d), -4, 4), ints((k, d), -4, 4)
         centers[k - 1] = centers[0]  # loses every tie: an empty cluster
@@ -240,7 +279,19 @@ def phase_parity_edges(dev):
         check_equal(f"assign_stats {n}x{d} k={k}", a, ref.assign_stats(x, centers, w))
         if n and not (a[3][k - 1] == 0 and a[4][k - 1] == ref.BIG):
             raise AssertionError("assign_stats: an empty cluster must have count 0, min_sim BIG")
-    log("phase 2 parity: integer edge cases exact, repeats bit-identical")
+    # both stats kernels at k = 800 through the shared fold
+    x, centers = ints((3000, 96), -4, 4), ints((800, 96), -4, 4)
+    w = ints((3000,), 0, 2)
+    a = assign_stats_cuda(x, centers, w)
+    check_repeat("assign_stats k=800", a, assign_stats_cuda(x, centers, w))
+    check_equal("assign_stats k=800", a, ref.assign_stats(x, centers, w))
+    b0 = ops.bounds_identity(3000, dev)
+    zero = torch.zeros((800,), device=dev)
+    bnd = assign_stats_bounded_cuda(x, centers, b0.idx, b0.lo, b0.hi, zero, w)
+    check_equal("assign_stats_bounded k=800", bnd[:6], a)
+    log("phase 2 parity: integer edge cases exact (label_stats at k = 800 and 1,600, d = 1 and "
+        "130, k = 1,000 and 2,000 over 60,000 rows four times each, sorted runs, w = None; "
+        "assign_stats and assign_stats_bounded at k = 800), repeats bit-identical")
 
 
 def phase_parity_main(x, xs, dev):
@@ -322,7 +373,7 @@ def phase_timing(x, xs, dev):
     import torch
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.assign_stats import assign_stats_cuda, label_stats_cuda
+    from repro_torch.kernels.assign_stats import assign_stats_cuda
     from repro_torch.kernels.sim_best_edge import sim_best_edge_cuda
 
     s, d = xs.shape
@@ -342,16 +393,7 @@ def phase_timing(x, xs, dev):
         library_ms=event_ms(lambda: xs @ xs.T, 20),
         bound=bound_ms(flops, nbytes),
     )
-    flops = 2.0 * s * d
-    nbytes = s * d * f4 + s * f4 + K * d * f4 + K * f4
-    lib_idx = labels.long()
-    rows["label_stats"] = dict(
-        ms=event_ms(lambda: label_stats_cuda(xs, labels, K), 50),
-        plain_ms=event_ms(lambda: ref.label_stats_scatter(xs, labels, K), 50),
-        library_ms=event_ms(
-            lambda: torch.zeros((K, d), device=dev).index_add_(0, lib_idx, xs), 50),
-        bound=bound_ms(flops, nbytes),
-    )
+    rows["label_stats"] = timing_label_stats(x, xs, labels, dev)
     flops = 2.0 * n * K * d + 4.0 * n * d
     nbytes = n * d * f4 + K * d * f4 + n * f4 + n * 8 + K * d * f4 + 3 * K * f4
     rows["assign_stats"] = dict(
@@ -360,11 +402,6 @@ def phase_timing(x, xs, dev):
         library_ms=event_ms(lambda: x @ centers.T, 10),
         bound=bound_ms(flops, nbytes),
     )
-    # assign_stats = the assignment tile + label_stats' fold with two extra
-    # scalars; the fold alone at n = 250,000 splits its time between the two
-    assigned = assign_stats_cuda(x, centers)[0]
-    fold_ms = event_ms(lambda: label_stats_cuda(x, assigned, K), 10)
-    log(f"phase 3 timing label_stats at n={n} (the fold inside assign_stats): {fold_ms:.4f} ms")
     for name, r in rows.items():
         log(f"phase 3 timing {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
@@ -1348,6 +1385,42 @@ def check_bf16_ulp(name, got, want) -> float:
     return err.max().item()
 
 
+def decode_scale(q, k, v, length):
+    """For each output, sum_i p_i |v_i| / sum_i p_i in float64: the size of
+    the terms the output is summed from, which bounds an f32 summation's
+    rounding where the output cancels far below them."""
+    import torch
+
+    s, hk, dh = k.shape
+    g = q.shape[0] // hk
+    logits = torch.einsum("hd,shd->hs", q.double(), k.double().repeat_interleave(g, 1)) / dh**0.5
+    if length <= 0:
+        logits = torch.zeros_like(logits)
+    logits[:, min(length, s) if length > 0 else s:] = -torch.inf
+    return torch.einsum("hs,shd->hd", torch.softmax(logits, -1),
+                        v.double().abs().repeat_interleave(g, 1))
+
+
+def check_bf16_scaled(name, got, want, scale) -> float:
+    """One bf16 ulp of the plain value plus 16 f32 ulps (2^-20) of the size
+    of the output's terms: each logit is an f32 dot product rounded ~10 f32
+    ulps from the exact one in either version, so where an output cancels
+    far below its terms two right f32 computations differ by more than a
+    bf16 ulp; elsewhere the allowance is far below the ulp."""
+    import torch
+
+    w = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=1e-30))) - 7)
+    err = (got.double() - want.double()).abs()
+    bad = err > ulp.double() + 2.0**-20 * scale
+    if bad.any():
+        i = int(bad.flatten().to(torch.uint8).argmax())
+        raise AssertionError(f"{name}: {int(bad.sum())} values beyond one bf16 ulp of the plain value "
+                             f"plus one f32 rounding of their terms; the first: kernel "
+                             f"{got.flatten()[i].item()!r}, plain {want.flatten()[i].item()!r}")
+    return err.max().item()
+
+
 def best_edge_inputs(xs, dev):
     """The kernel bench's 2,000 x 2,000 N(0, 1) block with 40 components, and
     the main path's round-1 block xs @ xs.T with labels arange(s)."""
@@ -1455,9 +1528,35 @@ def phase_parity_flash_decode(dev) -> float:
                 else:
                     err = check_bf16_ulp(name, got, want)
                 errs[str(dtype)] = max(errs.get(str(dtype), 0.0), err)
-    log(f"phase 2 parity: flash_decode at 8 lengths x g = 1, 3, 4 (hk = 8, dh = 128, s = {s}): "
-        f"max abs err {errs} (f32 limit {DECODE_TOL}; bf16 within one ulp), repeats "
-        f"bit-identical")
+    # g = 12 (two blocks of heads), dh = 64, 256 and 30 (no copy engine: rows
+    # off 128 bytes), lengths at a tile and a range boundary and past s
+    for h, hk, dh, s in [(96, 8, 128, 4096), (16, 4, 64, 4096), (8, 2, 256, 4096), (6, 2, 30, 700)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                       for shape in ((h, dh), (s, hk, dh), (s, hk, dh)))
+            for length in (0, 1, 64, 65, 1024, 1025, s, s + 7):
+                got = flash_decode_cuda(q, k, v, length)
+                want = ref.flash_decode(q, k, v, length)
+                name = f"flash_decode {dtype} h={h} hk={hk} dh={dh} s={s} length={length}"
+                if dtype == torch.float32:
+                    err = (got - want).abs().max().item()
+                    if err > DECODE_TOL:
+                        raise AssertionError(f"{name}: max abs err {err} > {DECODE_TOL}")
+                else:
+                    err = check_bf16_scaled(name, got, want, decode_scale(q, k, v, length))
+                errs[str(dtype)] = max(errs.get(str(dtype), 0.0), err)
+    # the per-kv-head ticket counters are back at 0 after every call: a call
+    # of another shape between two equal calls on one stream changes nothing
+    q, k, v = (torch.randn(shape, generator=g, device=dev) for shape in ((24, 128), (3000, 8, 128),
+                                                                         (3000, 8, 128)))
+    first = flash_decode_cuda(q, k, v, 2500)
+    flash_decode_cuda(q[:4].contiguous(), k[:, :2].contiguous(), v[:, :2].contiguous(), 900)
+    check_repeat("flash_decode after another shape", (first,), (flash_decode_cuda(q, k, v, 2500),))
+    log(f"phase 2 parity: flash_decode at 8 lengths x g = 1, 3, 4 (hk = 8, dh = 128, s = 32,768), "
+        f"and at g = 12, dh = 64, 256, 30 (8 lengths each, the tile and range boundaries and "
+        f"past s; bf16 plus 16 f32 ulps of each output's terms): max abs err "
+        f"{errs} (f32 limit {DECODE_TOL}; bf16 within one ulp), repeats "
+        f"bit-identical, the ticket counters reset between calls")
     return errs["torch.float32"]
 
 
@@ -1470,7 +1569,6 @@ def phase_timing_stream_kernels(xs, dev):
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.best_edge import best_edge_cuda
-    from repro_torch.kernels.flash_decode import flash_decode_cuda
 
     rows = {}
     for name, (sim, lr, lc) in best_edge_inputs(xs, dev).items():
@@ -1491,37 +1589,7 @@ def phase_timing_stream_kernels(xs, dev):
             f"{row['plain_ms']:.4f} ms, library torch.max(sim, dim=1) {row['library_ms']:.4f} ms "
             f"(the unmasked row max only), bound {row['bound'][0]:.4f} ms ({row['bound'][1]}: "
             f"{r}*{c}*4 B read, no arithmetic)")
-    for name in DECODE_CASES:
-        h, hk, dh, s, _, length = DECODE_CASES[name]
-        q, k, v, ln = decode_inputs(name, dev)
-        kt, vt = (a[:length].permute(1, 0, 2).contiguous()[None] for a in (k, v))
-        qt = q[None, :, None, :]
-        nb = k.element_size()
-
-        def library():
-            return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
-
-        want = ref.flash_decode(q, k, v, length)
-        lib_err = (library()[0, :, 0, :].float() - want.float()).abs().max().item()
-        row = dict(
-            ms=event_ms(lambda: flash_decode_cuda(q, k, v, ln), 30),
-            plain_ms=event_ms(lambda: ref.flash_decode(q, k, v, ln), 5),
-            library_ms=event_ms(library, 30),
-            bound=bound_ms(4.0 * h * length * dh, 2 * length * hk * dh * nb + 2 * h * dh * nb),
-        )
-        row["profiled_ms"] = profiled_kernel_ms(lambda: flash_decode_cuda(q, k, v, ln), 10,
-                                                ("flash_decode_split", "flash_decode_merge"))
-        merge_ms = profiled_kernel_ms(lambda: flash_decode_cuda(q, k, v, ln), 10,
-                                      ("flash_decode_merge",))
-        rows[f"flash_decode {name}"] = row
-        del kt, vt
-        log(f"phase 3 timing flash_decode {name} (h={h} hk={hk} dh={dh} s={s} length={length}): "
-            f"kernel {row['ms']:.4f} ms (its two launches alone, profiled: "
-            f"{row['profiled_ms']:.4f} ms, the merge {merge_ms:.4f} ms of it), plain "
-            f"{row['plain_ms']:.4f} ms, library "
-            f"scaled_dot_product_attention(enable_gqa=True) over k[:length] {row['library_ms']:.4f} "
-            f"ms (|library - plain| {lib_err:.2e}), bound {row['bound'][0]:.4f} ms "
-            f"({row['bound'][1]}: 2*length*hk*dh*{nb} B)")
+    rows.update(timing_flash_decode(dev))
     return rows
 
 
@@ -1816,6 +1884,124 @@ def phase_stream_regen(dev):
                       f"; quality {quality}")
 
 
+# ------------------------------------------------------ the redesign slice
+
+
+def timing_label_stats(x, xs, labels, dev):
+    """label_stats at Buckshot's centers (3,536 x 2,048, k = 50): back to
+    back, with the L2 flushed before each call, the two kernels alone
+    (profiled), the plain version and index_add_; then the fold alone at the
+    1 GB shape for k = 50 and k = BigK = 800, over nearest-center labels (the
+    labels a K-Means or BKC pass folds). Returns the kernels line's row."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.assign_argmax import assign_argmax_cuda
+    from repro_torch.kernels.assign_stats import label_stats_cuda
+
+    s, d = xs.shape
+    n = x.shape[0]
+    names = ("stats_fold", "stats_reduce")
+    lib_idx = labels.long()
+
+    def call():
+        return label_stats_cuda(xs, labels, K)
+
+    def library():
+        return torch.zeros((K, d), device=dev).index_add_(0, lib_idx, xs)
+
+    row = dict(
+        ms=event_ms(call, 50),
+        plain_ms=event_ms(lambda: ref.label_stats_scatter(xs, labels, K), 50),
+        library_ms=event_ms(library, 50),
+        bound=bound_ms(2.0 * s * d, s * d * 4 + s * 4 + K * d * 4 + K * 4),
+        cold_ms=event_ms_cold(call, 30),
+        library_cold_ms=event_ms_cold(library, 30),
+        profiled_ms=profiled_kernel_ms(call, 20, names),
+    )
+    log(f"phase 3 timing label_stats {s}x{d} k={K}: kernel {row['ms']:.4f} ms back to back "
+        f"(L2 flushed before each call: {row['cold_ms']:.4f} ms; the fold and reduce alone, "
+        f"profiled: {row['profiled_ms']:.4f} ms), index_add_ {row['library_ms']:.4f} ms (L2 "
+        f"flushed: {row['library_cold_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, bound "
+        f"{row['bound'][0]:.4f} ms ({row['bound'][1]})")
+    g = torch.Generator().manual_seed(7)
+    for k in (K, BIG_K):
+        lab = assign_argmax_cuda(x, x[torch.randperm(n, generator=g)[:k].to(dev)])[0]
+        ms = event_ms(lambda: label_stats_cuda(x, lab, k), 10)
+        prof = profiled_kernel_ms(lambda: label_stats_cuda(x, lab, k), 5, names)
+        lib = event_ms(lambda: torch.zeros((k, d), device=dev).index_add_(0, lab.long(), x), 5)
+        bnd = bound_ms(2.0 * n * d, n * d * 4 + n * 4 + k * d * 4 + k * 4)
+        log(f"phase 3 timing label_stats fold at n={n} d={d} k={k}: kernel {ms:.4f} ms "
+            f"(profiled {prof:.4f} ms), index_add_ {lib:.4f} ms, bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}): {ms / bnd[0]:.2f}x the bound")
+    return row
+
+
+def timing_flash_decode(dev):
+    """flash_decode at the kernel bench's cache (f32) and llama3.2-3b's heads
+    (bf16): kernel, the kernel alone (profiled), plain version, SDPA over
+    k[:length] and the bound."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import flash_decode_cuda
+
+    rows = {}
+    for name in DECODE_CASES:
+        h, hk, dh, s, _, length = DECODE_CASES[name]
+        q, k, v, ln = decode_inputs(name, dev)
+        kt, vt = (a[:length].permute(1, 0, 2).contiguous()[None] for a in (k, v))
+        qt = q[None, :, None, :]
+        nb = k.element_size()
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+
+        def call():
+            return flash_decode_cuda(q, k, v, ln)
+
+        want = ref.flash_decode(q, k, v, length)
+        lib_err = (library()[0, :, 0, :].float() - want.float()).abs().max().item()
+        row = dict(
+            ms=event_ms(call, 30),
+            plain_ms=event_ms(lambda: ref.flash_decode(q, k, v, ln), 5),
+            library_ms=event_ms(library, 30),
+            bound=bound_ms(4.0 * h * length * dh, 2 * length * hk * dh * nb + 2 * h * dh * nb),
+            profiled_ms=profiled_kernel_ms(call, 10, ("flash_decode",)),
+        )
+        rows[f"flash_decode {name}"] = row
+        del kt, vt
+        log(f"phase 3 timing flash_decode {name} (h={h} hk={hk} dh={dh} s={s} length={length}): "
+            f"kernel {row['ms']:.4f} ms (alone, profiled: {row['profiled_ms']:.4f} ms), plain "
+            f"{row['plain_ms']:.4f} ms, library "
+            f"scaled_dot_product_attention(enable_gqa=True) over k[:length] {row['library_ms']:.4f} "
+            f"ms (|library - plain| {lib_err:.2e}), bound {row['bound'][0]:.4f} ms "
+            f"({row['bound'][1]}: 2*length*hk*dh*{nb} B)")
+    return rows
+
+
+def kernels_only(dev) -> None:
+    """``--kernels``: phase 1, then phase 3's timings of label_stats and
+    flash_decode, on random unit rows of the 1 GB shape, without the paths:
+    the tool for timing two trees' kernels in one call. It uses only the
+    wrappers' public signatures, so it also times an older tree's kernels
+    when copied into that tree's root."""
+    import torch
+
+    from repro_torch.common import l2_normalize
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    n, d = 250_000, 2048
+    x = l2_normalize(torch.rand((n, d), generator=g, device=dev))
+    s = 3536
+    xs = l2_normalize(x[torch.randperm(n, generator=g, device=dev)[:s]])
+    labels = torch.randint(0, K, (s,), generator=g, device=dev, dtype=torch.int32)
+    timing_label_stats(x, xs, labels, dev)
+    del x, xs
+    torch.cuda.empty_cache()
+    timing_flash_decode(dev)
+
+
 def main() -> int:
     import torch
 
@@ -1834,6 +2020,9 @@ def main() -> int:
         f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     phase_device()
+    if sys.argv[1:] == ["--kernels"]:
+        kernels_only(dev)
+        return 0
 
     t = time.perf_counter()
     corpus = synth.make_corpus(**synth.paper_1gb_shape())

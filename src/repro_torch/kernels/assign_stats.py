@@ -9,6 +9,7 @@ counts, per kernel, the calls that launched it.
 
 from __future__ import annotations
 
+import functools
 from ctypes import c_float as F
 from ctypes import c_int as I
 from ctypes import c_void_p as P
@@ -44,10 +45,47 @@ def _lib(name: str):
     return _build.library(name, _SIGNATURES[name])
 
 
-def _weights(w: torch.Tensor | None, n: int, dev: torch.device) -> torch.Tensor:
+def _weights(w: torch.Tensor | None, n: int, dev: torch.device) -> int | None:
+    """The pointer the kernels take for ``w``: None (a null pointer, read as
+    weight 1 by the kernels) when ``w`` is None."""
+    from repro_torch.kernels import _build
+
     if w is None:
-        return torch.ones((n,), dtype=torch.float32, device=dev)
-    return w
+        return None
+    _build.require(w, "w", torch.float32, (n,), dev)
+    return w.data_ptr()
+
+
+@functools.cache
+def _chunks(name: str, n: int, k: int, d: int, device: int) -> int:
+    """Row chunks of the fold, planned once per (n, k, d, card)."""
+    with torch.cuda.device(device):
+        return getattr(_lib(name), f"{name}_chunks")(n, k, d)
+
+
+# per device: the stream it was last used on and the fold's partials buffer
+_workspace: dict[int, tuple[int, torch.Tensor]] = {}
+
+
+def _scratch(name: str, n: int, k: int, d: int, dev: torch.device, stream: int):
+    """The fold's partials: (chunks, k, d) sums, then (chunks, 3, k) scalars,
+    in one buffer per device. Returns (chunks, buf, part, part_k); the
+    caller holds ``buf`` until its launch is enqueued.
+
+    The buffer lives until a call on another stream, or a larger call,
+    replaces it: calls on one stream run in order, so each reuses it. It is
+    allocated on the stream of the call, and PyTorch's caching allocator
+    hands a freed block out again only to that stream, so a fold enqueued
+    there before it is replaced is safe."""
+    chunks = _chunks(name, n, k, d, dev.index)
+    size = chunks * k * (d + 3)
+    held = _workspace.get(dev.index)
+    if held is None or held[0] != stream or held[1].numel() < size:
+        _workspace.pop(dev.index, None)
+        held = (stream, torch.empty((size,), dtype=torch.float32, device=dev))
+        _workspace[dev.index] = held
+    part = held[1].data_ptr()
+    return chunks, held[1], part, part + 4 * chunks * k * d
 
 
 def _check_k_d(k: int, d: int) -> None:
@@ -65,20 +103,17 @@ def label_stats_cuda(
     n, d = x.shape
     dev = x.device
     _check_k_d(k, d)
-    w = _weights(w, n, dev)
     _build.require(x, "x", torch.float32, (n, d), dev)
     _build.require(idx, "idx", torch.int32, (n,), dev)
-    _build.require(w, "w", torch.float32, (n,), dev)
+    wp = _weights(w, n, dev)
     lib = _lib("label_stats")
-    chunks = lib.label_stats_chunks(n, k, d)
-    part = torch.empty((chunks, k, d), dtype=torch.float32, device=dev)
-    part_k = torch.empty((chunks, 3, k), dtype=torch.float32, device=dev)
+    stream = _build.stream(x)
+    chunks, buf, part, part_k = _scratch("label_stats", n, k, d, dev, stream)
     sums = torch.empty((k, d), dtype=torch.float32, device=dev)
     counts = torch.empty((k,), dtype=torch.float32, device=dev)
     err = lib.label_stats(
-        x.data_ptr(), idx.data_ptr(), w.data_ptr(), n, d, k, chunks,
-        part.data_ptr(), part_k.data_ptr(), sums.data_ptr(), counts.data_ptr(),
-        _build.stream(x),
+        x.data_ptr(), idx.data_ptr(), wp, n, d, k, chunks, part, part_k,
+        sums.data_ptr(), counts.data_ptr(), stream,
     )
     _build.check(err, "label_stats")
     launches["label_stats"] += 1
@@ -96,26 +131,24 @@ def assign_stats_cuda(
     k = centers.shape[0]
     dev = x.device
     _check_k_d(k, d)
-    w = _weights(w, n, dev)
     _build.require(x, "x", torch.float32, (n, d), dev)
     _build.require(centers, "centers", torch.float32, (k, d), dev)
-    _build.require(w, "w", torch.float32, (n,), dev)
+    wp = _weights(w, n, dev)
     lib = _lib("assign_stats")
-    chunks = lib.assign_stats_chunks(n, k, d)
+    stream = _build.stream(x)
+    chunks, buf, part, part_k = _scratch("assign_stats", n, k, d, dev, stream)
     idx = torch.empty((n,), dtype=torch.int32, device=dev)
     best_sim = torch.empty((n,), dtype=torch.float32, device=dev)
     rowsq = torch.empty((n,), dtype=torch.float32, device=dev)
-    part = torch.empty((chunks, k, d), dtype=torch.float32, device=dev)
-    part_k = torch.empty((chunks, 3, k), dtype=torch.float32, device=dev)
     sums = torch.empty((k, d), dtype=torch.float32, device=dev)
     counts = torch.empty((k,), dtype=torch.float32, device=dev)
     min_sim = torch.empty((k,), dtype=torch.float32, device=dev)
     sumsq = torch.empty((k,), dtype=torch.float32, device=dev)
     err = lib.assign_stats(
-        x.data_ptr(), centers.data_ptr(), w.data_ptr(), n, d, k, chunks,
-        idx.data_ptr(), best_sim.data_ptr(), rowsq.data_ptr(), part.data_ptr(),
-        part_k.data_ptr(), sums.data_ptr(), counts.data_ptr(),
-        min_sim.data_ptr(), sumsq.data_ptr(), _build.stream(x),
+        x.data_ptr(), centers.data_ptr(), wp, n, d, k, chunks,
+        idx.data_ptr(), best_sim.data_ptr(), rowsq.data_ptr(), part,
+        part_k, sums.data_ptr(), counts.data_ptr(),
+        min_sim.data_ptr(), sumsq.data_ptr(), stream,
     )
     _build.check(err, "assign_stats")
     launches["assign_stats"] += 1
@@ -191,10 +224,9 @@ def assign_stats_bounded_cuda(
     k = centers.shape[0]
     dev = x.device
     _check_k_d(k, d)
-    w = _weights(w, n, dev)
     _build.require(x, "x", torch.float32, (n, d), dev)
     _build.require(centers, "centers", torch.float32, (k, d), dev)
-    _build.require(w, "w", torch.float32, (n,), dev)
+    wp = _weights(w, n, dev)
     for name, t, dtype in (("prev_idx", prev_idx, torch.int32), ("lo", lo, torch.float32),
                            ("hi", hi, torch.float32)):
         _build.require(t, name, dtype, (n,), dev)
@@ -209,24 +241,23 @@ def assign_stats_bounded_cuda(
     cp, perm_p, reps, cone = slab_cones(centers, perm, lib.assign_stats_bounded_slab())
     ns = reps.shape[0]
 
-    chunks = lib.assign_stats_bounded_chunks(n, k, d)
+    stream = _build.stream(x)
+    chunks, buf, part, part_k = _scratch("assign_stats_bounded", n, k, d, dev, stream)
     idx = torch.empty((n,), dtype=torch.int32, device=dev)
     best_sim = torch.empty((n,), dtype=torch.float32, device=dev)
     sec = torch.empty((n,), dtype=torch.float32, device=dev)
     rowsq = torch.empty((n,), dtype=torch.float32, device=dev)
-    part = torch.empty((chunks, k, d), dtype=torch.float32, device=dev)
-    part_k = torch.empty((chunks, 3, k), dtype=torch.float32, device=dev)
     sums = torch.empty((k, d), dtype=torch.float32, device=dev)
     counts = torch.empty((k,), dtype=torch.float32, device=dev)
     min_sim = torch.empty((k,), dtype=torch.float32, device=dev)
     sumsq = torch.empty((k,), dtype=torch.float32, device=dev)
     err = lib.assign_stats_bounded(
         x.data_ptr(), centers.data_ptr(), cp.data_ptr(), perm_p.data_ptr(),
-        reps.data_ptr(), cone.data_ptr(), idx0.data_ptr(), w.data_ptr(),
+        reps.data_ptr(), cone.data_ptr(), idx0.data_ptr(), wp,
         n, d, k, ns, ref.PRUNE_MARGIN, chunks, idx.data_ptr(), best_sim.data_ptr(),
-        sec.data_ptr(), rowsq.data_ptr(), part.data_ptr(), part_k.data_ptr(),
+        sec.data_ptr(), rowsq.data_ptr(), part, part_k,
         sums.data_ptr(), counts.data_ptr(), min_sim.data_ptr(),
-        sumsq.data_ptr(), _build.stream(x),
+        sumsq.data_ptr(), stream,
     )
     _build.check(err, "assign_stats_bounded")
     launches["assign_stats_bounded"] += 1

@@ -2,12 +2,13 @@
 grouped-query attention against a KV cache.
 
 Counterpart of the JAX package's ``kernels/flash_decode.py``. ``launches``
-counts the calls that launched the kernel (one call is two launches: the
-position splits, then their merge).
+counts the calls that launched the kernel (one launch a call: the block that
+finishes last merges the position splits).
 """
 
 from __future__ import annotations
 
+import functools
 from ctypes import c_int as I
 from ctypes import c_void_p as P
 
@@ -19,11 +20,53 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # C entries: pointers and the stream as c_void_p, sizes as c_int
 _SIGNATURES = {
-    "flash_decode_split_len": [],
+    "flash_decode_splits": [I, I, I, I, I],
     "flash_decode_heads_per_block": [],
     "flash_decode_max_dh": [],
-    "flash_decode": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P],
+    "flash_decode": [P, P, P, P, I, I, I, I, I, I, I, P, P, P, P],
 }
+
+# per device: the stream it was last used on, the partials buffer and the
+# kv-head blocks' ticket counters, which every call leaves at 0 for the next
+_workspace: dict[int, tuple[int, torch.Tensor, torch.Tensor]] = {}
+
+
+@functools.cache
+def _lib():
+    """The library, its query heads per block and its largest dh."""
+    from repro_torch.kernels import _build
+
+    lib = _build.library("flash_decode", _SIGNATURES)
+    return lib, lib.flash_decode_heads_per_block(), lib.flash_decode_max_dh()
+
+
+@functools.cache
+def _splits(s: int, hk: int, g: int, dh: int, dtype: int, device: int) -> int:
+    """Position splits per kv-head block, planned once per shape and card."""
+    with torch.cuda.device(device):
+        return _lib()[0].flash_decode_splits(s, hk, g, dh, dtype)
+
+
+def _scratch(dev: torch.device, stream: int, floats: int, blocks: int):
+    """The partials and the ticket counters, one pair per device.
+
+    They live until a call on another stream, or a larger call, replaces
+    them: calls on one stream run in order, so each reuses them, and new
+    counters start at 0. They are allocated on the stream of the call, and
+    PyTorch's caching allocator hands a freed block out again only to that
+    stream, so a launch still running there when they are replaced is
+    safe."""
+    held = _workspace.get(dev.index)
+    if held is None or held[0] != stream:
+        _workspace.pop(dev.index, None)
+        held = (stream, None, None)
+    _, part, tickets = held
+    if part is None or part.numel() < floats:
+        part = torch.empty((floats,), dtype=torch.float32, device=dev)
+    if tickets is None or tickets.numel() < blocks:
+        tickets = torch.zeros((blocks,), dtype=torch.int32, device=dev)
+    _workspace[dev.index] = (stream, part, tickets)
+    return part, tickets
 
 
 def flash_decode_cuda(
@@ -46,9 +89,9 @@ def flash_decode_cuda(
     _build.require(q, "q", q.dtype, (h, dh), dev)
     _build.require(k, "k", q.dtype, (s, hk, dh), dev)
     _build.require(v, "v", q.dtype, (s, hk, dh), dev)
-    lib = _build.library("flash_decode", _SIGNATURES)
-    if not 0 < dh <= lib.flash_decode_max_dh():
-        raise ValueError(f"the kernel takes 0 < dh <= {lib.flash_decode_max_dh()}, got {dh}")
+    lib, heads, max_dh = _lib()
+    if not 0 < dh <= max_dh:
+        raise ValueError(f"the kernel takes 0 < dh <= {max_dh}, got {dh}")
     if isinstance(length, torch.Tensor):
         _build.require(length, "length", torch.int32, (), dev)
         len_ptr, len_val = length.data_ptr(), 0
@@ -57,16 +100,15 @@ def flash_decode_cuda(
     if s == 0:
         return torch.zeros((h, dh), dtype=q.dtype, device=dev)
     g = h // hk
-    heads = lib.flash_decode_heads_per_block()
-    slots = hk * -(-g // heads) * -(-s // lib.flash_decode_split_len()) * heads
-    part_m = torch.empty((slots,), dtype=torch.float32, device=dev)
-    part_l = torch.empty((slots,), dtype=torch.float32, device=dev)
-    part_acc = torch.empty((slots, dh), dtype=torch.float32, device=dev)
+    dtype = _DTYPES[q.dtype]
+    nsplit = _splits(s, hk, g, dh, dtype, dev.index)
+    blocks = hk * -(-g // heads)
+    stream = _build.stream(q)
+    part, tickets = _scratch(dev, stream, blocks * nsplit * heads * (dh + 2), blocks)
     out = torch.empty((h, dh), dtype=q.dtype, device=dev)
     err = lib.flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), len_ptr, len_val, s, hk, g,
-        dh, _DTYPES[q.dtype], part_m.data_ptr(), part_l.data_ptr(),
-        part_acc.data_ptr(), out.data_ptr(), _build.stream(q),
+        dh, dtype, nsplit, part.data_ptr(), tickets.data_ptr(), out.data_ptr(), stream,
     )
     _build.check(err, "flash_decode")
     launches += 1

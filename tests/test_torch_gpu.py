@@ -105,7 +105,12 @@ def test_sim_best_edge_symmetric_bits(card):
         assert torch.equal(back[0], bs[i])
 
 
-@pytest.mark.parametrize("n,d,k", [(1000, 200, 70), (37, 5, 3), (0, 8, 4)])
+@pytest.mark.parametrize("n,d,k", [(1000, 200, 70), (37, 5, 3), (0, 8, 4),
+                                   (5000, 128, 800),  # every label in one block: x read once
+                                   (2000, 130, 1600),  # past one block's shared memory
+                                   (3000, 1, 50), (500, 130, 7),  # rows off 16 bytes
+                                   # a ring of three stages, wrapped dozens of times a block
+                                   (60_000, 256, 1000), (60_000, 256, 2000), (60_000, 130, 1000)])
 def test_label_stats_matches_plain(card, n, d, k):
     rng = np.random.default_rng(n + d + k)
     x = _ints(rng, (n, d), -8, 8, card)
@@ -116,7 +121,28 @@ def test_label_stats_matches_plain(card, n, d, k):
     _equal(label_stats_cuda(x, idx, k), ref.label_stats(x, idx, k))
 
 
-@pytest.mark.parametrize("n,d,k", [(1000, 130, 70), (300, 16, 5), (0, 4, 2)])
+
+def test_label_stats_sorted_runs(card):
+    """Long runs of one label are added in one warp's register."""
+    rng = np.random.default_rng(11)
+    x = _ints(rng, (6000, 256), -8, 8, card)
+    idx = interop.labels(np.sort(rng.integers(0, 40, size=6000)), card)
+    w = _ints(rng, (6000,), 0, 2, card)
+    _equal(_twice(label_stats_cuda, x, idx, 40, w), ref.label_stats(x, idx, 40, w))
+    _equal(_twice(label_stats_cuda, x, idx, 40), ref.label_stats(x, idx, 40))
+
+
+@pytest.mark.parametrize("n,d,k", [(3000, 96, 50), (2000, 1, 800)])
+def test_label_stats_null_weights_equal_ones(card, n, d, k):
+    """w = None reads as weight 1 in the kernel: the same bits as explicit ones."""
+    rng = np.random.default_rng(n + k)
+    x = interop.data(rng.normal(size=(n, d)), card)
+    idx = interop.labels(rng.integers(-1, k, size=n), card)
+    ones = torch.ones((n,), device=card)
+    _equal(label_stats_cuda(x, idx, k), label_stats_cuda(x, idx, k, ones))
+
+
+@pytest.mark.parametrize("n,d,k", [(1000, 130, 70), (300, 16, 5), (0, 4, 2), (3000, 96, 800)])
 def test_assign_stats_matches_plain(card, n, d, k):
     rng = np.random.default_rng(n + d + k)
     x = _ints(rng, (n, d), -4, 4, card)
@@ -203,7 +229,8 @@ def _check_bounded(got, want, k):
 @pytest.mark.parametrize(
     "n,d,k",
     [(1000, 130, 70), (300, 16, 5), (257, 40, 130), (0, 8, 3),
-     (300, 24, 4200)],  # more than one tile of slab directions (64 slabs)
+     (300, 24, 4200),  # more than one tile of slab directions (64 slabs)
+     (1500, 48, 800)],  # BigK: the fold's accumulators of all labels in one block
 )
 @pytest.mark.parametrize("order", ["identity", "reversed", "index"])
 def test_assign_stats_bounded_matches_plain(card, n, d, k, order):
@@ -476,7 +503,8 @@ def test_flash_decode_matches_plain(card, dtype, h, hk, dh, s):
     g = torch.Generator().manual_seed(h + s)
     q, k, v = (torch.randn(shape, generator=g).to(card, dtype)
                for shape in ((h, dh), (s, hk, dh), (s, hk, dh)))
-    for length in (0, 1, 511, 512, 513, s, s + 7):
+    # 64, 65, 1024 and 1025: tile and range boundaries
+    for length in (0, 1, 64, 65, 511, 512, 513, 1024, 1025, s, s + 7):
         want = ref.flash_decode(q, k, v, length)
         got = flash_decode_cuda(q, k, v, torch.tensor(length, dtype=torch.int32, device=card))
         assert torch.equal(got, flash_decode_cuda(q, k, v, length))  # repeat bits
@@ -486,6 +514,51 @@ def test_flash_decode_matches_plain(card, dtype, h, hk, dh, s):
         else:  # one bf16 ulp of the plain value
             ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp(min=1e-30))) - 7)
             assert (err <= ulp).all()
+
+
+def _decode_scale(q, k, v, length):
+    """For each output, sum_i p_i |v_i| / sum_i p_i in float64: the size of
+    the terms the output is summed from, which bounds an f32 summation's
+    rounding where the output cancels far below them."""
+    s, hk, dh = k.shape
+    g = q.shape[0] // hk
+    logits = torch.einsum("hd,shd->hs", q.double(), k.double().repeat_interleave(g, 1)) / dh**0.5
+    if length <= 0:
+        logits = torch.zeros_like(logits)
+    logits[:, min(length, s) if length > 0 else s:] = -torch.inf
+    return torch.einsum("hs,shd->hd", torch.softmax(logits, -1),
+                        v.double().abs().repeat_interleave(g, 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hk,dh,s", [(24, 8, 128, 4096),  # llama3.2-3b's heads, s cut
+                                       (32, 8, 128, 700),  # g = 4
+                                       (96, 8, 128, 700),  # g = 12: two blocks of heads
+                                       (16, 4, 64, 700), (8, 2, 256, 700)])
+def test_flash_decode_heads_and_widths_match_plain(card, dtype, h, hk, dh, s):
+    """f32 within 2e-5 of the plain version; bf16 within one bf16 ulp of the
+    plain value plus 16 f32 ulps (2^-20) of the size of its terms, sum p|v| /
+    sum p. Each logit is an f32 dot product of 128 O(1) terms, rounded ~10
+    f32 ulps away from the exact one in either version, so an output that
+    cancels far below its terms (~1e-6 here, against terms ~0.05) differs by
+    more than a bf16 ulp between two right f32 computations; elsewhere the
+    allowance is far below the ulp."""
+    g = torch.Generator().manual_seed(h + s)
+    q, k, v = (torch.randn(shape, generator=g).to(card, dtype)
+               for shape in ((h, dh), (s, hk, dh), (s, hk, dh)))
+    for length in (0, 1, 64, 65, 511, 512, 513, 1024, 1025, s, s + 7):
+        want = ref.flash_decode(q, k, v, length)
+        got = flash_decode_cuda(q, k, v, torch.tensor(length, dtype=torch.int32, device=card))
+        assert torch.equal(got, flash_decode_cuda(q, k, v, length))  # repeat bits
+        if dtype == torch.float32:
+            assert (got - want).abs().max().item() <= 2e-5
+            continue
+        ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp(min=1e-30))) - 7)
+        allow = ulp.double() + 2.0**-20 * _decode_scale(q, k, v, length)
+        bad = (got.double() - want.double()).abs() > allow
+        i = int(bad.flatten().to(torch.uint8).argmax())
+        assert not bad.any(), (length, int(bad.sum()), got.flatten()[i].item(),
+                               want.flatten()[i].item())
 
 
 def test_kmeans_fit_stream_prefetch_on_off_bits_on_card(card, monkeypatch):
@@ -531,3 +604,35 @@ def test_flash_decode_unaligned_cache(card):
     got = flash_decode_cuda(q, k, v, 450)
     assert (got - ref.flash_decode(q, k, v, 450)).abs().max().item() <= 2e-5
     assert torch.equal(got, flash_decode_cuda(q, k.clone(), v.clone(), 450))
+
+
+def test_flash_decode_unaligned_bf16_cache(card):
+    """A bf16 cache one element past an aligned address takes the plain
+    loads into the same shared-memory layout: the aligned copy's bits."""
+    g = torch.Generator().manual_seed(3)
+    s, hk, dh = 900, 2, 128
+    q = torch.randn((6, dh), generator=g).to(card, torch.bfloat16)
+    flat = torch.randn((2, s * hk * dh + 1), generator=g).to(card, torch.bfloat16)
+    k, v = (flat[i, 1:].view(s, hk, dh) for i in (0, 1))
+    assert k.is_contiguous() and k.data_ptr() % 16 != 0
+    got = flash_decode_cuda(q, k, v, 700)
+    assert torch.equal(got, flash_decode_cuda(q, k.clone(), v.clone(), 700))
+    want = ref.flash_decode(q, k, v, 700).float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30))) - 7)
+    assert ((got.float() - want).abs() <= ulp).all()
+
+
+def test_flash_decode_ticket_counters_reset(card):
+    """The last block of each kv head leaves its ticket counter at 0: two
+    calls of one shape on one stream, around calls of other shapes, give the
+    same bits."""
+    g = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn(shape, generator=g).to(card)
+               for shape in ((24, 128), (3000, 8, 128), (3000, 8, 128)))
+    first = flash_decode_cuda(q, k, v, 2500)
+    second = flash_decode_cuda(q, k, v, 2500)
+    flash_decode_cuda(q[:4].contiguous(), k[:, :2].contiguous(), v[:, :2].contiguous(), 900)
+    flash_decode_cuda(q, k, v, torch.tensor(17, dtype=torch.int32, device=card))
+    assert torch.equal(first, second)
+    assert torch.equal(first, flash_decode_cuda(q, k, v, 2500))
+    assert (first - ref.flash_decode(q, k, v, 2500)).abs().max().item() <= 2e-5

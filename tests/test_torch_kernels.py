@@ -20,6 +20,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.assign_stats import label_stats_pallas
 from repro.kernels.flash_decode import flash_decode_pallas
 from repro_torch import interop
 from repro_torch.kernels import _build, ops, ref
@@ -123,6 +124,27 @@ def test_label_stats_float_data(rng):
     _same(ref.label_stats_scatter(_t(x), _t(idx), 6, _t(w)), want, exact=False)
 
 
+@pytest.mark.parametrize("case", ["k800", "d1", "sorted"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_label_stats_plain_versions_match_pallas_interpret(rng, case, weighted):
+    """The plain versions the card's tests trust, at the shapes the fold's
+    new cases use: every label in one block (k = 800), one column (the
+    microclusters' squared norms) and sorted labels with long runs."""
+    n, d, k = {"k800": (1200, 8, 800), "d1": (500, 1, 50), "sorted": (600, 130, 40)}[case]
+    x = _ints(rng, (n, d))
+    idx = rng.integers(-1, k + 1, size=n).astype(np.int32)
+    if case == "sorted":
+        idx = np.sort(rng.integers(0, k, size=n)).astype(np.int32)
+    w = _ints(rng, (n,), 0, 2) if weighted else None
+    jw = None if w is None else jnp.asarray(w)
+    want = label_stats_pallas(jnp.asarray(x), jnp.asarray(idx), k, jw, interpret=True)
+    for a, b in zip(want, jref.label_stats(x, idx, k, jw)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    for plain in ("label_stats", "label_stats_scatter"):
+        got = getattr(ref, plain)(_t(x), _t(idx), k, None if w is None else _t(w))
+        _same(got, want, exact=True)
+
+
 # ------------------------------------------------------------------ best edge
 
 
@@ -222,6 +244,39 @@ def test_flash_decode_matches_jax(rng, h, hk, dtype, length):
     # both compute in f32 and round once to bf16: at most one bf16 ulp apart
     ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
     assert (np.abs(got.float().numpy() - want) <= ulp).all()
+
+
+def _decode_scale(q, k, v, length):
+    """For each output, sum_i p_i |v_i| / sum_i p_i in float64: the size of
+    the terms the output is summed from."""
+    s, hk, dh = k.shape
+    g = q.shape[0] // hk
+    logits = np.einsum("hd,shd->hs", q, np.repeat(k, g, 1)) / np.sqrt(dh)
+    if length <= 0:
+        logits[:] = 0.0
+    logits[:, s if length <= 0 else min(length, s):] = -np.inf
+    p = np.exp(logits - logits.max(axis=1, keepdims=True))
+    return np.einsum("hs,shd->hd", p / p.sum(axis=1, keepdims=True), np.abs(np.repeat(v, g, 1)))
+
+
+@pytest.mark.parametrize("length", [0, 1, 64, 65, 300, 307])  # tile/range edges, s, > s
+def test_flash_decode_llama_heads_bf16_match_jax(rng, length):
+    """g = 3 and dh = 128 in bf16, llama3.2-3b's head layout (h = 24,
+    hk = 8), against the JAX package's plain version: one bf16 ulp plus 16
+    f32 ulps (2^-20) of the size of the output's terms. Where an output
+    cancels far below its terms, two plain f32 versions that sum in other
+    orders differ by more than a bf16 ulp (by a few f32 ulps of the terms'
+    size); elsewhere the allowance is far below the ulp."""
+    h, hk, dh, s = 24, 8, 128, 300
+    q, k, v = _decode_case(rng, h, hk, dh, s)
+    (jq, tq), (jk_, tk_), (jv, tv) = _bf16(q), _bf16(k), _bf16(v)
+    want = np.asarray(jref.flash_decode(jq, jk_, jv, length).astype(jnp.float32))
+    got = ops.flash_decode(tq, tk_, tv, length)
+    assert got.dtype == torch.bfloat16
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    scale = _decode_scale(*(np.asarray(a.astype(jnp.float32), np.float64) for a in (jq, jk_, jv)),
+                          length)
+    assert (np.abs(got.float().numpy() - want) <= ulp + 2.0**-20 * scale).all()
 
 
 @pytest.mark.parametrize("h,hk,s,length", [(8, 8, 40, 1), (24, 8, 600, 300), (8, 2, 1024, 1024),
