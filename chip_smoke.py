@@ -3,8 +3,9 @@
 
 Run from the repository root, with no arguments:  python3 chip_smoke.py
 (``python3 chip_smoke.py --kernels`` runs phase 1 and phase 3's timings of
-label_stats and flash_decode on random unit rows of the 1 GB shape, and
-stops: copied into an older tree's root it times that tree's kernels too.)
+label_stats, assign_stats, assign_argmax, assign_stats_bounded and
+flash_decode on random unit rows of the 1 GB shape, and stops: copied into
+an older tree's root it times that tree's kernels too.)
 
 Phases, in order; any failure raises and exits non-zero:
   1. Device: the card's name and power limit; build the CUDA kernels from
@@ -28,8 +29,14 @@ Phases, in order; any failure raises and exits non-zero:
      seen to reset; label_stats also at k = 800 and 1,600, d = 1 and 130,
      k = 1,000 and 2,000 over 60,000 rows (a three-stage ring wrapped many
      times, four runs), sorted label runs and w = None against ones; assign_stats and
-     assign_stats_bounded at k = 800); each kernel runs twice and
-     must repeat its bits. component_best_edge's main-path shapes are held in
+     assign_stats_bounded at k = 800; assign_argmax, assign_stats and
+     assign_stats_bounded on the pipelined tile's edges, n in {1, 127, 129,
+     1,000} x k in {1, 63, 64, 65, 127, 128, 129, 400, 800} x d in {1, 3,
+     33, 130, 2,048}, equal centers on both sides of every slab and tile
+     boundary, assign_argmax equal to assign_stats and bounded equal to
+     unbounded on each, carried bounds at d = 33 and 2,048; on the 1 GB rows
+     assign_argmax equal to assign_stats at k = 400); each kernel runs twice
+     and must repeat its bits. component_best_edge's main-path shapes are held in
      phase 4.
   3. Timing (CUDA events): kernel, plain version, one library call, and the
      card's lower bound for the same work (component_best_edge's in phase 4,
@@ -373,11 +380,9 @@ def phase_timing(x, xs, dev):
     import torch
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.assign_stats import assign_stats_cuda
     from repro_torch.kernels.sim_best_edge import sim_best_edge_cuda
 
     s, d = xs.shape
-    n = x.shape[0]
     g = torch.Generator().manual_seed(2)
     ids = torch.arange(s, dtype=torch.int32, device=dev)
     labels = torch.randint(0, K, (s,), generator=g, dtype=torch.int32).to(dev)
@@ -394,18 +399,28 @@ def phase_timing(x, xs, dev):
         bound=bound_ms(flops, nbytes),
     )
     rows["label_stats"] = timing_label_stats(x, xs, labels, dev)
-    flops = 2.0 * n * K * d + 4.0 * n * d
-    nbytes = n * d * f4 + K * d * f4 + n * f4 + n * 8 + K * d * f4 + 3 * K * f4
-    rows["assign_stats"] = dict(
+    rows["assign_stats"] = timing_assign_stats(x, centers)
+    for name, r in rows.items():
+        log(f"phase 3 timing {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    return rows
+
+
+def timing_assign_stats(x, centers):
+    """assign_stats over x at Buckshot's k: kernel, plain, product, bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.assign_stats import assign_stats_cuda
+
+    n, d = x.shape
+    k, f4 = centers.shape[0], 4
+    flops = 2.0 * n * k * d + 4.0 * n * d
+    nbytes = n * d * f4 + k * d * f4 + n * f4 + n * 8 + k * d * f4 + 3 * k * f4
+    return dict(
         ms=event_ms(lambda: assign_stats_cuda(x, centers), 10),
         plain_ms=event_ms(lambda: ref.assign_stats_scatter(x, centers), 10),
         library_ms=event_ms(lambda: x @ centers.T, 10),
         bound=bound_ms(flops, nbytes),
     )
-    for name, r in rows.items():
-        log(f"phase 3 timing {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"library {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
-    return rows
 
 
 def phase_main_path(corpus, dev):
@@ -647,25 +662,130 @@ def phase_parity_edges_bkc(dev):
         "repeats bit-identical")
 
 
-def phase_parity_main_bkc(x, dev):
-    """The two new kernels on real tf-idf rows at n = 250,000."""
+# the pipelined product tile's edges: rows around a 128-row block, centers
+# around the 64-center slab and the 128-center tile, d off the 32-column
+# stage and the 16-byte stride (d = 1, 3, 33, 130 go by 4-byte copies;
+# 2,048 by the copy engine through a ring wrapped many times)
+PIPE_N = (1, 127, 129, 1000)
+PIPE_K = (1, 63, 64, 65, 127, 128, 129, 400, 800)
+PIPE_D = (1, 3, 33, 130, 2048)
+
+
+def pipe_edge_case(n, k, d, dev):
+    """Integer rows near integer centers, with equal centers on both sides of
+    every 64-center slab and 128-center tile boundary and the last center
+    equal to the first (it loses every tie: an empty cluster); weights 0-2."""
+    import numpy as np
+
+    from repro_torch import interop
+
+    rng = np.random.default_rng(1000 * n + 10 * k + d)
+    c = rng.integers(-4, 5, size=(k, d))
+    for b in range(64, k, 64):
+        c[b] = c[b - 1]
+    if k > 1:
+        c[k - 1] = c[0]
+    x = c[rng.integers(0, k, size=n)] + rng.integers(-1, 2, size=(n, d))
+    w = rng.integers(0, 3, size=n)
+    return interop.data(x, dev), interop.data(c, dev), interop.data(w, dev)
+
+
+def phase_parity_pipe_edges(dev) -> None:
+    """assign_argmax, assign_stats and assign_stats_bounded on the pipelined
+    tile's edges, each run twice and bit-identical: equal to the plain
+    versions (bounded: hi an upper bound, exact where the centers fit one
+    slab), assign_argmax equal to assign_stats' (idx, best_sim), bounded equal
+    to unbounded; at d = 33 and 2,048 also with carried bounds after a move
+    (settled rows through the row pass and its gathered centers)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.assign_argmax import assign_argmax_cuda
+    from repro_torch.kernels.assign_stats import assign_stats_bounded_cuda, assign_stats_cuda
+
+    cases = 0
+    for d in PIPE_D:
+        for n in PIPE_N:
+            for k in PIPE_K:
+                name = f"pipe edge n={n} k={k} d={d}"
+                x, c, w = pipe_edge_case(n, k, d, dev)
+                a = assign_argmax_cuda(x, c)
+                check_repeat(name + " assign_argmax", a, assign_argmax_cuda(x, c))
+                check_equal(name + " assign_argmax", a, ref.assign_argmax(x, c))
+                s = assign_stats_cuda(x, c, w)
+                check_repeat(name + " assign_stats", s, assign_stats_cuda(x, c, w))
+                check_equal(name + " assign_stats", s, ref.assign_stats(x, c, w))
+                check_equal(name + " assign_argmax vs assign_stats", a,
+                            assign_stats_cuda(x, c)[:2])
+                b = _sentinel(n, dev)
+                args = (x, c, b.idx, b.lo, b.hi, torch.zeros(k, device=dev), w)
+                runs = [("sentinel", args)]
+                if d in (33, 2048) and n == 1000:
+                    want = ref.assign_stats_bounded(*args)
+                    moved = c.clone()
+                    moved[0, 0] += 1
+                    drift = torch.linalg.vector_norm(moved - c, dim=1)
+                    runs.append(("carried", (x, moved, *want[6:9], drift, w)))
+                for kind, bargs in runs:
+                    got = assign_stats_bounded_cuda(*bargs)
+                    check_repeat(f"{name} bounded {kind}", got, assign_stats_bounded_cuda(*bargs))
+                    want = ref.assign_stats_bounded(*bargs)
+                    check_equal(f"{name} bounded {kind}", got[:8] + got[9:], want[:8] + want[9:])
+                    check_bounded_hi(f"{name} bounded {kind}", got[8], want[8])
+                    exact = got[9] if k > 64 else torch.ones_like(got[9])
+                    if not torch.equal(got[8][exact], want[8][exact]):
+                        raise AssertionError(f"{name} bounded {kind}: hi differs where exact")
+                    check_equal(f"{name} bounded {kind} vs assign_stats", got[:6],
+                                assign_stats_cuda(*bargs[:2], w))
+                    if kind == "carried" and k > 1 and not got[9].any():
+                        raise AssertionError(f"{name}: carried bounds pruned no row")
+                cases += 1
+    log(f"phase 2 parity: the pipelined tile's edges exact on {cases} cases (n in {PIPE_N}, k "
+        f"in {PIPE_K}, d in {PIPE_D}; ties across slab and tile boundaries), repeats "
+        "bit-identical, assign_argmax equal to assign_stats, bounded equal to unbounded")
+
+
+def bkc_state(x, dev):
+    """The BKC slice's centers and bounds over x: BigK = 800 sampled rows
+    (k = 400 the first half), their center index, and the carried bounds,
+    centers and drift after one bounded K-Means step at k = 400. Only the
+    wrappers' and ops' public signatures, so an older tree's kernels take
+    the same inputs."""
     import torch
 
     from repro_torch.common import l2_normalize
     from repro_torch.core import sampling
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.assign_argmax import assign_argmax_cuda
-    from repro_torch.kernels.assign_stats import assign_stats_bounded_cuda, assign_stats_cuda
+    from repro_torch.kernels import ops
 
     n = x.shape[0]
     g = torch.Generator().manual_seed(3)
     pick = sampling.sample_indices(n, BIG_K, g, dev)
     c800 = l2_normalize(x[pick]).contiguous()
     c400 = c800[:BKC_K].contiguous()
+    index = ops.build_center_index(c800)
+    st0 = ops.assign_stats_bounded(x, c400, _sentinel(n, dev), torch.zeros(BKC_K, device=dev))
+    means = st0.sums / torch.clamp(st0.counts, min=1.0)[:, None]
+    c1 = torch.where(st0.counts[:, None] > 0, l2_normalize(means), c400).contiguous()
+    drift = torch.linalg.vector_norm(c1 - c400, dim=1)
+    return c400, c800, index, st0.bounds, c1, drift
+
+
+def phase_parity_main_bkc(x, dev):
+    """The two new kernels on real tf-idf rows at n = 250,000."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.assign_argmax import assign_argmax_cuda
+    from repro_torch.kernels.assign_stats import assign_stats_bounded_cuda, assign_stats_cuda
+
+    n = x.shape[0]
+    state = bkc_state(x, dev)
+    c400, c800, index, bnd, c1, drift = state
     errs, ties = {}, {}
 
     a = assign_argmax_cuda(x, c400)
     check_repeat("assign_argmax", a, assign_argmax_cuda(x, c400))
+    check_equal("assign_argmax vs assign_stats", a, assign_stats_cuda(x, c400)[:2])
     want = ref.assign_argmax(x, c400)
     ties["assign_argmax"] = check_argmax(
         "assign_argmax", a[0], a[1], want[0], want[1],
@@ -677,7 +797,6 @@ def phase_parity_main_bkc(x, dev):
     # sentinel bounds at BigK through a center index: the same labels and
     # statistics as assign_stats, bit for bit; the plain version within the
     # stated tolerances
-    index = ops.build_center_index(c800)
     b = _sentinel(n, dev)
     zero = torch.zeros(BIG_K, device=dev)
     got = assign_stats_bounded_cuda(x, c800, b.idx, b.lo, b.hi, zero, perm=index.perm)
@@ -705,11 +824,6 @@ def phase_parity_main_bkc(x, dev):
     del got, want
 
     # carried bounds after one K-Means step at k = 400
-    st0 = ops.assign_stats_bounded(x, c400, _sentinel(n, dev), zero[:BKC_K])
-    means = st0.sums / torch.clamp(st0.counts, min=1.0)[:, None]
-    c1 = torch.where(st0.counts[:, None] > 0, l2_normalize(means), c400).contiguous()
-    drift = torch.linalg.vector_norm(c1 - c400, dim=1)
-    bnd = st0.bounds
     args = (x, c1, bnd.idx, bnd.lo, bnd.hi, drift)
     got = assign_stats_bounded_cuda(*args)
     check_repeat("assign_stats_bounded carried", got, assign_stats_bounded_cuda(*args))
@@ -735,7 +849,7 @@ def phase_parity_main_bkc(x, dev):
         f"differences {ties}; carried bounds after one step at k={BKC_K}: pruned share "
         f"{share:.4f}, pruned-mask differences {int(off.sum())} (rows within 1e-5 of the "
         f"margin: {int(near.sum())})")
-    return errs, (c400, c800, index, st0.bounds, c1, drift)
+    return errs, state
 
 
 def phase_timing_bkc(x, state, dev):
@@ -1981,11 +2095,13 @@ def timing_flash_decode(dev):
 
 
 def kernels_only(dev) -> None:
-    """``--kernels``: phase 1, then phase 3's timings of label_stats and
-    flash_decode, on random unit rows of the 1 GB shape, without the paths:
-    the tool for timing two trees' kernels in one call. It uses only the
-    wrappers' public signatures, so it also times an older tree's kernels
-    when copied into that tree's root."""
+    """``--kernels``: phase 1, then phase 3's timings of label_stats,
+    assign_stats (k = 50), assign_argmax (k = 400), assign_stats_bounded
+    (BigK = 800, the five settings of phase_timing_bkc) and flash_decode, on
+    random unit rows of the 1 GB shape, without the paths: the tool for
+    timing two trees' kernels in one call. It uses only the wrappers' and
+    ops' public signatures, so it also times an older tree's kernels when
+    copied into that tree's root."""
     import torch
 
     from repro_torch.common import l2_normalize
@@ -1997,7 +2113,13 @@ def kernels_only(dev) -> None:
     xs = l2_normalize(x[torch.randperm(n, generator=g, device=dev)[:s]])
     labels = torch.randint(0, K, (s,), generator=g, device=dev, dtype=torch.int32)
     timing_label_stats(x, xs, labels, dev)
-    del x, xs
+    r = timing_assign_stats(x, xs[:K].contiguous())
+    log(f"phase 3 timing assign_stats (k={K}): kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+        f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    del xs
+    phase_timing_bkc(x, bkc_state(x, dev), dev)
+    del x
     torch.cuda.empty_cache()
     timing_flash_decode(dev)
 
@@ -2037,6 +2159,7 @@ def main() -> int:
     phase_parity_edges(dev)
     errs = phase_parity_main(x, xs, dev)
     phase_parity_edges_bkc(dev)
+    phase_parity_pipe_edges(dev)
     errs_bkc, state = phase_parity_main_bkc(x, dev)
     errs.update(errs_bkc)
     errs["component_best_edge"] = phase_parity_edges_cbe(dev)

@@ -15,7 +15,7 @@ import torch
 launches = 0
 
 # C entry: pointers and the stream as c_void_p, sizes as c_int
-_SIGNATURES = {"assign_argmax": [P, P, I, I, I, P, P, P]}
+_SIGNATURES = {"assign_argmax_scratch": [I], "assign_argmax": [P, P, I, I, I, P, P, P, P]}
 
 
 def assign_argmax_cuda(
@@ -38,9 +38,11 @@ def assign_argmax_cuda(
     if n == 0:
         return idx, best_sim
     lib = _build.library("assign_argmax", _SIGNATURES)
+    # the center tiles' winners, merged by the kernel's second launch
+    scratch = torch.empty((n * lib.assign_argmax_scratch(k),), dtype=torch.float32, device=dev)
     err = lib.assign_argmax(
         x.data_ptr(), centers.data_ptr(), n, d, k, idx.data_ptr(),
-        best_sim.data_ptr(), _build.stream(x),
+        best_sim.data_ptr(), scratch.data_ptr() or None, _build.stream(x),
     )
     _build.check(err, "assign_argmax")
     launches += 1

@@ -28,7 +28,8 @@ _SIGNATURES = {
     },
     "assign_stats": {
         "assign_stats_chunks": [I, I, I],
-        "assign_stats": [P, P, P, I, I, I, I, P, P, P, P, P, P, P, P, P, P],
+        "assign_stats_scratch": [I],
+        "assign_stats": [P, P, P, I, I, I, I] + [P] * 11,
     },
     "assign_stats_bounded": {
         "assign_stats_bounded_slab": [],
@@ -144,10 +145,12 @@ def assign_stats_cuda(
     counts = torch.empty((k,), dtype=torch.float32, device=dev)
     min_sim = torch.empty((k,), dtype=torch.float32, device=dev)
     sumsq = torch.empty((k,), dtype=torch.float32, device=dev)
+    # the center tiles' winners, merged by launch 1's second kernel
+    tile = torch.empty((n * lib.assign_stats_scratch(k),), dtype=torch.float32, device=dev)
     err = lib.assign_stats(
         x.data_ptr(), centers.data_ptr(), wp, n, d, k, chunks,
         idx.data_ptr(), best_sim.data_ptr(), rowsq.data_ptr(), part,
-        part_k, sums.data_ptr(), counts.data_ptr(),
+        part_k, tile.data_ptr() or None, sums.data_ptr(), counts.data_ptr(),
         min_sim.data_ptr(), sumsq.data_ptr(), stream,
     )
     _build.check(err, "assign_stats")

@@ -11,20 +11,27 @@
 // 67 TFLOP/s, no TF32: the result must match the plain fp32 product) on
 // 2.05 GB of x (0.61 ms at 3.35 TB/s).
 //
-// What the design does about it: the same register tile as assign_stats'
-// launch 1 (assign_tile.cuh: 128 rows x 64 centers per block, 8 x 4 results
-// per thread, d staged 16 columns at a time), without the row norms. Each
-// similarity is one fmaf chain over d in order, so idx and best_sim have the
-// same bits as assign_stats' on the same inputs. The TPU kernel held every
-// center tile in VMEM; here the centers stream through shared memory and
-// stay in the 50 MB L2 (k * d * 4 = 3.3 MB at k = 400).
+// What the design does about it: the pipelined tile of assign_tile.cuh,
+// shared with assign_stats' launch 1: a grid over (128 rows, 128 centers)
+// whose center tiles of one row tile run side by side, so x (2.05 GB) comes
+// from device memory about once and from L2 for the other tiles; x and the
+// center tile reach shared memory through a four-stage ring fed by the copy
+// engine from a producer warp, while 8 consumer warps hold 8 x 8 results a
+// thread and read shared memory 16 bytes at a time. A second launch merges
+// the center tiles' winners in tile order. Each similarity is one fmaf chain
+// over d in order, so idx and best_sim have the same bits as assign_stats'
+// on the same inputs. The TPU kernel held every center tile in VMEM; here
+// the centers (k * d * 4 = 3.3 MB at k = 400) stay in the 50 MB L2.
 
 #include "assign_tile.cuh"
 
+extern "C" int assign_argmax_scratch(int k) { return repro::assign_tile_scratch(k); }
+
+// scratch: n * assign_argmax_scratch(k) floats (null when that is 0).
 extern "C" int assign_argmax(const float* x, const float* centers, int n,
                              int d, int k, int* idx, float* best_sim,
-                             void* stream) {
+                             float* scratch, void* stream) {
   return repro::launch_assign_tile<false>(x, centers, n, k, d, idx, best_sim,
-                                          nullptr,
+                                          nullptr, scratch,
                                           static_cast<cudaStream_t>(stream));
 }

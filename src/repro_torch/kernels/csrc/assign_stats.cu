@@ -14,10 +14,11 @@
 // 3.35 TB/s) are close; the arithmetic is the larger.
 //
 // What the design does about it: launch 1 (assign_tile.cuh) runs the
-// register tile of tile_dot.cuh with 128 rows x 64 centers per block (k = 50
-// fits one center tile; larger k loops over center tiles, strict '>' across
-// them), and also sums each row's squared norm while the row passes through
-// shared memory. Launches 2-3 are label_stats' deterministic fold with the extra
+// pipelined tile of assign_pipe.cuh with 128 rows x 128 centers per block
+// (k = 50 fits one center tile, 64 of its columns computed; larger k runs
+// the center tiles side by side and merges their winners in tile order,
+// strict '>'), and also sums each row's squared norm while the row passes
+// through the ring. Launches 2-3 are label_stats' deterministic fold with the extra
 // scalars (label_stats.cuh). The TPU kernel folded the stats while the x tile
 // was still in VMEM and read x once; this first version reads x twice (once
 // per launch), which costs one more pass over x. The TPU kernel's ACC_BUDGET
@@ -31,16 +32,19 @@ extern "C" int assign_stats_chunks(int n, int k, int d) {
   return repro::stats_chunks(n, k, d);
 }
 
-// Scratch: rowsq holds n floats, part chunks * k * d, part_k chunks * 3 * k.
+extern "C" int assign_stats_scratch(int k) { return repro::assign_tile_scratch(k); }
+
+// Scratch: rowsq holds n floats, part chunks * k * d, part_k chunks * 3 * k,
+// tile n * assign_stats_scratch(k) (null when that is 0).
 extern "C" int assign_stats(const float* x, const float* centers,
                             const float* w, int n, int d, int k, int chunks,
                             int* idx, float* best_sim, float* rowsq,
-                            float* part, float* part_k, float* sums,
+                            float* part, float* part_k, float* tile, float* sums,
                             float* counts, float* min_sim, float* sumsq,
                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int err = repro::launch_assign_tile<true>(x, centers, n, k, d, idx,
-                                                  best_sim, rowsq, st);
+                                                  best_sim, rowsq, tile, st);
   if (err != 0) return err;
   return repro::launch_stats<true>(x, idx, w, rowsq, best_sim, n, d, k, chunks,
                                    part, part_k, sums, counts, min_sim, sumsq,

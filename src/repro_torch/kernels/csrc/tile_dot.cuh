@@ -1,5 +1,6 @@
-// Register-tiled fp32 dot-product tile shared by sim_best_edge.cu and
-// assign_stats.cu: one block computes the (BM, BN) tile A[row0:] . B[col0:]^T
+// Register-tiled fp32 dot-product tile of sim_best_edge.cu (the assignment
+// kernels run on assign_pipe.cuh's pipelined tile, which gives the same bits
+// for the same inputs): one block computes the (BM, BN) tile A[row0:] . B[col0:]^T
 // of two row-major (rows, d) matrices, d-chunk by d-chunk through shared
 // memory, with every thread holding a (TM, TN) sub-tile in registers.
 //

@@ -1,5 +1,5 @@
 // Hopper's asynchronous copy engine (TMA) and shared-memory barriers
-// (mbarrier), as used by label_stats.cuh and flash_decode.cu.
+// (mbarrier), as used by label_stats.cuh, assign_pipe.cuh and flash_decode.cu.
 //
 // A tensor map describes a tiled view of a tensor in device memory; one
 // thread asks for a whole box to be copied into shared memory, and the copy
@@ -113,6 +113,13 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
 // (counted in the barrier's expected arrivals).
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 16-byte asynchronous copy (zeros where src_bytes is 0), bypassing L1.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");
 }

@@ -10,6 +10,7 @@ statistics and RSS within 1e-5 relative.
 from __future__ import annotations
 
 import sys
+import zlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +37,15 @@ tbkc, tcc, tmc = (
 REL = 1e-5
 BIG_K, K = 40, 6
 ROUTES = [dict(fused=True), dict(fused=False), dict(fused=True, bounded=True)]
+
+
+@pytest.fixture
+def rng(request):
+    """This module's generator, seeded from the test's own name (and its
+    parameters): its draws do not depend on which tests a worker ran before
+    (conftest's session-wide generator's do)."""
+    name = f"{request.module.__name__}::{request.node.name}"
+    return np.random.default_rng(zlib.crc32(name.encode()))
 
 
 @pytest.fixture(scope="module")

@@ -13,6 +13,7 @@ there the port's exact hi must not exceed it.
 from __future__ import annotations
 
 import sys
+import zlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +35,15 @@ tb, tk = (sys.modules[f"repro_torch.core.{m}"] for m in ("buckshot", "kmeans"))
 
 RTOL = ATOL = 1e-6
 NAMES = ("idx", "best_sim", "sums", "counts", "min_sim", "sumsq", "b.idx", "lo", "hi", "pruned")
+
+
+@pytest.fixture
+def rng(request):
+    """This module's generator, seeded from the test's own name (and its
+    parameters): its draws do not depend on which tests a worker ran before
+    (conftest's session-wide generator's do)."""
+    name = f"{request.module.__name__}::{request.node.name}"
+    return np.random.default_rng(zlib.crc32(name.encode()))
 
 
 def _np(t):
@@ -142,29 +152,84 @@ def test_bounded_ops_match_xla_and_pallas_interpret(rng):
         c, bounds = new_c, tuple(np.asarray(a) for a in xla.bounds)
 
 
-def test_bounded_carried_over_lloyd_iterations(rng):
+def _lloyd_bounded(rng, near_ties):
     """Eight Lloyd iterations; each step both packages get the same centers
-    and the same input bounds (JAX's from the step before). Labels equal the
-    brute sweep every step, and pruning fires once the centers settle."""
+    and the same input bounds (JAX's from the step before). Returns the rows
+    whose labels differ (iteration, row), each a near-tie, and the rows
+    pruned over all steps. Without near_ties labels equal JAX's and the brute
+    sweep's every step."""
     n, k, d = 600, 16, 48
     x = _blobs(rng, n, k, d)
     centers = x[:k].copy()
     w = np.ones(n, np.float32)
     w[::11] = 0.0  # pad rows of a streaming chunk
     bounds, drift = _sentinel(n), np.zeros(k, np.float32)
-    pruned = 0
+    pruned, differ = 0, []
     for it in range(8):
         got = ref.assign_stats_bounded_scatter(
             _t(x), _t(centers), *map(_t, bounds), _t(drift), _t(w))
         want = jref.assign_stats_bounded_scatter(x, centers, *bounds, drift, jnp.asarray(w))
-        _same(got, want, exact=False)
-        np.testing.assert_array_equal(
-            _np(got[0]), np.asarray(jref.assign_argmax(x, centers)[0]), err_msg=f"it{it}")
+        brute = np.asarray(jref.assign_argmax(x, centers)[0])
+        if near_ties:
+            rows = np.nonzero(_np(got[0]) != np.asarray(want[0]))[0]
+            for r in rows:
+                differ.append((it, int(r)))
+                s64 = x[r].astype(np.float64) @ centers.astype(np.float64).T
+                pick, other = s64[_np(got[0])[r]], s64[np.asarray(want[0])[r]]
+                # a near-tie of two f32 libraries: the picks' exact similarities
+                # lie within 4 f32 ulps, the port's pick within that of the best
+                assert abs(pick - other) <= 4 * np.spacing(np.float32(s64.max())), (it, r)
+                assert s64.max() - pick <= 4 * np.spacing(np.float32(s64.max())), (it, r)
+            keep = np.ones(n, bool)
+            keep[rows] = False
+            for name, g, wv in zip(NAMES, got, want):
+                g, wv = _np(g), np.asarray(wv)
+                if name in ("idx", "b.idx"):
+                    np.testing.assert_array_equal(g[keep], wv[keep], err_msg=name)
+                elif name == "pruned":
+                    np.testing.assert_array_equal(g, wv, err_msg=name)
+            # the statistics are those of the port's own labels
+            lab = _np(got[0])
+            np.testing.assert_allclose(
+                _np(got[3]), np.bincount(lab, weights=w, minlength=k), rtol=0, atol=0)
+        else:
+            _same(got, want, exact=False)
+            np.testing.assert_array_equal(_np(got[0]), brute, err_msg=f"it{it}")
         pruned += int(_np(got[9]).sum())
         new_c = _update(centers, np.asarray(want[2]), np.asarray(want[3]))
         drift = np.linalg.norm(new_c - centers, axis=1).astype(np.float32)
         centers, bounds = new_c, tuple(np.asarray(a) for a in want[6:9])
-    assert pruned > 0
+    return differ, pruned
+
+
+def test_bounded_carried_over_lloyd_iterations(rng):
+    """Labels, bounds and statistics equal JAX's every step, and pruning
+    fires once the centers settle."""
+    differ, pruned = _lloyd_bounded(rng, near_ties=False)
+    assert not differ and pruned > 0
+
+
+# The session generator's state at the start of the test above when it
+# failed in a whole-suite run (6 workers, --dist loadfile), before the
+# module drew its own: at iteration 2 row 25's two best centers (0 and 7)
+# lie 1.24e-7 apart in float64, 2.07 f32 ulps of 0.9955, and the two
+# packages' f32 sums pick different ones.
+_CAPTURED_LLOYD = {
+    "bit_generator": "PCG64",
+    "state": {"state": 185112854581694410313412410634648233266,
+              "inc": 87136372517582989555478159403783844777},
+    "has_uint32": 1, "uinteger": 2604231736,
+}
+
+
+def test_bounded_carried_over_lloyd_iterations_captured_near_tie():
+    """The captured draw: every label but the near-tie's equals JAX's (that
+    one may go either way, within 4 f32 ulps of the best), the pruned masks
+    equal, pruning fires."""
+    rng = np.random.default_rng()
+    rng.bit_generator.state = _CAPTURED_LLOYD
+    differ, pruned = _lloyd_bounded(rng, near_ties=True)
+    assert set(differ) <= {(2, 25)} and pruned > 0
 
 
 @pytest.mark.parametrize("weighted", [False, True])

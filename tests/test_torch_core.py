@@ -9,6 +9,7 @@ centers within 1e-6; RSS, purity and NMI within 1e-5 relative.
 from __future__ import annotations
 
 import sys
+import zlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +32,15 @@ jb, jh, jk = (sys.modules[f"repro.core.{m}"] for m in ("buckshot", "hac", "kmean
 tb, th, tk = (sys.modules[f"repro_torch.core.{m}"] for m in ("buckshot", "hac", "kmeans"))
 
 REL = 1e-5
+
+
+@pytest.fixture
+def rng(request):
+    """This module's generator, seeded from the test's own name (and its
+    parameters): its draws do not depend on which tests a worker ran before
+    (conftest's session-wide generator's do)."""
+    name = f"{request.module.__name__}::{request.node.name}"
+    return np.random.default_rng(zlib.crc32(name.encode()))
 
 
 @pytest.fixture(scope="module")

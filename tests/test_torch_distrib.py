@@ -30,6 +30,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import zlib
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -52,6 +53,15 @@ th = sys.modules["repro_torch.core.hac"]
 ROOT = Path(__file__).resolve().parents[1]
 NEG = float(np.finfo(np.float32).min)
 TIMEOUT = 300  # seconds for each subprocess
+
+
+@pytest.fixture
+def rng(request):
+    """This module's generator, seeded from the test's own name (and its
+    parameters): its draws do not depend on which tests a worker ran before
+    (conftest's session-wide generator's do)."""
+    name = f"{request.module.__name__}::{request.node.name}"
+    return np.random.default_rng(zlib.crc32(name.encode()))
 
 
 def _np(t):

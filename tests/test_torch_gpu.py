@@ -8,7 +8,7 @@ Inputs are integer-valued f32, so every product and sum is exact in f32 and
 the kernels must agree with the plain versions bit for bit whatever order
 they add in; ties are everywhere, which pins the lowest-index rules. The
 shapes are not multiples of the kernels' tiles (128 rows/columns, 64
-centers/labels, 16 columns of d).
+centers/labels, 16 or 32 columns of d).
 """
 
 from __future__ import annotations
@@ -288,6 +288,69 @@ def test_assign_stats_bounded_all_rows_pruned(card):
     assert want[9].all()
     got = _twice(lambda: assign_stats_bounded_cuda(*args))
     _check_bounded(got, want, 20)
+
+
+PIPE_K = (1, 63, 64, 65, 127, 128, 129, 400, 800)
+
+
+def _pipe_case(n, k, d, card):
+    """Integer rows near integer centers, equal centers on both sides of
+    every 64-center slab and 128-center tile boundary, the last center equal
+    to the first (an empty cluster), weights 0-2."""
+    rng = np.random.default_rng(1000 * n + 10 * k + d)
+    c = rng.integers(-4, 5, size=(k, d))
+    for b in range(64, k, 64):
+        c[b] = c[b - 1]
+    if k > 1:
+        c[k - 1] = c[0]
+    x = c[rng.integers(0, k, size=n)] + rng.integers(-1, 2, size=(n, d))
+    return interop.data(x, card), interop.data(c, card), _ints(rng, (n,), 0, 2, card)
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 1000])
+@pytest.mark.parametrize("d", [1, 3, 33, 130, 2048])
+def test_pipe_tile_edges_match_plain(card, n, d):
+    """The pipelined tile at the edges of its row block (128), slab (64),
+    center tile (128), stage (32 columns of d) and copy width: d = 1, 3, 33
+    and 130 go by 4-byte copies, 2,048 by the copy engine through a ring
+    wrapped many times. assign_argmax, assign_stats and the bounded pass
+    (sentinel bounds) equal their plain versions, assign_argmax equals
+    assign_stats and bounded equals unbounded, for every k of PIPE_K."""
+    for k in PIPE_K:
+        x, c, w = _pipe_case(n, k, d, card)
+        a = _twice(assign_argmax_cuda, x, c)
+        _equal(a, ref.assign_argmax(x, c))
+        s = _twice(assign_stats_cuda, x, c, w)
+        _equal(s, ref.assign_stats(x, c, w))
+        _equal(a, assign_stats_cuda(x, c)[:2])
+        b0 = ops.bounds_identity(n, card)
+        args = (x, c, b0.idx, b0.lo, b0.hi, torch.zeros((k,), device=card), w)
+        got = _twice(lambda: assign_stats_bounded_cuda(*args))
+        _check_bounded(got, ref.assign_stats_bounded(*args), k)
+        _equal(got[:6], s)
+
+
+@pytest.mark.parametrize("d", [33, 130, 2048])
+@pytest.mark.parametrize("k", [65, 129, 800])
+def test_bounded_row_pass_ring_wraps(card, d, k):
+    """Carried bounds after a move: settled rows take their similarity from
+    the row pass (their carried centers gathered by 16-byte copies at
+    d = 2,048, 4-byte ones otherwise), the rest sweep; the ring runs on
+    across the row pass, the slab directions and the slabs. Equal to the
+    plain version and, labels and statistics, to the unbounded pass."""
+    x, c, w = _pipe_case(1000, k, d, card)
+    b0 = ops.bounds_identity(1000, card)
+    first = ref.assign_stats_bounded(x, c, b0.idx, b0.lo, b0.hi, torch.zeros((k,), device=card), w)
+    moved = c.clone()
+    moved[0, 0] += 1
+    moved[k // 2, d - 1] -= 1
+    drift = torch.linalg.vector_norm(moved - c, dim=1)
+    args = (x, moved, first[6], first[7], first[8], drift, w)
+    got = _twice(lambda: assign_stats_bounded_cuda(*args))
+    want = ref.assign_stats_bounded(*args)
+    assert want[9].any() and not want[9].all()
+    _check_bounded(got, want, k)
+    _equal(got[:6], assign_stats_cuda(x, moved, w))
 
 
 def test_buckshot_card_matches_cpu(card):
