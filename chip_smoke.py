@@ -3,9 +3,11 @@
 
 Run from the repository root, with no arguments:  python3 chip_smoke.py
 (``python3 chip_smoke.py --kernels`` runs phase 1 and phase 3's timings of
-label_stats, assign_stats, assign_argmax, assign_stats_bounded and
-flash_decode on random unit rows of the 1 GB shape, and stops: copied into
-an older tree's root it times that tree's kernels too.)
+sim_best_edge, component_best_edge, label_stats, assign_stats,
+assign_argmax, assign_stats_bounded and flash_decode on random unit rows of
+the 1 GB shape, then Buckshot on the 1 GB collection (its RSS and a digest of
+its labels), and stops: copied into an older tree's root it times that
+tree's kernels too.)
 
 Phases, in order; any failure raises and exits non-zero:
   1. Device: the card's name and power limit; build the CUDA kernels from
@@ -14,9 +16,14 @@ Phases, in order; any failure raises and exits non-zero:
      CUDA tensors, at the main paths' shapes and on integer-valued edge cases
      (ties across tiles, pad labels, weight-0 rows, empty clusters, sizes off
      the tiles; for the bounded pass also duplicate centers visited out of id
-     order, sentinel, carried and invalidated bounds; for component_best_edge
-     f32.min rows, row-id ties on either side, ids -1 and c, c > r, -0.0
-     against +0.0, r = 0; for best_edge ties across warp steps and row
+     order, sentinel, carried and invalidated bounds; for sim_best_edge
+     the self-search (tiles on and above the diagonal) and the full grid on
+     s x s x d, s in {1, 127, 128, 129, 257, 3,536}, d in {1, 3, 33, 130,
+     2,048}, equal columns across the diagonal tile, pads and one
+     component; for component_best_edge f32.min rows, row-id ties on either
+     side, ids -1 and c, c > r, -0.0 against +0.0, r = 0, and both grids
+     (one block; the cooperative grid past its keys or rows, r = 200,000,
+     several calls in a row); for best_edge ties across warp steps and row
      blocks, rows all in one component, -0.0, r = 0 and c = 0, the main
      path's round-1 block xs @ xs.T and a block with round-2 labels, all with
      torch.equal; for flash_decode lengths 0, 1, 511, 512, 513, 20,000, s and
@@ -39,8 +46,11 @@ Phases, in order; any failure raises and exits non-zero:
      and must repeat its bits. component_best_edge's main-path shapes are held in
      phase 4.
   3. Timing (CUDA events): kernel, plain version, one library call, and the
-     card's lower bound for the same work (component_best_edge's in phase 4,
-     on round 1's candidates: r = 3,536, c = 1,768; best_edge at the kernel
+     card's lower bound for the same work (sim_best_edge's self-search
+     against the half product, the full grid on a copy of the rows beside
+     it; component_best_edge's in phase 4, on round 1's candidates:
+     r = 3,536, c = 1,768, back to back and its kernels alone, profiled;
+     best_edge at the kernel
      bench's 2,000 x 2,000 block and the main path's 3,536 x 3,536, with the
      L2 cache flushed before each call; flash_decode at the kernel bench's
      cache, f32, and at llama3.2-3b's heads, bf16, length 20,000 of 32,768,
@@ -247,6 +257,7 @@ def phase_parity_edges(dev):
         a, b = sim_best_edge_cuda(xr, xc, lr, lc), sim_best_edge_cuda(xr, xc, lr, lc)
         check_repeat("sim_best_edge", a, b)
         check_equal(f"sim_best_edge {r}x{c}x{d}", a, ref.sim_best_edge(xr, xc, lr, lc))
+    phase_parity_sim_self(dev)
     # k = 800 in one read, k = 1,600 past one block's shared memory (two
     # label tiles), d = 1 and d = 130 (plain loads: rows off 16 bytes)
     for n, d, k in [(1000, 200, 70), (37, 5, 3), (0, 8, 4), (5000, 128, 800), (3000, 1, 50),
@@ -301,6 +312,49 @@ def phase_parity_edges(dev):
         "assign_stats and assign_stats_bounded at k = 800), repeats bit-identical")
 
 
+def phase_parity_sim_self(dev):
+    """sim_best_edge's two grids on integer rows, s x s x d for s in {1, 127,
+    128, 129, 257, 3,536} and d in {1, 3, 33, 130, 2,048}: the self-search
+    (one tensor for both row matrices and both label vectors: the tiles on
+    and above the diagonal) and the full grid (a copy of the same rows and
+    labels), each equal to the plain version bit for bit and repeating its
+    bits. Labels hold pads (-1); past one tile a row of tile 0 is repeated in
+    tiles 1 and 2, so equal columns sit on both sides of the diagonal tile;
+    one more self-search has every row in one component."""
+    import numpy as np
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sim_best_edge import sim_best_edge_cuda
+
+    rng = np.random.default_rng(17)
+    cases = 0
+    for s in (1, 127, 128, 129, 257, 3536):
+        for d in (1, 3, 33, 130, 2048):
+            x = interop.data(rng.integers(-3, 4, size=(s, d)), dev)
+            if s > 256:
+                x[130] = x[5]  # the same column in tile 0, tile 1 ...
+                x[s - 1] = x[5]  # ... and the last tile
+            lab = interop.labels(rng.integers(-1, 6, size=s), dev)  # -1 = pad
+            want = ref.sim_best_edge(x, x, lab, lab)
+            got = sim_best_edge_cuda(x, x, lab, lab)
+            check_repeat(f"sim_best_edge self {s}x{d}", got, sim_best_edge_cuda(x, x, lab, lab))
+            check_equal(f"sim_best_edge self {s}x{d}", got, want)
+            check_equal(f"sim_best_edge full grid {s}x{d}",
+                        sim_best_edge_cuda(x, x.clone(), lab, lab.clone()), want)
+            cases += 1
+    x = interop.data(rng.integers(-3, 4, size=(300, 40)), dev)
+    one = torch.zeros((300,), dtype=torch.int32, device=dev)  # every row in one component
+    got = sim_best_edge_cuda(x, x, one, one)
+    check_equal("sim_best_edge self, one component", got, ref.sim_best_edge(x, x, one, one))
+    if not ((got[0] == -1).all() and (got[1] == ref.NEG).all()):
+        raise AssertionError("sim_best_edge self, one component: a row found a candidate")
+    log(f"phase 2 parity: sim_best_edge self-search and full grid on {cases} integer cases "
+        "(s up to 3,536, d up to 2,048, pads, equal columns across the diagonal tile) and one "
+        "component: bit for bit against the plain version, repeats bit-identical")
+
+
 def phase_parity_main(x, xs, dev):
     """The three kernels at the main path's shapes on real tf-idf rows."""
     import torch
@@ -323,6 +377,8 @@ def phase_parity_main(x, xs, dev):
         labels = labels.to(dev)
         a = sim_best_edge_cuda(xs, xs, labels, labels)
         check_repeat("sim_best_edge", a, sim_best_edge_cuda(xs, xs, labels, labels))
+        check_equal("sim_best_edge self-search vs full grid (tf-idf rows)", a,
+                    sim_best_edge_cuda(xs.clone(), xs, labels.clone(), labels))
         want = ref.sim_best_edge(xs, xs, labels, labels)
         n_tie += check_argmax(
             "sim_best_edge", a[0], a[1], want[0], want[1],
@@ -379,31 +435,92 @@ def phase_parity_main(x, xs, dev):
 def phase_timing(x, xs, dev):
     import torch
 
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.sim_best_edge import sim_best_edge_cuda
-
-    s, d = xs.shape
+    s = xs.shape[0]
     g = torch.Generator().manual_seed(2)
     ids = torch.arange(s, dtype=torch.int32, device=dev)
     labels = torch.randint(0, K, (s,), generator=g, dtype=torch.int32).to(dev)
     centers = xs[:K].contiguous()
-    f4 = 4
     rows = {}
 
-    flops = 2.0 * s * s * d
-    nbytes = 2 * s * d * f4 + 2 * s * f4 + s * 8
-    rows["sim_best_edge"] = dict(
-        ms=event_ms(lambda: sim_best_edge_cuda(xs, xs, ids, ids), 20),
-        plain_ms=event_ms(lambda: ref.sim_best_edge(xs, xs, ids, ids), 20),
-        library_ms=event_ms(lambda: xs @ xs.T, 20),
-        bound=bound_ms(flops, nbytes),
-    )
+    rows["sim_best_edge"] = timing_sim_best_edge(xs, ids)
     rows["label_stats"] = timing_label_stats(x, xs, labels, dev)
     rows["assign_stats"] = timing_assign_stats(x, centers)
     for name, r in rows.items():
         log(f"phase 3 timing {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
     return rows
+
+
+def timing_sim_best_edge(xs, labels):
+    """sim_best_edge at Buckshot's sample (3,536 x 2,048) with ``labels``:
+    the self-search (the resident round's call), the kernels alone
+    (profiled), and the full grid on a copy of the rows; the plain version,
+    xs @ xs.T, and two bounds: the half product (s(s+1)/2 dot products, what
+    the self-search needs) in the kernels line, the full one beside it.
+    Only the wrapper's public signature: an older tree is timed the same way."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sim_best_edge import sim_best_edge_cuda
+
+    s, d = xs.shape
+    xc, lc = xs.clone(), labels.clone()
+    nbytes = s * d * 4 + s * 4 + s * 8
+
+    def call():
+        return sim_best_edge_cuda(xs, xs, labels, labels)
+
+    row = dict(
+        ms=event_ms(call, 20),
+        distinct_ms=event_ms(lambda: sim_best_edge_cuda(xc, xs, lc, labels), 20),
+        profiled_ms=profiled_kernel_ms(call, 10, ("sim_best_edge",)),
+        plain_ms=event_ms(lambda: ref.sim_best_edge(xs, xs, labels, labels), 20),
+        library_ms=event_ms(lambda: xs @ xs.T, 20),
+        bound=bound_ms(1.0 * s * (s + 1) * d, nbytes),
+        full_bound=bound_ms(2.0 * s * s * d, nbytes + s * d * 4 + s * 4),
+    )
+    log(f"phase 3 timing sim_best_edge {s}x{s}x{d}: self-search {row['ms']:.4f} ms (the "
+        f"kernels alone, profiled: {row['profiled_ms']:.4f} ms), full grid (a copy of the rows) "
+        f"{row['distinct_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, xs @ xs.T "
+        f"{row['library_ms']:.4f} ms, bound {row['bound'][0]:.4f} ms ({row['bound'][1]}: half "
+        f"product) / {row['full_bound'][0]:.4f} ms (full product)")
+    return row
+
+
+def timing_cbe_round1(xs):
+    """component_best_edge at round 1 of Buckshot's sample: the round-0
+    merge of the self-search's edges gives the components, a second search
+    under them the candidates (w, column), row ids 0..s-1, cap s / 2."""
+    import torch
+
+    from repro_torch.core.hac import _dense, _merge_round
+    from repro_torch.kernels.sim_best_edge import sim_best_edge_cuda
+
+    s = xs.shape[0]
+    ids = torch.arange(s, dtype=torch.int32, device=xs.device)
+    bj, bw = sim_best_edge_cuda(xs, xs, ids, ids)
+    labels = _merge_round(ids, bw, bj)[0]
+    comp = _dense(labels).to(torch.int32)
+    bj, bw = sim_best_edge_cuda(xs, xs, labels, labels)
+    return timing_cbe((bw, bj, ids, comp), -(-s // 2))
+
+
+def buckshot_digest(dev):
+    """Buckshot (k = 50) on the 1 GB collection through the public entry
+    points, as the main path runs it: its RSS and a digest of its labels,
+    so two trees timed in one call show the same result."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.core.buckshot import buckshot
+    from repro_torch.text import pipeline, synth
+
+    corpus = synth.make_corpus(**synth.paper_1gb_shape())
+    x, _ = pipeline.prepare_local(corpus, dev)
+    res = buckshot(x, K, torch.Generator().manual_seed(SEED))
+    labels = res.kmeans.assignment.to(torch.int32).cpu().numpy().tobytes()
+    log(f"phase 4 buckshot 1 GB: rss {res.kmeans.rss.item()!r}, labels sha256 "
+        f"{hashlib.sha256(labels).hexdigest()[:16]}, sample sha256 "
+        f"{hashlib.sha256(res.sample_idx.cpu().numpy().tobytes()).hexdigest()[:16]}")
 
 
 def timing_assign_stats(x, centers):
@@ -1170,8 +1287,38 @@ def phase_parity_edges_cbe(dev):
     lowest = [int(rows[comp == j].min()) for j in range(3)]  # all weights tie
     if got[1].tolist() != lowest:
         raise AssertionError(f"component_best_edge ties: winners {got[1].tolist()}, not {lowest}")
+    err = max(err, parity_cbe_grids(dev, rng))
     log(f"phase 2 parity: component_best_edge edge cases bit for bit against both plain "
         f"versions (max |kernel - plain| {err}), repeats bit-identical")
+    return err
+
+
+def parity_cbe_grids(dev, rng) -> float:
+    """component_best_edge's two grids: c and r on either side of the one
+    block's limits (its keys in shared memory, its rows in registers), and
+    r = 200,000; calls in a row, so the cooperative grid's two key buffers
+    alternate and each is found zeroed; -0.0 against +0.0 in every case."""
+    import numpy as np
+
+    from repro_torch import interop
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.component_reduce import _lib
+
+    _, keys, block_rows = _lib()
+    err = 0.0
+    cases = [(3000, keys), (3000, keys + 1), (block_rows, 300), (block_rows + 1, 300),
+             (200_000, 1768), (200_000, keys + 1000), (500, 7), (200_000, 60_000)]
+    for r, c in cases:
+        w = rng.normal(size=r).astype(np.float32)
+        w[::7] = ref.NEG
+        w[1], w[2], w[3] = -0.0, 0.0, -0.0
+        w[10:20] = w[9]  # duplicate weights: the row id decides
+        args = (interop.data(w, dev), interop.labels(rng.integers(-1, 64, size=r), dev),
+                interop.labels(rng.permutation(2 * r)[:r], dev),
+                interop.labels(rng.integers(-1, c + 1, size=r), dev))
+        err = max(err, check_cbe(f"component_best_edge r={r} c={c}", args, c)[1])
+    log(f"phase 2 parity: component_best_edge on both grids (one block up to c = {keys}, "
+        f"r = {block_rows}; cases {cases}) bit for bit against both plain versions")
     return err
 
 
@@ -1183,8 +1330,17 @@ def l2_normalize_twice(xs):
     return l2_normalize(l2_normalize(xs)).contiguous()
 
 
+# component_best_edge's kernels by name: this tree's one launch (either
+# grid), and the three launches (fill, claim, write_winner) of the earlier
+# design, so an older tree's kernels are profiled the same way
+CBE_KERNELS = ("cbe_block", "cbe_grid", "fill", "claim", "write_winner")
+
+
 def timing_cbe(args, cap):
-    """component_best_edge at round 1 of the main path (r = 3,536, c = 1,768)."""
+    """component_best_edge at round 1 of the main path (r = 3,536, c = 1,768):
+    back to back (for this kernel mostly the host's time to call it), the
+    kernels alone on the card (profiled), the plain versions, the library
+    yardstick and the bound."""
     import torch
 
     from repro_torch.kernels import ref
@@ -1194,8 +1350,13 @@ def timing_cbe(args, cap):
     r = bw.shape[0]
     seg = args[3].long()
     lib_out = torch.full((cap + 1,), float("-inf"), device=bw.device)
+
+    def call():
+        return component_best_edge_cuda(*args, cap)
+
     row = dict(
-        ms=event_ms(lambda: component_best_edge_cuda(*args, cap), 200),
+        ms=event_ms(call, 200),
+        profiled_ms=profiled_kernel_ms(call, 50, CBE_KERNELS),
         plain_ms=event_ms(lambda: ref.component_best_edge_segment(*args, cap), 50),
         # no single PyTorch call computes the whole function: the library
         # yardstick is its first pass, one segment max of w (a sink slot
@@ -1204,10 +1365,11 @@ def timing_cbe(args, cap):
         bound=bound_ms(0.0, 16 * r + 12 * cap),
     )
     lex = event_ms(lambda: ref.component_best_edge(*args, cap), 50)
-    log(f"phase 4 timing component_best_edge r={r} c={cap}: kernel {row['ms']:.4f} ms, plain "
-        f"(segment) {row['plain_ms']:.4f} ms, plain (lexsort) {lex:.4f} ms, library "
-        f"(scatter_reduce_ amax) {row['library_ms']:.4f} ms, bound {row['bound'][0]:.6f} ms "
-        f"({row['bound'][1]}: 16 B per row + 12 B per segment)")
+    log(f"phase 4 timing component_best_edge r={r} c={cap}: kernel {row['ms']:.4f} ms back to "
+        f"back (the kernels alone, profiled: {row['profiled_ms']:.4f} ms), plain (segment) "
+        f"{row['plain_ms']:.4f} ms, plain (lexsort) {lex:.4f} ms, library (scatter_reduce_ "
+        f"amax) {row['library_ms']:.4f} ms, bound {row['bound'][0]:.6f} ms ({row['bound'][1]}: "
+        f"16 B per row + 12 B per segment)")
     return row
 
 
@@ -2095,13 +2257,15 @@ def timing_flash_decode(dev):
 
 
 def kernels_only(dev) -> None:
-    """``--kernels``: phase 1, then phase 3's timings of label_stats,
-    assign_stats (k = 50), assign_argmax (k = 400), assign_stats_bounded
-    (BigK = 800, the five settings of phase_timing_bkc) and flash_decode, on
-    random unit rows of the 1 GB shape, without the paths: the tool for
-    timing two trees' kernels in one call. It uses only the wrappers' and
-    ops' public signatures, so it also times an older tree's kernels when
-    copied into that tree's root."""
+    """``--kernels``: phase 1, then phase 3's timings of sim_best_edge (the
+    self-search and the full grid), component_best_edge (round 1 of that
+    search), label_stats, assign_stats (k = 50), assign_argmax (k = 400),
+    assign_stats_bounded (BigK = 800, the five settings of phase_timing_bkc)
+    and flash_decode, on random unit rows of the 1 GB shape, without the
+    paths; last Buckshot on the 1 GB collection, its RSS and a digest of its
+    labels: the tool for timing two trees' kernels in one call. It uses only
+    the wrappers' and ops' public signatures, so it also times an older
+    tree's kernels when copied into that tree's root."""
     import torch
 
     from repro_torch.common import l2_normalize
@@ -2112,6 +2276,8 @@ def kernels_only(dev) -> None:
     s = 3536
     xs = l2_normalize(x[torch.randperm(n, generator=g, device=dev)[:s]])
     labels = torch.randint(0, K, (s,), generator=g, device=dev, dtype=torch.int32)
+    timing_sim_best_edge(xs, torch.arange(s, dtype=torch.int32, device=dev))
+    timing_cbe_round1(xs)
     timing_label_stats(x, xs, labels, dev)
     r = timing_assign_stats(x, xs[:K].contiguous())
     log(f"phase 3 timing assign_stats (k={K}): kernel {r['ms']:.4f} ms, plain "
@@ -2122,6 +2288,8 @@ def kernels_only(dev) -> None:
     del x
     torch.cuda.empty_cache()
     timing_flash_decode(dev)
+    torch.cuda.empty_cache()
+    buckshot_digest(dev)
 
 
 def main() -> int:

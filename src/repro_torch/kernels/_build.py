@@ -116,14 +116,19 @@ def check(err: int, name: str) -> None:
 
 def stream(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as the pointer the C
-    entries take."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    entries take (read without making a ``torch.cuda.Stream``)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
             device: torch.device) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
-    ``device``: what the kernels take."""
+    ``device``: what the kernels take. The test that passes comes first and
+    in one expression (every wrapper makes it on every call); the messages
+    are made only for a tensor that fails it."""
+    if (t.dtype is dtype and t.shape == shape and t.is_cuda and t.device == device
+            and t.is_contiguous()):
+        return
     if t.device != device or t.device.type != "cuda":
         raise ValueError(f"{name} must lie on {device} (a CUDA device), not {t.device}")
     if t.dtype != dtype:

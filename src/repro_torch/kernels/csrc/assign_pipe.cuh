@@ -1,5 +1,5 @@
 // Pipelined fp32 product tile shared by assign_tile.cuh (assign_argmax,
-// assign_stats' launch 1) and assign_stats_bounded.cu.
+// assign_stats' launch 1), assign_stats_bounded.cu and sim_best_edge.cu.
 //
 // A block is one producer warp and W consumer warps. The producer fills a
 // ring of stages in shared memory, each stage 32 columns of d (one 128-byte
@@ -23,20 +23,46 @@
 //
 // Every result is ONE fp32 register updated by fmaf over k = 0 .. d-1 in
 // order (the float4's four columns are applied one after another, chunks
-// and stages ascend): no split-k, no TF32, no tensor cores. So a result has
-// the bits of tile_dot.cuh's on the same inputs, whatever the tile shape,
-// and the kernels built on either agree bit for bit. Pads (rows past the
-// matrix, columns past d) arrive as zeros and add nothing.
+// and stages ascend): no split-k, no TF32, no tensor cores. So a result
+// does not depend on the tile shape, the kernels built on the tile agree bit
+// for bit, and because fmaf(a, b, c) == fmaf(b, a, c) the (i, j) and (j, i)
+// entries of xs . xs^T are bit-identical: the Borůvka search sees a
+// symmetric similarity. Pads (rows past the matrix, columns past d) arrive
+// as zeros and add nothing.
 #pragma once
 
+#include <cfloat>
 #include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "tile_dot.cuh"  // beats, kNeg, row_argmax
 #include "tma.cuh"
 
 namespace repro {
+
+constexpr float kNeg = -FLT_MAX;
+
+// (value desc, index asc) winner of two candidates; index -1 (no
+// candidate) never wins a tie.
+__device__ __forceinline__ bool beats(float v, int j, float bv, int bj) {
+  return v > bv || (v == bv && (unsigned)j < (unsigned)bj);
+}
+
+// Reduce a per-thread (best value, best index) over the kN lanes whose ids
+// differ only in the bits kLo .. kLo * kN / 2 (<1, 8>: 8 consecutive lanes,
+// a tile row's threads in one warp): every one ends with the winner.
+template <int kLo, int kN>
+__device__ __forceinline__ void lanes_argmax(float& best, int& bj) {
+#pragma unroll
+  for (int off = kLo * kN / 2; off >= kLo; off >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, best, off);
+    const int oj = __shfl_xor_sync(0xffffffffu, bj, off);
+    if (beats(ov, oj, best, bj)) {
+      best = ov;
+      bj = oj;
+    }
+  }
+}
 
 constexpr int kPipeK = 32;                      // columns of d a stage
 constexpr int kPipeRowBytes = kPipeK * 4;       // one swizzle row

@@ -73,7 +73,7 @@ __device__ __forceinline__ void tile_consume(const PipeRing& ring, int nk, bool 
         tj = col;
       }
     }
-    row_argmax<8>(tb, tj);
+    lanes_argmax<1, 8>(tb, tj);
     if ((lane & 7) == 0) {
       const int r = th.ty + kTileTy * i;
       xv[r * 2 + th.wc] = tb;

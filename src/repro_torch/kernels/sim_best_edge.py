@@ -3,6 +3,12 @@ round's per-row best cross-component edge, matrix-free.
 
 Counterpart of the JAX package's ``kernels/sim_best_edge.py``. ``launches``
 counts the calls that launched the kernel.
+
+A call whose two row matrices are one tensor, and whose two label vectors
+are one tensor (the resident Borůvka round, ``ops.sim_best_edge(xs, xs,
+labels, labels)``), is a self-search: the kernel computes only the tiles on
+and above the diagonal and gives the full grid's bits. Any other call, a copy
+of the same rows included, takes the full grid.
 """
 
 from __future__ import annotations

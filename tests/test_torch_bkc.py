@@ -117,7 +117,9 @@ def test_bisect_threshold_same_f32_bits(rng, use_escape):
 @pytest.mark.parametrize("route", ROUTES, ids=["fused", "two_pass", "bounded"])
 def test_build_microclusters_matches_jax(corpus_x, init, route):
     x = corpus_x[0]
-    mc, idx, sim = tmc.build_microclusters(interop.data(x), interop.data(init), BIG_K, **route)
+    mc, idx, sim = tmc.build_microclusters(
+        interop.data(x, "cpu"), interop.data(init, "cpu"), BIG_K, **route
+    )
     jmc_, jidx, jsim = jmc.build_microclusters(jnp.asarray(x), jnp.asarray(init), BIG_K, **route)
     np.testing.assert_array_equal(_np(idx), np.asarray(jidx))
     np.testing.assert_allclose(_np(sim), np.asarray(jsim), rtol=REL, atol=1e-6)
@@ -132,7 +134,7 @@ def test_build_microclusters_matches_jax(corpus_x, init, route):
 def test_merge_stats_and_pair_similarity_match_jax(corpus_x, init):
     x = corpus_x[0]
     halves = [slice(0, 300), slice(300, None)]
-    parts = [tmc.build_microclusters(interop.data(x[h]), interop.data(init), BIG_K)[0]
+    parts = [tmc.build_microclusters(interop.data(x[h], "cpu"), interop.data(init, "cpu"), BIG_K)[0]
              for h in halves]
     jparts = [jmc.build_microclusters(jnp.asarray(x[h]), jnp.asarray(init), BIG_K)[0]
               for h in halves]
@@ -151,7 +153,7 @@ def test_merge_stats_and_pair_similarity_match_jax(corpus_x, init):
 @pytest.mark.parametrize("route", ROUTES, ids=["fused", "two_pass", "bounded"])
 def test_bkc_fit_matches_jax(corpus_x, init, route):
     x = corpus_x[0]
-    got = tbkc.bkc_fit(interop.data(x), interop.data(init), BIG_K, K, **route)
+    got = tbkc.bkc_fit(interop.data(x, "cpu"), interop.data(init, "cpu"), BIG_K, K, **route)
     want = jbkc.bkc_fit(jnp.asarray(x), jnp.asarray(init), BIG_K, K, **route)
     np.testing.assert_array_equal(_np(got.group_of_mc), np.asarray(want.group_of_mc))
     np.testing.assert_array_equal(_np(got.assignment), np.asarray(want.assignment))
@@ -160,7 +162,7 @@ def test_bkc_fit_matches_jax(corpus_x, init, route):
     np.testing.assert_allclose(got.rss.item(), float(want.rss), rtol=REL)
     np.testing.assert_allclose(got.objective.item(), float(want.objective), rtol=REL)
     # every route gives the fused route's answer
-    fused = tbkc.bkc_fit(interop.data(x), interop.data(init), BIG_K, K)
+    fused = tbkc.bkc_fit(interop.data(x, "cpu"), interop.data(init, "cpu"), BIG_K, K)
     assert torch.equal(got.group_of_mc, fused.group_of_mc)
     assert torch.equal(got.assignment, fused.assignment)
 
@@ -187,7 +189,7 @@ def test_bkc_fit_bisects_real_pair_values_like_jax(route, k):
     big_k = 60
     x = _loose_blobs(800, 64, 6, 1)
     init = x[np.random.default_rng(7).choice(x.shape[0], big_k, replace=False)]
-    got = tbkc.bkc_fit(interop.data(x), interop.data(init), big_k, k, **route)
+    got = tbkc.bkc_fit(interop.data(x, "cpu"), interop.data(init, "cpu"), big_k, k, **route)
     want = jbkc.bkc_fit(jnp.asarray(x), jnp.asarray(init), big_k, k, **route)
     jmc_ = jmc.build_microclusters(jnp.asarray(x), jnp.asarray(init), big_k)[0]
     jpair, jesc = (np.array(a) for a in jmc.pair_similarity(jmc_))
@@ -207,7 +209,7 @@ def test_join_to_groups_without_escape_edges(corpus_x, init):
     """k close to BigK: the escape edges over-connect the graph, so the
     bisection runs again without them; valid micro-clusters only, k groups."""
     x = corpus_x[0]
-    mc = tmc.build_microclusters(interop.data(x), interop.data(init), BIG_K)[0]
+    mc = tmc.build_microclusters(interop.data(x, "cpu"), interop.data(init, "cpu"), BIG_K)[0]
     jmc_ = jmc.build_microclusters(jnp.asarray(x), jnp.asarray(init), BIG_K)[0]
     k = int(mc.valid.sum())
     assert tbkc._bisect_threshold(*tmc.pair_similarity(mc), k, True)[1] < k
@@ -219,7 +221,7 @@ def test_join_to_groups_without_escape_edges(corpus_x, init):
 
 
 def test_bkc_entry_point_is_seeded_and_runs_where_x_lies(corpus_x):
-    x = interop.data(corpus_x[0])
+    x = interop.data(corpus_x[0], "cpu")
     a = tbkc.bkc(x, BIG_K, K, torch.Generator().manual_seed(0))
     b = tbkc.bkc(x, BIG_K, K, torch.Generator().manual_seed(0), bounded=True)
     assert a.assignment.device.type == "cpu"

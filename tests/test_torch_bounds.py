@@ -54,7 +54,7 @@ def _t(a):
     a = np.asarray(a)
     if a.dtype == bool:
         return torch.from_numpy(a.copy())
-    return interop.labels(a) if a.dtype.kind in "iu" else interop.data(a)
+    return interop.labels(a, "cpu") if a.dtype.kind in "iu" else interop.data(a, "cpu")
 
 
 def _blobs(rng, n, k, d, noise=0.3):
@@ -419,8 +419,8 @@ def test_kmeans_entry_point_defers_to_the_environment(blob_data, monkeypatch):
 def test_buckshot_fit_bounded_matches_jax(rng):
     x = _blobs(rng, 300, 6, 32)
     sidx = rng.choice(300, size=60, replace=False)
-    got = tb.buckshot_fit(_t(x), interop.index(sidx), 8, bounded=True)
-    plain = tb.buckshot_fit(_t(x), interop.index(sidx), 8)
+    got = tb.buckshot_fit(_t(x), interop.index(sidx, "cpu"), 8, bounded=True)
+    plain = tb.buckshot_fit(_t(x), interop.index(sidx, "cpu"), 8)
     want = jb.buckshot_fit(jnp.asarray(x), jnp.asarray(sidx.astype(np.int32)), 8, bounded=True)
     assert torch.equal(got.kmeans.assignment, plain.kmeans.assignment)
     np.testing.assert_array_equal(_np(got.kmeans.assignment), np.asarray(want.kmeans.assignment))

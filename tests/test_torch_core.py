@@ -66,24 +66,24 @@ def _unit_rows(rng, s, d):
 def test_boruvka_mst_matches_jax(rng, s, k):
     xs = _unit_rows(rng, s, 24)
     want = jh.boruvka_mst(jnp.asarray(xs))
-    got = th.boruvka_mst(interop.data(xs))
+    got = th.boruvka_mst(interop.data(xs, "cpu"))
     for f in ("u", "v", "valid"):
         np.testing.assert_array_equal(_np(getattr(got, f)), np.asarray(getattr(want, f)))
     np.testing.assert_allclose(_np(got.w), np.asarray(want.w), rtol=REL, atol=REL)
     assert int(got.valid.sum()) == s - 1  # a spanning tree
 
-    labels = th.single_link_labels_boruvka(interop.data(xs), k)
+    labels = th.single_link_labels_boruvka(interop.data(xs, "cpu"), k)
     np.testing.assert_array_equal(
         _np(labels), np.asarray(jh.single_link_labels_boruvka(jnp.asarray(xs), k))
     )
-    sim = interop.data(xs) @ interop.data(xs).T
+    sim = interop.data(xs, "cpu") @ interop.data(xs, "cpu").T
     np.testing.assert_array_equal(_np(labels), _np(th.single_link_labels(sim, k)))
 
 
 def test_mst_prim_matches_jax(rng):
     xs = _unit_rows(rng, 60, 16)
     sim = xs @ xs.T
-    got = th.mst_prim(interop.data(sim))
+    got = th.mst_prim(interop.data(sim, "cpu"))
     want = jh.mst_prim(jnp.asarray(sim))
     for g, w in zip(got[:2], want[:2]):
         np.testing.assert_array_equal(_np(g), np.asarray(w))
@@ -101,7 +101,7 @@ def test_components_from_edges_matches_jax(rng):
     mask = rng.random(70) < 0.6
     want = jh.components_from_edges(n, eu, ev, mask)
     got = th.components_from_edges(
-        n, interop.labels(eu), interop.labels(ev), torch.from_numpy(mask)
+        n, interop.labels(eu, "cpu"), interop.labels(ev, "cpu"), torch.from_numpy(mask)
     )
     np.testing.assert_array_equal(_np(got), np.asarray(want))
 
@@ -112,7 +112,9 @@ def test_merge_round_ties_match_jax():
     row_w = np.array([0.5, 0.7, 0.7, 0.7, 0.1, 0.2], np.float32)
     row_j = np.array([3, 4, 3, 1, 0, 0], np.int32)
     want = jh._merge_round(jnp.asarray(labels), jnp.asarray(row_w), jnp.asarray(row_j))
-    got = th._merge_round(interop.labels(labels), interop.data(row_w), interop.labels(row_j))
+    got = th._merge_round(
+        interop.labels(labels, "cpu"), interop.data(row_w, "cpu"), interop.labels(row_j, "cpu")
+    )
     for g, w in zip(got, want):
         np.testing.assert_array_equal(_np(g), np.asarray(w))
 
@@ -124,7 +126,7 @@ def test_kmeans_fit_matches_jax(corpus_x):
     x, _ = corpus_x
     init = x[np.random.default_rng(3).choice(x.shape[0], 6, replace=False)]
     want = jk.kmeans_fit(jnp.asarray(x), jnp.asarray(init), 6)
-    got = tk.kmeans_fit(interop.data(x), interop.data(init), 6)
+    got = tk.kmeans_fit(interop.data(x, "cpu"), interop.data(init, "cpu"), 6)
     np.testing.assert_array_equal(_np(got.assignment), np.asarray(want.assignment))
     np.testing.assert_allclose(_np(got.centers), np.asarray(want.centers), atol=1e-6)
     np.testing.assert_allclose(_np(got.best_sim), np.asarray(want.best_sim), rtol=REL, atol=1e-6)
@@ -137,7 +139,9 @@ def test_kmeans_two_pass_path_matches_jax(corpus_x):
     x, _ = corpus_x
     init = x[:5]
     want = jk.kmeans_fit(jnp.asarray(x), jnp.asarray(init), 5, max_iters=3, fused=False)
-    got = tk.kmeans_fit(interop.data(x), interop.data(init), 5, max_iters=3, fused=False)
+    got = tk.kmeans_fit(
+        interop.data(x, "cpu"), interop.data(init, "cpu"), 5, max_iters=3, fused=False
+    )
     np.testing.assert_array_equal(_np(got.assignment), np.asarray(want.assignment))
     np.testing.assert_allclose(got.rss.item(), float(want.rss), rtol=REL)
 
@@ -146,16 +150,16 @@ def test_kmeans_step_split_reseed_matches_jax(rng):
     x = np.abs(_unit_rows(rng, 200, 12))
     centers = np.concatenate([x[:3], -x[:2]])  # negative centers stay empty
     want = jk.kmeans_step(jnp.asarray(x), jnp.asarray(centers), 5, reseed="split")
-    got = tk.kmeans_step(interop.data(x), interop.data(centers), 5, reseed="split")
+    got = tk.kmeans_step(interop.data(x, "cpu"), interop.data(centers, "cpu"), 5, reseed="split")
     np.testing.assert_array_equal(_np(got[1]), np.asarray(want[1]))
     np.testing.assert_allclose(_np(got[0]), np.asarray(want[0]), atol=1e-6)
     assert (_np(got[4])[3:] == 0).all()
     with pytest.raises(ValueError, match="reseed"):
-        tk.kmeans_step(interop.data(x), interop.data(centers), 5, reseed="bogus")
+        tk.kmeans_step(interop.data(x, "cpu"), interop.data(centers, "cpu"), 5, reseed="bogus")
 
 
 def test_kmeans_entry_point_is_seeded(corpus_x):
-    x = interop.data(corpus_x[0])
+    x = interop.data(corpus_x[0], "cpu")
     a = tk.kmeans(x, 6, torch.Generator().manual_seed(0), max_iters=3)
     b = tk.kmeans(x, 6, torch.Generator().manual_seed(0), max_iters=3)
     assert torch.equal(a.assignment, b.assignment) and 1 <= a.iterations <= 3
@@ -170,13 +174,13 @@ def test_buckshot_fit_matches_jax(corpus_x, hac):
     k = 6
     sidx = np.random.default_rng(0).choice(x.shape[0], 70, replace=False)
     want = jb.buckshot_fit(jnp.asarray(x), jnp.asarray(sidx), k, hac=hac)
-    got = tb.buckshot_fit(interop.data(x), interop.index(sidx), k, hac=hac)
+    got = tb.buckshot_fit(interop.data(x, "cpu"), interop.index(sidx, "cpu"), k, hac=hac)
     np.testing.assert_array_equal(_np(got.sample_labels), np.asarray(want.sample_labels))
     np.testing.assert_allclose(_np(got.init_centers), np.asarray(want.init_centers), atol=1e-6)
     np.testing.assert_array_equal(_np(got.kmeans.assignment), np.asarray(want.kmeans.assignment))
     np.testing.assert_allclose(_np(got.kmeans.centers), np.asarray(want.kmeans.centers), atol=1e-6)
     np.testing.assert_allclose(got.kmeans.rss.item(), float(want.kmeans.rss), rtol=REL)
-    pred, true = got.kmeans.assignment, interop.labels(truth)
+    pred, true = got.kmeans.assignment, interop.labels(truth, "cpu")
     jpred = want.kmeans.assignment
     np.testing.assert_allclose(
         metrics.purity(pred, true, k, 6).item(), float(jmetrics.purity(jpred, truth, k, 6)), rtol=REL
@@ -187,7 +191,7 @@ def test_buckshot_fit_matches_jax(corpus_x, hac):
 
 
 def test_buckshot_entry_point_samples_sqrt_kn(corpus_x):
-    x = interop.data(corpus_x[0])
+    x = interop.data(corpus_x[0], "cpu")
     res = tb.buckshot(x, 6, torch.Generator().manual_seed(1), kmeans_iters=2)
     s = sampling.buckshot_sample_size(800, 6)
     assert res.sample_idx.shape == (s,) and res.sample_labels.shape == (s,)
@@ -197,7 +201,7 @@ def test_buckshot_entry_point_samples_sqrt_kn(corpus_x):
 
 def test_buckshot_rejects_unknown_hac(corpus_x):
     with pytest.raises(ValueError, match="hac"):
-        tb.phase1_from_sample(interop.data(corpus_x[0][:20]), 3, hac="ward")
+        tb.phase1_from_sample(interop.data(corpus_x[0][:20], "cpu"), 3, hac="ward")
 
 
 # ------------------------------------------------------------------ metrics
@@ -206,7 +210,7 @@ def test_buckshot_rejects_unknown_hac(corpus_x):
 def test_metrics_match_jax(rng, corpus_x):
     x, truth = corpus_x
     pred = rng.integers(0, 7, size=x.shape[0]).astype(np.int32)
-    tp, tt, tx = interop.labels(pred), interop.labels(truth), interop.data(x)
+    tp, tt, tx = interop.labels(pred, "cpu"), interop.labels(truth, "cpu"), interop.data(x, "cpu")
     np.testing.assert_array_equal(
         _np(metrics.contingency(tp, tt, 7, 6)), np.asarray(jmetrics.contingency(pred, truth, 7, 6))
     )
@@ -220,7 +224,7 @@ def test_metrics_match_jax(rng, corpus_x):
     )
     best = rng.uniform(-1, 1, size=50).astype(np.float32)
     np.testing.assert_allclose(
-        metrics.cosine_objective(interop.data(best)).item(),
+        metrics.cosine_objective(interop.data(best, "cpu")).item(),
         float(jmetrics.cosine_objective(best)), rtol=REL,
     )
 

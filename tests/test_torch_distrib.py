@@ -70,7 +70,7 @@ def _np(t):
 
 def _t(a):
     a = np.asarray(a)
-    return interop.labels(a) if a.dtype.kind in "iu" else interop.data(a)
+    return interop.labels(a, "cpu") if a.dtype.kind in "iu" else interop.data(a, "cpu")
 
 
 def _bits(a):

@@ -105,6 +105,28 @@ def test_sim_best_edge_symmetric_bits(card):
         assert torch.equal(back[0], bs[i])
 
 
+@pytest.mark.parametrize("s", [129, 300, 1000, 5000])  # 5,000: 40 tiles, 820 blocks
+def test_sim_best_edge_self_search_equals_distinct_storage(card, s):
+    """The resident round's call (one tensor for both row matrices, one for
+    both label vectors) computes only the tiles on and above the diagonal;
+    it must give the bits of the full grid, which a copy of the same rows
+    takes."""
+    rng = np.random.default_rng(s)
+    x = torch.nn.functional.normalize(
+        interop.data(rng.normal(size=(s, 70)), card), dim=1
+    ).contiguous()
+    lab = interop.labels(rng.integers(-1, s // 9 + 2, size=s), card)  # -1 = pad
+    for labels in (lab, torch.arange(s, dtype=torch.int32, device=card)):
+        got = _twice(sim_best_edge_cuda, x, x, labels, labels)
+        full = sim_best_edge_cuda(x.clone(), x.clone(), labels.clone(), labels.clone())
+        assert torch.equal(got[0], full[0])
+        assert torch.equal(got[1].view(torch.int32), full[1].view(torch.int32))
+    xi = _ints(rng, (s, 33), -3, 3, card)  # integer rows: equal to the plain version too
+    got = sim_best_edge_cuda(xi, xi, lab, lab)
+    _equal(got, ref.sim_best_edge(xi, xi, lab, lab))
+    _equal(got, sim_best_edge_cuda(xi, xi.clone(), lab, lab.clone()))
+
+
 @pytest.mark.parametrize("n,d,k", [(1000, 200, 70), (37, 5, 3), (0, 8, 4),
                                    (5000, 128, 800),  # every label in one block: x read once
                                    (2000, 130, 1600),  # past one block's shared memory
@@ -359,7 +381,7 @@ def test_buckshot_card_matches_cpu(card):
 
     corpus = synth.make_corpus(1200, vocab=256, n_topics=6, seed=11)
     x, _ = pipeline.prepare_local(corpus, device="cpu")
-    sidx = interop.index(np.random.default_rng(0).choice(1200, 85, replace=False))
+    sidx = interop.index(np.random.default_rng(0).choice(1200, 85, replace=False), "cpu")
     want = buckshot_fit(x, sidx, 6)
     got = buckshot_fit(x.to(card), sidx.to(card), 6)
     agree = (got.kmeans.assignment.cpu() == want.kmeans.assignment).float().mean()
@@ -421,7 +443,7 @@ def test_bkc_routes_agree_on_card_and_match_cpu(card, data, big_k, k):
         x, _ = pipeline.prepare_local(corpus, device="cpu")
     else:
         x = _loose_blobs(1500, 96, 8, 5)
-    init = x[interop.index(np.random.default_rng(3).choice(1500, big_k, replace=False))]
+    init = x[interop.index(np.random.default_rng(3).choice(1500, big_k, replace=False), "cpu")]
     want = bkc_fit(x, init, big_k, k)
     xc, ic = x.to(card), init.to(card)
     ops.reset_launch_counts()
@@ -499,6 +521,59 @@ def test_component_best_edge_row_ties(card):
     got = component_best_edge_cuda(w, col, rows, comp, 3)
     _bits_equal(got, ref.component_best_edge(w, col, rows, comp, 3))
     assert got[1].tolist() == [0, 2, 1]  # the lowest row id of each segment
+
+
+@pytest.mark.parametrize("r,c", [(900, 30_000),  # keys past one block's shared memory
+                                 (200_000, 1_768),  # rows past one block's registers
+                                 (200_000, 60_000)])
+def test_component_best_edge_cooperative_grid(card, r, c):
+    """The cooperative grid, whose keys live in device memory and are zeroed
+    by the call after: several calls in a row, on alternating buffers and
+    growing c, each equal to both plain versions bit for bit."""
+    rng = np.random.default_rng(r + c)
+    for cc in (c, c // 3, c, c + 7):
+        args = _cbe_case(rng, r, cc, card)
+        got = _twice(component_best_edge_cuda, *args, cc)
+        _bits_equal(got, ref.component_best_edge(*args, cc))
+        _bits_equal(got, ref.component_best_edge_segment(*args, cc))
+    # one block again after the grid: it leaves the grid's keys alone
+    args = _cbe_case(rng, 300, 40, card)
+    _bits_equal(component_best_edge_cuda(*args, 40), ref.component_best_edge(*args, 40))
+    args = _cbe_case(rng, r, c, card)
+    _bits_equal(component_best_edge_cuda(*args, c), ref.component_best_edge(*args, c))
+
+
+@pytest.mark.parametrize("b,cap", [(3536, 1768), (20_000, 9_000)])
+def test_sharded_candidates_two_calls_pick_the_same_winners(card, b, cap):
+    """sharded_candidates runs component_best_edge twice on the same keys,
+    once with the column and once with the target component as payload: both
+    calls must pick the same row in every segment."""
+    from repro_torch.distrib.hac_parallel import sharded_candidates, sharded_row_winners
+
+    rng = np.random.default_rng(b)
+    rows = torch.nn.functional.normalize(
+        interop.data(rng.integers(-2, 3, size=(b, 24)), card), dim=1
+    ).contiguous()  # integer directions: many equal similarities
+    comp = interop.labels(rng.integers(0, cap, size=b), card)
+    comp[rng.permutation(b)[:50]] = -1  # pad rows
+    data = {"rows": rows, "rowid": interop.labels(rng.permutation(4 * b)[:b], card),
+            "comp": comp}
+
+    def visit(block, fold, acc):  # one shard: it folds only its own block
+        return fold(acc, block)
+
+    rw = sharded_row_winners(data, cap, visit)
+    by_col = component_best_edge_cuda(rw["w"], rw["col"], rw["rowid"], rw["seg"], cap)
+    by_tcomp = component_best_edge_cuda(rw["w"], rw["tcomp"], rw["rowid"], rw["seg"], cap)
+    _bits_equal(by_col[:2], by_tcomp[:2])
+    won = by_col[1] != ref.BIG_I
+    where = {int(g): i for i, g in enumerate(rw["rowid"].tolist())}
+    at = torch.tensor([where[int(g)] for g in by_col[1][won].tolist()], device=card)
+    assert torch.equal(by_col[2][won], rw["col"][at])
+    assert torch.equal(by_tcomp[2][won], rw["tcomp"][at])
+    got = sharded_candidates(data, cap, visit)
+    _bits_equal((got["w"], got["row"], got["col"]), by_col)
+    assert torch.equal(got["tcomp"], by_tcomp[2])
 
 
 def test_boruvka_distributed_nccl_world_1_matches_resident(card, tmp_path):

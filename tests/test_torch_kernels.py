@@ -59,7 +59,7 @@ def _floats(rng, shape):
 def _t(a):
     """numpy -> port tensor: f32 data, int32 labels."""
     a = np.asarray(a)
-    return interop.labels(a) if a.dtype.kind in "iu" else interop.data(a)
+    return interop.labels(a, "cpu") if a.dtype.kind in "iu" else interop.data(a, "cpu")
 
 
 def _same(got, want, *, exact):
@@ -436,11 +436,11 @@ def test_kernel_sources_state_what_they_replace(name):
 def test_interop_round_trip(rng):
     x = _floats(rng, (4, 3))
     lab = rng.integers(-1, 5, size=4)
-    assert interop.data(x).dtype == torch.float32
-    assert interop.labels(lab).dtype == torch.int32
-    assert interop.index(lab).dtype == torch.int64
-    np.testing.assert_array_equal(interop.to_numpy(interop.data(x)), x)
-    np.testing.assert_array_equal(interop.to_numpy(interop.labels(lab)), lab)
+    assert interop.data(x, "cpu").dtype == torch.float32
+    assert interop.labels(lab, "cpu").dtype == torch.int32
+    assert interop.index(lab, "cpu").dtype == torch.int64
+    np.testing.assert_array_equal(interop.to_numpy(interop.data(x, "cpu")), x)
+    np.testing.assert_array_equal(interop.to_numpy(interop.labels(lab, "cpu")), lab)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

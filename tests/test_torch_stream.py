@@ -303,7 +303,7 @@ def test_guard_in_a_driver_names_its_pass(corpus):
     _, st = _streams(corpus[2])
     faults.install("nan@c2")
     with pytest.raises(GuardError) as ei:
-        tk.kmeans_fit_stream(st, interop.data(_pick(corpus[2], 6, 1)), 6, guard="finite")
+        tk.kmeans_fit_stream(st, interop.data(_pick(corpus[2], 6, 1), "cpu"), 6, guard="finite")
     assert ei.value.pass_id == "kmeans/iter0" and ei.value.chunk == 2
 
 
@@ -457,8 +457,8 @@ def test_stream_stats_fold_bitexact_integer_data(chunk):
     rng = np.random.default_rng(0)
     x = rng.integers(-8, 9, size=(1000, 33)).astype(np.float32)
     c = rng.integers(-8, 9, size=(11, 33)).astype(np.float32)
-    one = ops.assign_stats(interop.data(x), interop.data(c))
-    out = tk._stream_pass(CorpusStream.from_array(x, chunk=chunk), interop.data(c), 11, True)
+    one = ops.assign_stats(interop.data(x, "cpu"), interop.data(c, "cpu"))
+    out = tk._stream_pass(CorpusStream.from_array(x, chunk=chunk), interop.data(c, "cpu"), 11, True)
     jout = jk._stream_pass(jstream.CorpusStream.from_array(x, chunk=chunk), jnp.asarray(c), 11, "xla", True)
     for got, want, jwant in zip(out.stats, one[2:], jout.stats):
         assert torch.equal(got, want)
@@ -475,7 +475,10 @@ def test_assign_stats_chunked_matches_jax(n, chunk, weighted):
     x = rng.integers(-4, 5, size=(n, 12)).astype(np.float32)
     c = rng.integers(-4, 5, size=(7, 12)).astype(np.float32)
     w = rng.integers(0, 3, size=n).astype(np.float32) if weighted else None
-    got = ops.assign_stats_chunked(interop.data(x), interop.data(c), None if w is None else interop.data(w), chunk=chunk)
+    got = ops.assign_stats_chunked(
+        interop.data(x, "cpu"), interop.data(c, "cpu"),
+        None if w is None else interop.data(w, "cpu"), chunk=chunk,
+    )
     want = jops.assign_stats_chunked(x, c, None if w is None else jnp.asarray(w), chunk=chunk, impl="xla")
     for g, wv in zip(got, want):
         np.testing.assert_array_equal(_np(g), np.asarray(wv))
@@ -497,9 +500,11 @@ def test_assign_stats_bounded_chunked_matches_jax(chunk):
     jb = prev.bounds
     want = jops.assign_stats_bounded_chunked(x, c1, jb, jnp.asarray(drift), chunk=chunk, impl="xla")
     got = ops.assign_stats_bounded_chunked(
-        interop.data(x), interop.data(c1),
-        ops.Bounds(interop.labels(jb.idx), interop.data(jb.lo), interop.data(jb.hi)),
-        interop.data(drift), chunk=chunk,
+        interop.data(x, "cpu"), interop.data(c1, "cpu"),
+        ops.Bounds(
+            interop.labels(jb.idx, "cpu"), interop.data(jb.lo, "cpu"), interop.data(jb.hi, "cpu")
+        ),
+        interop.data(drift, "cpu"), chunk=chunk,
     )
     np.testing.assert_array_equal(_np(got.idx), np.asarray(want.idx))
     np.testing.assert_array_equal(_np(got.pruned), np.asarray(want.pruned))
@@ -524,8 +529,9 @@ def test_merge_top_s_ties_like_jax():
     want = jbs.sampling.merge_top_s(tuple(map(jnp.asarray, carry)), jnp.asarray(scores),
                                     jnp.asarray(gidx), jnp.asarray(rows), 4)
     got = sampling.merge_top_s(
-        (interop.data(carry[0]), interop.labels(carry[1]), interop.data(carry[2])),
-        interop.data(scores), interop.labels(gidx), interop.data(rows), 4,
+        (interop.data(carry[0], "cpu"), interop.labels(carry[1], "cpu"),
+         interop.data(carry[2], "cpu")),
+        interop.data(scores, "cpu"), interop.labels(gidx, "cpu"), interop.data(rows, "cpu"), 4,
     )
     for g, w in zip(got, want):
         np.testing.assert_array_equal(_np(g), np.asarray(w))
@@ -602,7 +608,7 @@ def test_kmeans_fit_stream_matches_jax(corpus, bounded):
     init = _pick(x, 6, 1)
     prof, jprof = {}, {}
     want = jk.kmeans_fit_stream(jst, jnp.asarray(init), 6, bounded=bounded, profile=jprof)
-    got = tk.kmeans_fit_stream(st, interop.data(init), 6, bounded=bounded, profile=prof)
+    got = tk.kmeans_fit_stream(st, interop.data(init, "cpu"), 6, bounded=bounded, profile=prof)
     assert got.iterations == int(want.iterations) >= 2
     _close(got, want)
     assert len(prof.get("prune_rate", [])) == len(jprof.get("prune_rate", []))
@@ -612,12 +618,12 @@ def test_kmeans_fit_stream_matches_jax(corpus, bounded):
 def test_kmeans_fit_stream_bounded_equals_unbounded_and_one_chunk_equals_resident(corpus):
     x = corpus[2]
     st = CorpusStream.from_array(x, chunk=CHUNK)
-    init = interop.data(_pick(x, 6, 2))
+    init = interop.data(_pick(x, 6, 2), "cpu")
     plain = tk.kmeans_fit_stream(st, init, 6)
     _equal(tk.kmeans_fit_stream(st, init, 6, bounded=True), plain)
     one = CorpusStream.from_array(x)
     for bounded in (False, True):
-        res = tk.kmeans_fit(interop.data(x), init, 6, bounded=bounded)
+        res = tk.kmeans_fit(interop.data(x, "cpu"), init, 6, bounded=bounded)
         got = tk.kmeans_fit_stream(one, init, 6, bounded=bounded)
         assert got.iterations == res.iterations
         _equal(got, res)
@@ -629,7 +635,7 @@ def test_bkc_fit_stream_matches_jax(corpus, bounded):
     jst, st = _streams(x)
     init = _pick(x, 30, 3)
     want = jbk.bkc_fit_stream(jst, jnp.asarray(init), 30, 6, bounded=bounded)
-    got = tbk.bkc_fit_stream(st, interop.data(init), 30, 6, bounded=bounded)
+    got = tbk.bkc_fit_stream(st, interop.data(init, "cpu"), 30, 6, bounded=bounded)
     _close(got, want)
     np.testing.assert_array_equal(_np(got.group_of_mc), np.asarray(want.group_of_mc))
     assert float(got.threshold) == pytest.approx(float(want.threshold), rel=1e-6, abs=1e-12)
@@ -648,7 +654,7 @@ def test_bkc_fit_stream_bisects_real_pair_values_like_jax():
     jst, st = _streams(x)
     init = _pick(x, 60, 7)
     want = jbk.bkc_fit_stream(jst, jnp.asarray(init), 60, 40)
-    got = tbk.bkc_fit_stream(st, interop.data(init), 60, 40)
+    got = tbk.bkc_fit_stream(st, interop.data(init, "cpu"), 60, 40)
     assert float(want.threshold) > 0.05
     _close(got, want)
     np.testing.assert_array_equal(_np(got.group_of_mc), np.asarray(want.group_of_mc))
@@ -657,13 +663,13 @@ def test_bkc_fit_stream_bisects_real_pair_values_like_jax():
 
 def test_bkc_fit_stream_bounded_equals_unbounded_and_one_chunk_equals_resident(corpus):
     x = corpus[2]
-    init = interop.data(_pick(x, 30, 3))
+    init = interop.data(_pick(x, 30, 3), "cpu")
     st = CorpusStream.from_array(x, chunk=CHUNK)
     fields = ("centers", "assignment", "best_sim", "rss", "objective", "group_of_mc", "threshold")
     _equal(tbk.bkc_fit_stream(st, init, 30, 6, bounded=True), tbk.bkc_fit_stream(st, init, 30, 6), fields)
     one = CorpusStream.from_array(x)
     for bounded in (False, True):
-        res = tbk.bkc_fit(interop.data(x), init, 30, 6, bounded=bounded)
+        res = tbk.bkc_fit(interop.data(x, "cpu"), init, 30, 6, bounded=bounded)
         _equal(tbk.bkc_fit_stream(one, init, 30, 6, bounded=bounded), res, fields)
 
 
@@ -686,7 +692,7 @@ def test_buckshot_stream_one_chunk_equals_resident_fit(corpus):
     x = corpus[2]
     got = tbs.buckshot_stream(CorpusStream.from_array(x), 6, torch.Generator().manual_seed(3),
                               device="cpu")
-    res = tbs.buckshot_fit(interop.data(x), got.sample_idx.long(), 6)
+    res = tbs.buckshot_fit(interop.data(x, "cpu"), got.sample_idx.long(), 6)
     assert torch.equal(got.sample_labels, res.sample_labels)
     assert torch.equal(got.init_centers, res.init_centers)
     _equal(got.kmeans, res.kmeans)
@@ -706,13 +712,13 @@ def test_kmeans_and_bkc_stream_with_the_jax_draws_match_jax(corpus):
 def test_prefetch_on_and_off_give_the_same_bits(corpus, monkeypatch):
     x = corpus[2]
     st = CorpusStream.from_array(x, chunk=96)  # 600 % 96 != 0: a padded tail
-    init = interop.data(_pick(x, 6, 1))
+    init = interop.data(_pick(x, 6, 1), "cpu")
     out = {}
     for mode in ("0", "2"):
         monkeypatch.setenv("REPRO_STREAM_PREFETCH", mode)
         out[mode] = (
             tk.kmeans_fit_stream(st, init, 6, max_iters=4),
-            tbk.bkc_fit_stream(st, l2_normalize(interop.data(x[:32])), 32, 6),
+            tbk.bkc_fit_stream(st, l2_normalize(interop.data(x[:32], "cpu")), 32, 6),
             tbs.buckshot_stream(st, 6, torch.Generator().manual_seed(0), kmeans_iters=2, device="cpu"),
         )
     (k0, b0, s0), (k1, b1, s1) = out["0"], out["2"]
@@ -724,7 +730,7 @@ def test_prefetch_on_and_off_give_the_same_bits(corpus, monkeypatch):
 
 def test_checkpoint_is_not_ported_yet(corpus):
     st = CorpusStream.from_array(corpus[2], chunk=CHUNK)
-    init = interop.data(_pick(corpus[2], 6, 1))
+    init = interop.data(_pick(corpus[2], 6, 1), "cpu")
     calls = [
         lambda: run_pass(st, _sum_fold, 0.0, checkpoint=object()),
         lambda: tk.kmeans_fit_stream(st, init, 6, checkpoint=object()),

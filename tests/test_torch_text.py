@@ -56,7 +56,7 @@ def test_tfidf_matches_jax(small_corpus):
     df = jtfidf.document_frequency(cj)
     np.testing.assert_array_equal(interop.to_numpy(tfidf.document_frequency(ct)), np.asarray(df))
     assert _ulps(tfidf.tf_weight(ct), jtfidf.tf_weight(cj)) <= 1
-    idf = tfidf.idf_weight(interop.data(df), counts.shape[0])
+    idf = tfidf.idf_weight(interop.data(df, "cpu"), counts.shape[0])
     assert _ulps(idf, jtfidf.idf_weight(df, counts.shape[0])) <= 1
     got, want = tfidf.tfidf(ct), np.asarray(jtfidf.tfidf(cj))
     np.testing.assert_allclose(interop.to_numpy(got), want, rtol=0, atol=2 * ULP1)
