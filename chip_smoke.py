@@ -52,7 +52,8 @@ Phases, in order; any failure raises and exits non-zero:
      r = 3,536, c = 1,768, back to back and its kernels alone, profiled;
      best_edge at the kernel
      bench's 2,000 x 2,000 block and the main path's 3,536 x 3,536, with the
-     L2 cache flushed before each call; flash_decode at the kernel bench's
+     L2 cache flushed before each call by a 512 MB write (the kernels line)
+     and, beside it, by a 512 MB read, which leaves no dirty line; flash_decode at the kernel bench's
      cache, f32, and at llama3.2-3b's heads, bf16, length 20,000 of 32,768,
      with the kernel alone, profiled; label_stats at Buckshot's centers
      also with the L2 flushed and profiled, and the fold alone at
@@ -87,7 +88,21 @@ Phases, in order; any failure raises and exits non-zero:
      bit, groups equal to the resident fit's but at a near-tie); each with
      its time per pass, bytes copied, device memory and launches, and a
      profiled run (device busy share, copy time and its overlap with the
-     kernels). Last the quickstart's chain on a regenerated stream:
+     kernels). Then the same streaming fits checkpointed: kmeans_fit_stream,
+     bounded bkc_fit_stream and buckshot_stream cut by an injected producer
+     fault (raise@gN) inside an iteration pass and, on the resumed run,
+     inside the final pass, then run to the end from a MemoryCheckpointer
+     (every=2): each result equal to the uninterrupted run's bit for bit,
+     the store empty, and each run's assign_stats (bounded: its own kernel)
+     launches equal to the chunks it folded, which shows it resumed from its
+     snapshot; kmeans_fit_stream in a child process (the port alone, x
+     memory-mapped from build/) SIGKILLed in its final pass (kill@gN), which
+     must die by signal 9 leaving snapshot files, then rerun on its
+     DiskCheckpointer directory: equal to the uninterrupted fit bit for bit,
+     no .ckpt left; and the cost: one iteration pass with no checkpoint,
+     every=2 and every=8 in turns, and one snapshot's bytes and time for the
+     K-Means carries and the reservoir's. Last the quickstart's chain on a
+     regenerated stream:
      prepare_synthetic_stream (its tf-idf chunks equal to the resident tfidf
      of make_corpus bit for bit, prefetch on and off) -> kmeans_stream,
      bkc_stream (BigK = 2k), buckshot_stream. That chain runs at
@@ -126,6 +141,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 K = 50  # clusters on the main path
 SEED = 21  # the 1 GB shape's own seed
@@ -1605,19 +1621,25 @@ DECODE_CASES = {
 }
 
 
-def event_ms_cold(fn, iters: int, warmup: int = 2) -> float:
+def event_ms_cold(fn, iters: int, warmup: int = 2, flush_by: str = "write") -> float:
     """Mean device time of one call with the 50 MB L2 flushed before each
-    (a 512 MB write between calls, outside the timed events; it keeps the
-    device busy ~0.2 ms, long enough for the host to enqueue the call, so
-    the events time the device and not the host)."""
+    (a pass over 512 MB between calls, outside the timed events; it keeps
+    the device busy ~0.2 ms, long enough for the host to enqueue the call,
+    so the events time the device and not the host). ``flush_by="write"``
+    zeroes the buffer, which leaves up to 50 MB of dirty lines whose
+    write-back may share HBM with the timed call; ``"read"`` sums it, which
+    leaves the L2 clean."""
     import torch
 
-    flush = torch.empty(128 * 2**20, dtype=torch.float32, device="cuda")
+    flush = torch.zeros(128 * 2**20, dtype=torch.float32, device="cuda")
     for _ in range(warmup):
         fn()
     pairs = []
     for _ in range(iters):
-        flush.zero_()
+        if flush_by == "read":
+            flush.sum()
+        else:
+            flush.zero_()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -1858,9 +1880,14 @@ def phase_timing_stream_kernels(xs, dev):
         )
         row["profiled_ms"] = profiled_kernel_ms(lambda: best_edge_cuda(sim, lr, lc), 20,
                                                 ("best_edge_rows",))
+        row["clean_ms"] = event_ms_cold(lambda: best_edge_cuda(sim, lr, lc), 30, flush_by="read")
         rows[f"best_edge {name}"] = row
+        b = row["bound"][0]
         log(f"phase 3 timing best_edge {name} (L2 flushed before each call): kernel "
-            f"{row['ms']:.4f} ms (back to back, L2 warm: {row['warm_ms']:.4f} ms; the kernel "
+            f"{row['ms']:.4f} ms after a 512 MB write, {100 * b / row['ms']:.1f} % of the bound; "
+            f"{row['clean_ms']:.4f} ms after a 512 MB read (the L2 left clean), "
+            f"{100 * b / row['clean_ms']:.1f} % of the bound (back to back, L2 warm: "
+            f"{row['warm_ms']:.4f} ms; the kernel "
             f"alone, profiled, L2 warm: {row['profiled_ms']:.4f} ms), plain "
             f"{row['plain_ms']:.4f} ms, library torch.max(sim, dim=1) {row['library_ms']:.4f} ms "
             f"(the unmasked row max only), bound {row['bound'][0]:.4f} ms ({row['bound'][1]}: "
@@ -1965,7 +1992,8 @@ def phase_stream_host(x, dev):
     """Streaming K-Means, Buckshot and BKC over the 1 GB collection's tf-idf
     rows held in host memory (CorpusStream.from_array, 8 chunks of 32,768
     rows, the last with 12,144 pad rows), held against the resident fits on
-    the card."""
+    the card. Returns the stream, its host rows and each fit with its
+    initial centers, for the checkpoint phase."""
     import os
 
     import torch
@@ -2021,6 +2049,7 @@ def phase_stream_host(x, dev):
         f"pass, {peak_off / 2**20:.0f} MiB), the same bits as prefetch on; one chunk of {n} rows "
         f"{wall_one:.4f} s ({peak_one / 2**20:.0f} MiB), equal to kmeans_fit bit for bit")
     log("phase 4 profile " + profile_stream("kmeans_fit_stream", kmeans_fit_stream, st, init, K))
+    ctx = {"st": st, "x_host": x_host, "kmeans": (init, km)}
 
     # (2) Buckshot, k = 50 (s = 3,536), 3 K-Means iterations
     s = sampling.buckshot_sample_size(n, K)
@@ -2047,6 +2076,7 @@ def phase_stream_host(x, dev):
         raise AssertionError(f"buckshot_stream did not go through its kernels: {counts}")
     log("phase 4 profile " + profile_stream(
         "buckshot_stream", buckshot_stream, st, K, torch.Generator().manual_seed(SEED), device=dev))
+    ctx["buckshot"] = bs
 
     # (3) BKC, k = 400, BigK = 800, from phase 4's BKC draw, bounded and not
     pick = sampling.sample_indices(n, BIG_K, torch.Generator().manual_seed(SEED), dev)
@@ -2096,6 +2126,249 @@ def phase_stream_host(x, dev):
         raise AssertionError("bkc_fit_stream disagrees with the resident fit")
     log("phase 4 profile " + profile_stream(
         "bkc_fit_stream bounded", bkc_fit_stream, st, init, BIG_K, BKC_K, bounded=True))
+    ctx["bkc"] = (init, a)
+    return ctx
+
+
+# ---------------------------------------------------- the resilience slice
+
+# the killed and resumed child of phase_stream_checkpoint: the port alone, on
+# the card, over the rows the parent wrote (memory-mapped)
+RESUME_CHILD = """
+import json, os, sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.environ["SRC"])
+from repro_torch.core.kmeans import kmeans_fit_stream
+from repro_torch.kernels import ops
+from repro_torch.resilience import DiskCheckpointer
+from repro_torch.text.stream import CorpusStream
+
+assert "jax" not in sys.modules and "repro" not in sys.modules
+d = os.environ["DIR"]
+st = CorpusStream.from_array(np.load(os.path.join(d, "x.npy"), mmap_mode="r"),
+                             chunk=int(os.environ["CHUNK"]))
+init = torch.from_numpy(np.load(os.path.join(d, "init.npy"))).cuda()
+ck = DiskCheckpointer(os.path.join(d, "ckpt"), every=2)
+ops.reset_launch_counts()
+res = kmeans_fit_stream(st, init, int(os.environ["K"]), checkpoint=ck)
+torch.cuda.synchronize()
+np.savez(os.path.join(d, "out.npz"), centers=res.centers.cpu().numpy(),
+         assignment=res.assignment.numpy(), best_sim=res.best_sim.numpy(),
+         rss=res.rss.cpu().numpy(), iterations=res.iterations)
+print(json.dumps(ops.launch_counts()))
+"""
+
+
+def same_bits(name, got, want, fields):
+    """Every field of two results equal bit for bit (tensors moved to the
+    host)."""
+    import torch
+
+    differ = [f for f in fields if not torch.equal(torch.as_tensor(getattr(got, f)).cpu(),
+                                                   torch.as_tensor(getattr(want, f)).cpu())]
+    if differ:
+        raise AssertionError(f"{name}: the resumed run differs from the uninterrupted one in {differ}")
+
+
+def cut_and_resume(name, run, specs, expect, kernel, want, fields):
+    """Cut ``run(checkpoint)`` by an injected producer fault at each of
+    ``specs`` in turn, then run it to its end; every run resumes from the
+    MemoryCheckpointer's state. ``expect`` is each run's count of
+    ``kernel`` launches (one a folded chunk). The last run must give
+    ``want``'s bits and leave the store empty; it is returned."""
+    from repro_torch.kernels import ops
+    from repro_torch.resilience import MemoryCheckpointer
+    from repro_torch.testing import faults
+    from repro_torch.testing.faults import InjectedFault
+
+    ck = MemoryCheckpointer(every=2)
+    launches = []
+    for spec in specs:
+        ops.reset_launch_counts()
+        with faults.inject(spec):
+            try:
+                run(ck)
+            except InjectedFault:
+                pass
+            else:
+                raise AssertionError(f"{name}: {spec} did not cut the run")
+        launches.append(ops.launch_counts()[kernel])
+        if not ck._store:
+            raise AssertionError(f"{name}: nothing was stored before the cut at {spec}")
+    got, wall, counts, _ = stream_run(run, ck)
+    launches.append(counts[kernel])
+    same_bits(name, got, want, fields)
+    if ck._store:
+        raise AssertionError(f"{name}: the store still holds {sorted(ck._store)}")
+    if launches != expect:
+        raise AssertionError(f"{name}: {kernel} launches {launches}, expected {expect} (the "
+                             "chunks each run folds)")
+    log(f"phase 4 checkpoint {name}: cut at {', '.join(specs)} (MemoryCheckpointer, every=2) "
+        f"and resumed: equal to the uninterrupted run bit for bit ({', '.join(fields)}); "
+        f"{kernel} launches per run {launches}, the chunks each folded; the resumed run "
+        f"{wall:.4f} s; store empty")
+    return got
+
+
+def snapshot_ms(ck, carry, reps: int = 5) -> tuple[int, float]:
+    """(pickled bytes, median seconds) of one snapshot of ``carry`` into
+    ``ck``: the copy to the host, the pickle and the store's write."""
+    import torch
+
+    from repro_torch.resilience import carry_fingerprint, carry_to_host
+
+    fp, ts = carry_fingerprint(carry), []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ck.save("probe", chunk=2, carry_host=carry_to_host(carry), fingerprint=fp, meta={})
+        ts.append(time.perf_counter() - t)
+    nbytes = len(ck._get("snap/probe"))
+    ck.delete("probe")
+    return nbytes, sorted(ts)[reps // 2]
+
+
+def phase_stream_checkpoint(ctx, card: str, dev):
+    """Checkpointed streaming fits over phase 4's host rows (8 chunks of
+    32,768): kmeans_fit_stream, bounded bkc_fit_stream and buckshot_stream
+    cut in process inside an iteration pass and inside the final pass and
+    resumed; kmeans_fit_stream SIGKILLed in a child process and resumed from
+    its DiskCheckpointer directory; the cost of the snapshots."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.bkc import bkc_fit_stream
+    from repro_torch.core.buckshot import buckshot_stream
+    from repro_torch.core.kmeans import _stream_pass, kmeans_fit_stream
+    from repro_torch.resilience import DiskCheckpointer
+
+    st, nch = ctx["st"], ctx["st"].n_chunks
+    km_fields = ("centers", "assignment", "best_sim", "rss", "objective", "iterations")
+
+    # (1) in process. K-Means: chunk 5 of iteration 2 (snapshot at 4), then
+    # on the resumed run chunk 7 of the final pass (snapshot at 6)
+    init, km = ctx["kmeans"]
+    it = km.iterations
+    if it < 3:
+        raise AssertionError(f"kmeans_fit_stream ran {it} iterations; the cuts need 3")
+    cut_and_resume(
+        f"kmeans_fit_stream k={K}", lambda ck: kmeans_fit_stream(st, init, K, checkpoint=ck),
+        [f"raise@g{2 * nch + 5}", f"raise@g{(it - 2) * nch + 7}"],
+        [2 * nch + 5, (nch - 4) + (it - 3) * nch + 7, nch - 6], "assign_stats", km, km_fields)
+    # BKC bounded: chunk 5 of the micro-cluster pass, then chunk 7 of pass 3
+    init_b, bkc = ctx["bkc"]
+    cut_and_resume(
+        f"bkc_fit_stream k={BKC_K} BigK={BIG_K} bounded",
+        lambda ck: bkc_fit_stream(st, init_b, BIG_K, BKC_K, bounded=True, checkpoint=ck),
+        ["raise@g5", f"raise@g{nch + 7}"], [5, (nch - 4) + 7, nch - 6], "assign_stats_bounded",
+        bkc, km_fields[:-1] + ("group_of_mc", "threshold"))
+    # Buckshot: chunk 5 of phase 2's iteration 0 (after the reservoir's
+    # pass), then chunk 7 of its final pass (the sample from its result)
+    bs = ctx["buckshot"]
+    ib = bs.kmeans.iterations
+    sample = {}
+
+    def run(ck):
+        out = buckshot_stream(st, K, torch.Generator().manual_seed(SEED), device=dev, checkpoint=ck)
+        sample["last"] = out
+        return out.kmeans
+
+    cut_and_resume(
+        f"buckshot_stream k={K}", run, [f"raise@g{nch + 5}", f"raise@g{ib * nch + 7}"],
+        [5, (nch - 4) + (ib - 1) * nch + 7, nch - 6], "assign_stats", bs.kmeans, km_fields)
+    same_bits("buckshot_stream", sample["last"], bs, ("sample_idx", "sample_labels", "init_centers"))
+
+    # (2) across a real SIGKILL: the child dies at chunk 7 of the final pass
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt_smoke_", dir=root / "build")
+    try:
+        t = time.perf_counter()
+        np.save(os.path.join(tmp, "x.npy"), ctx["x_host"])
+        np.save(os.path.join(tmp, "init.npy"), init.cpu().numpy())
+        t_write = time.perf_counter() - t
+        env = dict(os.environ, SRC=str(root / "src"), DIR=tmp, CHUNK=str(STREAM_CHUNK), K=str(K),
+                   REPRO_FAULTS=f"kill@g{it * nch + 7}")
+        env.pop("REPRO_STREAM_PREFETCH", None)
+        t = time.perf_counter()
+        killed = subprocess.run([sys.executable, "-c", RESUME_CHILD], env=env,
+                                capture_output=True, text=True, timeout=600)
+        t_killed = time.perf_counter() - t
+        ckdir = os.path.join(tmp, "ckpt")
+        left = sorted(os.listdir(ckdir)) if os.path.isdir(ckdir) else []
+        if killed.returncode != -signal.SIGKILL:
+            raise AssertionError(f"the child was to die by SIGKILL, rc={killed.returncode}:\n"
+                                 f"{killed.stdout}\n{killed.stderr}")
+        if not any(f.startswith("snap_kmeans_final") for f in left):
+            raise AssertionError(f"the killed child left no snapshot of its final pass: {left}")
+        del env["REPRO_FAULTS"]
+        t = time.perf_counter()
+        resumed = subprocess.run([sys.executable, "-c", RESUME_CHILD], env=env,
+                                 capture_output=True, text=True, timeout=600)
+        t_resumed = time.perf_counter() - t
+        if resumed.returncode != 0:
+            raise AssertionError(f"the resumed child failed:\n{resumed.stdout}\n{resumed.stderr}")
+        counts = json.loads(resumed.stdout.strip().splitlines()[-1])
+        out = np.load(os.path.join(tmp, "out.npz"))
+        got = {f: torch.from_numpy(out[f]) for f in ("centers", "assignment", "best_sim", "rss")}
+        got["iterations"] = int(out["iterations"])
+        same_bits("SIGKILLed kmeans_fit_stream", SimpleNamespace(**got), km,
+                  ("centers", "assignment", "best_sim", "rss", "iterations"))
+        after = [f for f in os.listdir(ckdir) if f.endswith(".ckpt")]
+        if after or counts["assign_stats"] not in (nch - 4, nch - 6):
+            raise AssertionError(f"the resumed child left {after}, or folded "
+                                 f"{counts['assign_stats']} chunks")
+        log(f"phase 4 checkpoint SIGKILL: x ({ctx['x_host'].nbytes / 1e9:.2f} GB) and the initial "
+            f"centers written to {Path(tmp).name}/ in {t_write:.2f} s; the child "
+            f"(kmeans_fit_stream, DiskCheckpointer every=2, REPRO_FAULTS=kill@g{it * nch + 7}) died "
+            f"by SIGKILL after {t_killed:.2f} s leaving {len(left)} files ({', '.join(left)}); "
+            f"rerun without the fault {t_resumed:.2f} s (the process included): equal to the "
+            f"uninterrupted fit bit for bit, {counts['assign_stats']} assign_stats launches (the "
+            f"final pass from its snapshot), no .ckpt left")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (3) the cost: one iteration pass at the fit's centers, with no
+    # checkpoint, every=2 (3 snapshots) and every=8 (none: the load and the
+    # delete only), in turns, five times
+    tmp = tempfile.mkdtemp(prefix="ckpt_cost_", dir=root / "build")
+    try:
+        stores = {"none": None, "every=2": DiskCheckpointer(os.path.join(tmp, "a"), every=2),
+                  "every=8": DiskCheckpointer(os.path.join(tmp, "b"), every=8)}
+        walls = {name: [] for name in stores}
+        for _ in range(5):
+            for name, ck in stores.items():
+                _, wall = sync_time(_stream_pass, st, km.centers, K, pass_id="cost", checkpoint=ck)
+                walls[name].append(wall)
+        out = _stream_pass(st, km.centers, K, collect=True)
+        zero, s, six = torch.zeros((), device=dev), bs.sample_idx.shape[0], 6 * STREAM_CHUNK
+        probes = {  # the carries run_pass snapshots, at their sizes
+            "kmeans iteration carry": (out.stats, zero, [], []),
+            "kmeans final carry at chunk 6": (out.stats, zero, [out.idx[:six]],
+                                              [out.best_sim[:six]]),
+            "reservoir carry": (torch.zeros(s, device=dev), bs.sample_idx.to(dev, torch.int32),
+                                torch.zeros((s, st.dim), device=dev)),
+        }
+        snaps = {name: snapshot_ms(stores["every=2"], carry) for name, carry in probes.items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    base = sorted(walls["none"])[2]
+    log(f"phase 4 checkpoint cost ({card}; DiskCheckpointer under build/, one kmeans_fit_stream "
+        f"iteration pass, k={K}, {nch} chunks, five runs each in turns): "
+        + "; ".join(f"{name} {', '.join(f'{w:.4f}' for w in ws)} s (median "
+                    f"{sorted(ws)[2]:.4f}, {100 * (sorted(ws)[2] / base - 1):+.1f} %)"
+                    for name, ws in walls.items())
+        + "; one snapshot (copy to the host, pickle, write, fsync, rename): "
+        + "; ".join(f"{name} {b / 2**20:.2f} MiB in {1e3 * t:.2f} ms"
+                    for name, (b, t) in snaps.items()))
 
 
 def phase_stream_regen(dev):
@@ -2309,7 +2582,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
-    phase_device()
+    card = phase_device()
     if sys.argv[1:] == ["--kernels"]:
         kernels_only(dev)
         return 0
@@ -2358,8 +2631,9 @@ def main() -> int:
     counts["best_edge"], counts["flash_decode"] = op_counts["best_edge"], op_counts["flash_decode"]
     log(f"phase 4 paths took {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    phase_stream_host(x, dev)
-    del x
+    ctx = phase_stream_host(x, dev)
+    phase_stream_checkpoint(ctx, card, dev)
+    del x, ctx
     torch.cuda.empty_cache()
     phase_stream_regen(dev)
     log(f"phase 4 streaming paths took {time.perf_counter() - t:.1f} s")

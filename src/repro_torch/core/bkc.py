@@ -219,22 +219,36 @@ def bkc_fit_stream(
     ``bounded`` (None → REPRO_ASSIGN_BOUNDS) routes both passes through the
     bound-pruned op with sentinel bounds (and, on the card, a center index):
     the same groups and labels bit for bit. Assignment and best_sim come back
-    as host tensors; ``checkpoint`` is not ported yet and must be None.
+    as host tensors.
+
+    ``checkpoint`` and ``guard`` reach both data passes (pass ids ``bkc/mc``
+    and ``bkc/final``); pass 1's micro-cluster statistics are stored as the
+    pass result ``bkc/mc``, bound to the initial centers' token and the
+    device type, so a restart killed in pass 3 skips pass 1. The result is
+    deleted when the run ends.
     """
     from repro_torch.core.kmeans import _host_labels, _stream_pass
-    from repro_torch.text.stream import require_no_checkpoint
+    from repro_torch.resilience.checkpoint import array_token
 
-    require_no_checkpoint(checkpoint)
     bounded = ops.bounds_enabled(bounded)
+    dev = init_centers.device
 
     # pass 1: micro-cluster statistics folded over the stream (CF additivity
     # is the chunk monoid)
-    out = _stream_pass(
-        stream, init_centers, big_k, pass_id="bkc/mc", guard=guard,
-        bounded=bounded,
-        index=ops.center_index_for(init_centers, init_centers) if bounded else None,
-    )
-    sums, counts, min_sim, sumsq = out.stats
+    mc_stats = None
+    if checkpoint is not None:
+        mc_meta = {"centers": array_token(init_centers), "device": dev.type}
+        mc_stats = checkpoint.load_result("bkc/mc", meta=mc_meta, device=dev)
+    if mc_stats is None:
+        out = _stream_pass(
+            stream, init_centers, big_k, pass_id="bkc/mc", checkpoint=checkpoint,
+            guard=guard, bounded=bounded,
+            index=ops.center_index_for(init_centers, init_centers) if bounded else None,
+        )
+        mc_stats = out.stats
+        if checkpoint is not None:
+            checkpoint.save_result("bkc/mc", mc_stats, meta=mc_meta)
+    sums, counts, min_sim, sumsq = mc_stats
     valid = counts > 0
     mc = MicroClusters(
         n=counts,
@@ -248,10 +262,12 @@ def bkc_fit_stream(
 
     # pass 3: final assignment — the same streaming pass against the k centers
     out = _stream_pass(
-        stream, centers, k, True, pass_id="bkc/final", guard=guard,
-        bounded=bounded,
+        stream, centers, k, True, pass_id="bkc/final", checkpoint=checkpoint,
+        guard=guard, bounded=bounded,
         index=ops.center_index_for(centers, centers) if bounded else None,
     )
+    if checkpoint is not None:
+        checkpoint.delete_result("bkc/mc")  # the run is over
     sums, counts, _, sumsq = out.stats
     rss = metrics.rss_from_assignment_stats(sums, counts, torch.sum(sumsq), k)
     return BKCResult(
@@ -285,7 +301,10 @@ def bkc_stream(
         stream, big_k, generator, uniforms=uniforms, device=device,
         checkpoint=checkpoint, guard=guard,
     )
-    return bkc_fit_stream(
+    result = bkc_fit_stream(
         stream, l2_normalize(rows), big_k, k, checkpoint=checkpoint, guard=guard,
         bounded=bounded,
     )
+    if checkpoint is not None:
+        checkpoint.delete_result("reservoir")  # the run is over
+    return result

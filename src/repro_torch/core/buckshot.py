@@ -126,8 +126,12 @@ def buckshot_stream(
     device); phase 1 runs matrix-free on the O(s·d) sample, and phase 2
     streams the whole collection through the carried-accumulator K-Means
     passes (``kmeans_fit_stream``). Peak residency O(chunk·d + s·d + k·d):
-    the dense (n, d) matrix never exists. ``sample_idx`` is a host tensor;
-    ``checkpoint`` is not ported yet and must be None.
+    the dense (n, d) matrix never exists. ``sample_idx`` is a host tensor.
+
+    ``checkpoint`` covers every data pass: the reservoir pass stores its
+    sample as a result (a job killed in phase 2 skips the sample pass), and
+    the phase-2 K-Means passes checkpoint under the ``buckshot/`` namespace.
+    The sample's result is deleted when the run ends.
     """
     from repro_torch.core.kmeans import kmeans_fit_stream
 
@@ -139,8 +143,11 @@ def buckshot_stream(
     labels, init_centers = phase1_from_sample(rows, k, hac=hac)
     km = kmeans_fit_stream(
         stream, init_centers, k, max_iters=kmeans_iters, tol=tol,
-        checkpoint=checkpoint, guard=guard, bounded=bounded,
+        checkpoint=checkpoint.scoped("buckshot") if checkpoint is not None else None,
+        guard=guard, bounded=bounded,
     )
+    if checkpoint is not None:
+        checkpoint.delete_result("reservoir")  # the run is over
     return BuckshotResult(
         kmeans=km,
         sample_idx=torch.from_numpy(sample_idx),

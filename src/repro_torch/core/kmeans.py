@@ -309,11 +309,17 @@ def _stream_pass(
     bounds come from ``bounds_blocks`` (the previous pass's per-chunk host
     blocks, aligned by chunk index — the unknown sentinel when absent),
     deflated by the (k,) ``drift`` vector, and the refreshed blocks ride the
-    fold carry as host arrays."""
-    from repro_torch.text.stream import require_no_checkpoint, run_pass, to_device
+    fold carry as host arrays.
 
-    require_no_checkpoint(checkpoint)
+    The collected idx/sim blocks and the refreshed bound blocks live INSIDE
+    the run_pass carry, so a checkpoint's snapshot captures them with the
+    stats and a pass killed mid-collection resumes with its prefix intact;
+    the snapshot is bound to ``array_token(centers)``."""
+    from repro_torch.resilience.checkpoint import array_token
+    from repro_torch.text.stream import run_pass, to_device
+
     dev = centers.device
+    meta = {"centers": array_token(centers)} if checkpoint is not None else None
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     if bounded:
         drift_dev = torch.zeros((k,), dtype=torch.float32, device=dev) if drift is None else drift
@@ -340,7 +346,9 @@ def _stream_pass(
             (ops.stats_identity(k, stream.dim, dev), zero, [], [], [], zero, zero),
             copy_to=dev,
             pass_id=pass_id,
+            checkpoint=checkpoint,
             guard=guard,
+            meta=meta,
         )
     else:
 
@@ -360,7 +368,9 @@ def _stream_pass(
             (ops.stats_identity(k, stream.dim, dev), zero, [], []),
             copy_to=dev,
             pass_id=pass_id,
+            checkpoint=checkpoint,
             guard=guard,
+            meta=meta,
         )
         blocks, pruned, rows = None, zero, zero
     return StreamPassOut(
@@ -377,6 +387,12 @@ def _stream_pass(
 def _host_labels(a: np.ndarray | None, dtype: np.dtype) -> torch.Tensor:
     """Collected per-row output as a host tensor ((0,) for an empty stream)."""
     return torch.from_numpy(np.zeros((0,), dtype) if a is None else a)
+
+
+def _moving(moved: float, tol: float) -> bool:
+    """The convergence test of ``kmeans_fit``: the largest squared center
+    movement, an f32 value, compared in f32 with tol**2."""
+    return bool(torch.tensor(moved, dtype=torch.float32) > tol * tol)
 
 
 def kmeans_fit_stream(
@@ -401,17 +417,28 @@ def kmeans_fit_stream(
     as host tensors trimmed to the real rows. On a one-chunk stream the
     result equals ``kmeans_fit``'s bit for bit.
 
+    With a ``checkpoint`` (``resilience.Checkpointer``) each iteration's
+    outcome is stored as the pass result ``kmeans/iter{i}`` (the new centers
+    and their movement, keyed by the token of the iteration's INPUT centers
+    and bound to the device type) and each pass snapshots its carry: a
+    killed job restarted with the same stream and initial centers replays
+    the finished iterations from their results, with no data pass, resumes
+    the killed pass from its last snapshot, and ends on the uninterrupted
+    run's bits. The results are deleted when the run ends.
+
     ``bounded`` (None → REPRO_ASSIGN_BOUNDS) carries per-chunk
     Elkan/Hamerly bounds between iterations as host blocks: the same labels
-    and centers bit for bit. ``profile`` (a dict) receives a per-pass
-    ``prune_rate`` list. ``guard='finite'`` raises GuardError naming the
-    pass and chunk that first produced a non-finite accumulator;
-    ``checkpoint`` is not ported yet and must be None.
+    and centers bit for bit. An iteration replayed from its result resets
+    them to the unknown sentinel (only pruning suffers). ``profile`` (a
+    dict) receives a per-pass ``prune_rate`` list. ``guard='finite'`` raises
+    GuardError naming the pass and chunk that first produced a non-finite
+    accumulator.
     """
-    from repro_torch.text.stream import require_no_checkpoint
+    from repro_torch.resilience.checkpoint import array_token
 
-    require_no_checkpoint(checkpoint)
     bounded = ops.bounds_enabled(bounded)
+    dev = init_centers.device
+    result_meta = {"device": dev.type}
     centers = init_centers
     prev_centers = None  # None -> unknown drift -> sentinel bounds
     bblocks = None
@@ -425,26 +452,46 @@ def kmeans_fit_stream(
     def _pass(collect, pass_id):
         index = ops.center_index_for(centers, centers) if bounded else None
         out = _stream_pass(
-            stream, centers, k, collect, pass_id=pass_id, guard=guard,
-            bounded=bounded, bounds_blocks=bblocks, drift=_drift(), index=index,
+            stream, centers, k, collect, pass_id=pass_id, checkpoint=checkpoint,
+            guard=guard, bounded=bounded, bounds_blocks=bblocks, drift=_drift(),
+            index=index,
         )
         if profile is not None and bounded:
             profile.setdefault("prune_rate", []).append(out.pruned / max(out.rows, 1.0))
         return out
 
     for i in range(max_iters):
-        out = _pass(False, f"kmeans/iter{i}")
+        pid = f"kmeans/iter{i}"
+        if checkpoint is not None:
+            done = checkpoint.load_result(pid, meta=result_meta, device=dev)
+            if done is not None and done["token"] == array_token(centers):
+                centers, moved = done["centers"], done["moved"]
+                prev_centers, bblocks = None, None  # no pass ran: bounds unknown
+                iters += 1
+                if not _moving(moved, tol):
+                    break
+                continue
+        out = _pass(False, pid)
         sums, counts = out.stats[0], out.stats[1]
         means = sums / torch.clamp(counts, min=1.0)[:, None]
         new_centers = torch.where(counts[:, None] > 0, l2_normalize(means), centers)
-        moving = bool(_moved(new_centers, centers) > tol * tol)
+        moved = float(_moved(new_centers, centers))
+        if checkpoint is not None:
+            checkpoint.save_result(
+                pid,
+                {"token": array_token(centers), "centers": new_centers, "moved": moved},
+                meta=result_meta,
+            )
         prev_centers, bblocks = centers, out.bounds
         centers = new_centers
         iters += 1
-        if not moving:
+        if not _moving(moved, tol):
             break
     # final assignment AND the RSS stats from the same streaming pass
     out = _pass(True, "kmeans/final")
+    if checkpoint is not None:
+        for i in range(max_iters):  # the run is over: drop iteration results
+            checkpoint.delete_result(f"kmeans/iter{i}")
     sums, counts, _, sumsq = out.stats
     rss = metrics.rss_from_assignment_stats(sums, counts, torch.sum(sumsq), k)
     return KMeansResult(
@@ -477,7 +524,10 @@ def kmeans_stream(
         stream, k, generator, uniforms=uniforms, device=device,
         checkpoint=checkpoint, guard=guard,
     )
-    return kmeans_fit_stream(
+    result = kmeans_fit_stream(
         stream, l2_normalize(rows), k, max_iters=max_iters, tol=tol,
         checkpoint=checkpoint, guard=guard,
     )
+    if checkpoint is not None:
+        checkpoint.delete_result("reservoir")  # the run is over
+    return result

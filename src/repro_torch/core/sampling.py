@@ -115,21 +115,36 @@ def reservoir_sample_stream(
     the real rows; ``s > stream.n`` is rejected. Returns (rows (s, d) on the
     device, global indices (s,) np.int32, by descending score — a uniformly
     shuffled order).
-    """
-    from repro_torch.text.stream import require_no_checkpoint, run_pass, to_device
 
-    require_no_checkpoint(checkpoint)
+    With a ``checkpoint`` the pass snapshots its carry and stores the sample
+    as the pass result ``"reservoir"``, bound to its draws: to ``base`` and
+    ``s`` (the JAX package binds its rng key; the port has none, and
+    ``base`` is all the generator gives the pass, so a generator in another
+    state cold-starts), or with ``uniforms`` to ``array_token(uniforms(0))``
+    and ``s`` (chunk 0's draws stand for the function).
+    """
+    from repro_torch.resilience.checkpoint import array_token
+    from repro_torch.text.stream import run_pass, to_device
+
     if s > stream.n:
         raise ValueError(f"sample size {s} exceeds stream rows {stream.n}")
+    draws = None
     if uniforms is None:
         if generator is None:
             raise ValueError("reservoir_sample_stream needs a generator or uniforms")
         base = int(torch.randint(0, 2**62, (1,), generator=generator))
+        draws = {"base": base}
 
         def uniforms(ci):
             return chunk_uniforms(base, ci, stream.chunk)
 
     dev = resolve_device(device)
+    meta = None
+    if checkpoint is not None:
+        meta = {**(draws or {"uniforms": array_token(uniforms(0))}), "s": s}
+        done = checkpoint.load_result("reservoir", meta=meta, device=dev)
+        if done is not None:
+            return done["rows"], done["gidx"]
 
     def fold(carry, ch, ci):
         w = to_device(ch.w, dev)
@@ -147,6 +162,11 @@ def reservoir_sample_stream(
         ),
         copy_to=dev,
         pass_id="reservoir",
+        checkpoint=checkpoint,
         guard=guard,
+        meta=meta,
     )
-    return rows, gidx.cpu().numpy()
+    gidx = gidx.cpu().numpy()
+    if checkpoint is not None:
+        checkpoint.save_result("reservoir", {"rows": rows, "gidx": gidx}, meta=meta)
+    return rows, gidx

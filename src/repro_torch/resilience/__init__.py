@@ -1,13 +1,28 @@
-"""Fault tolerance of the streaming executor: the failure taxonomy and the
-retry policy (``policy.py``). ``text/stream.run_pass`` retries producer
-faults per chunk, turns a wedged producer into ``StreamTimeout`` and, with
-``guard="finite"``, raises ``GuardError`` at the first non-finite carry.
+"""Fault tolerance of the streaming executor: checkpointed passes
+(``checkpoint.py``), the failure taxonomy and the retry policy
+(``policy.py``). Everything attaches at ``text/stream.run_pass``:
 
-Checkpointing (the JAX package's ``resilience/checkpoint.py``) is not
-ported yet: every ``checkpoint=`` argument of the port raises
-``NotImplementedError`` (ROADMAP queue 1 item 7).
+  - ``Checkpointer``: snapshots ``(pass_id, chunk_idx, carry)`` every N
+    chunks; a killed job resumes mid-pass and gives the uninterrupted
+    result bit for bit.
+  - ``RetryPolicy``: producer faults become per-chunk retries; past the
+    budget ``StreamFault`` names the pass and chunk.
+  - a producer watchdog turns a wedged producer into ``StreamTimeout``;
+  - ``guard="finite"`` raises ``GuardError`` at the first non-finite carry.
+
+Deterministic fault injection for all of these lives in
+``repro_torch/testing/faults.py`` (the ``REPRO_FAULTS`` knob).
 """
 
+from repro_torch.resilience.checkpoint import (
+    Checkpointer,
+    DiskCheckpointer,
+    MemoryCheckpointer,
+    array_token,
+    carry_fingerprint,
+    carry_from_host,
+    carry_to_host,
+)
 from repro_torch.resilience.policy import (
     GuardError,
     RetryPolicy,
@@ -19,6 +34,13 @@ from repro_torch.resilience.policy import (
 )
 
 __all__ = [
+    "Checkpointer",
+    "DiskCheckpointer",
+    "MemoryCheckpointer",
+    "array_token",
+    "carry_fingerprint",
+    "carry_to_host",
+    "carry_from_host",
     "GuardError",
     "RetryPolicy",
     "StreamError",

@@ -21,7 +21,9 @@ behind it. Chunk order and values are untouched: prefetch on and off give
 the same bits. ``REPRO_STREAM_PREFETCH=0`` (or ``prefetch=0``) turns the
 prefetcher off. ``CorpusStream.from_array(x)`` yields the whole array as one
 chunk, and every streaming entry point run on it reproduces the resident
-path.
+path. ``run_pass(checkpoint=...)`` snapshots the carry every N chunks
+(``resilience/checkpoint.py``), so a killed pass resumes from its last
+snapshot bit for bit.
 """
 
 from __future__ import annotations
@@ -61,15 +63,6 @@ def to_device(a, device: torch.device) -> torch.Tensor:
     when it is pinned."""
     t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
     return t.to(device, non_blocking=True)
-
-
-def require_no_checkpoint(checkpoint) -> None:
-    """``checkpoint=`` is kept in every streaming signature so that they
-    match the JAX package's; the checkpointers are not ported yet."""
-    if checkpoint is not None:
-        raise NotImplementedError(
-            "checkpoint= is not ported yet (ROADMAP queue 1 item 7, resilience)"
-        )
 
 
 def _pad_block(block: np.ndarray, chunk: int) -> tuple[np.ndarray, np.ndarray]:
@@ -440,12 +433,15 @@ def iter_chunks(stream, *, prefetch: Any = None) -> Iterator[StreamChunk]:
 
 
 def _chunk_source(
-    stream, pass_id: str, policy
+    stream, pass_id: str, policy, start_chunk: int
 ) -> Iterator[tuple[int, StreamChunk]]:
     """Producer generator: ``(chunk_index, chunk)`` pairs with per-chunk
     retry and fault injection applied.
 
-    A producer exception at chunk ``ci`` re-opens the pass (fresh
+    Chunks below ``start_chunk`` (already folded into a restored snapshot's
+    carry) are regenerated and pass through the fault plan, so ``@gN``
+    counts them, but they are never yielded: never folded, never staged to
+    the card. A producer exception at chunk ``ci`` re-opens the pass (fresh
     ``stream.chunks()``), fast-forwards to ``ci``, and retries after
     exponential backoff; past the budget the original error surfaces
     (retries=0, fail fast) or a StreamFault with chunk attribution
@@ -461,9 +457,9 @@ def _chunk_source(
                 continue
             yield ci, ch
 
-    ci = 0
+    ci = start_chunk
     attempts = 0
-    it = opened(0)
+    it = opened(start_chunk)
     while True:
         try:
             item = next(it)
@@ -524,6 +520,14 @@ def _carry_finite(carry: Any, seen: set | None = None) -> bool:
     return True
 
 
+def _pass_device(carry: Any, copy_to) -> torch.device | None:
+    """The device a pass folds on: ``copy_to``, else the first tensor leaf's
+    device of the initial carry (None for a host-only carry)."""
+    if copy_to is not None:
+        return torch.device(copy_to)
+    return next((t.device for t in _leaves(carry) if isinstance(t, torch.Tensor)), None)
+
+
 def run_pass(
     stream,
     fold: Callable,
@@ -536,6 +540,8 @@ def run_pass(
     retry: Any = None,
     timeout: Any = None,
     guard: Any = None,
+    meta: dict | None = None,
+    restore_carry: Callable | None = None,
 ):
     """One full pass over ``stream``: ``fold(carry, chunk, index) -> carry``.
 
@@ -548,8 +554,13 @@ def run_pass(
                   prefetch producer pin each host chunk and copy it there on
                   a side stream (the fold then receives tensors on the card;
                   without prefetch it copies them itself, ``to_device``).
-      pass_id     names the pass in error attribution.
-      checkpoint  not ported yet: a value other than None raises.
+      pass_id     names the pass in checkpoint keys and error attribution.
+      checkpoint  a ``resilience.Checkpointer``: the carry is snapshotted
+                  after every ``checkpoint.every`` folded chunks (not after
+                  the last); on entry a matching snapshot restores the carry
+                  and the producer skips the chunks already folded, so a
+                  killed pass resumes bit for bit. The snapshot is deleted
+                  when the pass completes.
       retry       RetryPolicy | int budget | None (env REPRO_STREAM_RETRIES;
                   default 0 = fail fast with the original exception).
       timeout     producer watchdog seconds (env REPRO_STREAM_TIMEOUT;
@@ -558,15 +569,48 @@ def run_pass(
                   deadline can be enforced from the consumer side.
       guard       'finite' (env REPRO_STREAM_GUARD) checks every floating
                   carry leaf after each fold -> GuardError(pass, chunk).
+      meta        extra snapshot-validity keys beside the stream's
+                  signature: a snapshot folded under other centers or draws
+                  must not resume this pass.
+      restore_carry  snapshot carry -> live carry, replacing the default
+                  restore (a distributed fold re-places its leaves).
+
+    The snapshot's meta also holds the pass's device type (``copy_to``, else
+    the initial carry's), a key the JAX package's snapshots do not have: f32
+    adds run in another order on another device, so a snapshot taken on the
+    card cold-starts a CPU pass and the reverse. A restored leaf goes to the
+    pass's device, not to the device its snapshot names.
     """
     from repro_torch.resilience import policy as _policy
 
-    require_no_checkpoint(checkpoint)
     policy = _policy.RetryPolicy.resolve(retry)
     wd = _policy.resolve_timeout(timeout)
     guard = _policy.resolve_guard(guard)
 
-    source = _chunk_source(stream, pass_id, policy)
+    start_chunk = 0
+    if checkpoint is not None:
+        from repro_torch.resilience.checkpoint import (
+            carry_fingerprint,
+            carry_from_host,
+            carry_to_host,
+        )
+
+        dev = _pass_device(carry, copy_to)
+        fingerprint = carry_fingerprint(carry)
+        full_meta = {
+            "stream": {"n": stream.n, "dim": stream.dim, "chunk": stream.chunk},
+            "device": "cpu" if dev is None else dev.type,
+            **(meta or {}),
+        }
+        snap = checkpoint.load(pass_id, fingerprint=fingerprint, meta=full_meta)
+        if snap is not None:
+            if restore_carry is not None:
+                carry = restore_carry(snap["carry"])
+            else:
+                carry = carry_from_host(snap["carry"], device=dev)
+            start_chunk = snap["chunk"]
+
+    source = _chunk_source(stream, pass_id, policy, start_chunk)
     depth = _resolve_prefetch(prefetch)
     if wd is not None:
         depth = max(depth, 1)  # the watchdog needs the producer on a thread
@@ -579,7 +623,7 @@ def run_pass(
         _PrefetchIter(source, depth, timeout=wd, stager=stager)
         if depth > 0 else source
     )
-    expect = 0
+    expect = start_chunk
     guard_seen: set | None = set() if guard == "finite" else None
     try:
         while True:
@@ -598,8 +642,22 @@ def run_pass(
 
                 raise GuardError(pass_id, ci)
             expect = ci + 1
+            if (
+                checkpoint is not None
+                and expect % checkpoint.every == 0
+                and expect < stream.n_chunks
+            ):
+                checkpoint.save(
+                    pass_id,
+                    chunk=expect,
+                    carry_host=carry_to_host(carry),
+                    fingerprint=fingerprint,
+                    meta=full_meta,
+                )
     finally:
         close = getattr(it, "close", None)
         if close is not None:
             close()
+    if checkpoint is not None:
+        checkpoint.delete(pass_id)  # the pass completed: its snapshot is stale
     return carry

@@ -61,11 +61,11 @@ def df_stream(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Pass 1 over a count-chunk stream: fold (df (d,), n) on ``device``
     (``None`` means the CUDA device) — exact, since both are integer-valued
-    however the chunks split the rows. guard='finite' attributes the first
-    non-finite accumulator to its chunk."""
-    from repro_torch.text.stream import require_no_checkpoint, run_pass, to_device
+    however the chunks split the rows. Checkpoints under pass id
+    ``tfidf/df``; guard='finite' attributes the first non-finite accumulator
+    to its chunk."""
+    from repro_torch.text.stream import run_pass, to_device
 
-    require_no_checkpoint(checkpoint)
     dev = resolve_device(device)
     if stream.n == 0:
         raise ValueError("df_stream: empty stream (n == 0 documents)")
@@ -81,6 +81,7 @@ def df_stream(
          torch.zeros((), dtype=torch.float32, device=dev)),
         copy_to=dev,
         pass_id="tfidf/df",
+        checkpoint=checkpoint,
         guard=guard,
     )
 

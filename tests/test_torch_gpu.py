@@ -774,3 +774,37 @@ def test_flash_decode_ticket_counters_reset(card):
     assert torch.equal(first, second)
     assert torch.equal(first, flash_decode_cuda(q, k, v, 2500))
     assert (first - ref.flash_decode(q, k, v, 2500)).abs().max().item() <= 2e-5
+
+
+def test_kmeans_fit_stream_cut_and_resumed_bit_for_bit_on_card(card):
+    """kmeans_fit_stream on the card, cut by an injected producer fault
+    inside iteration 2's pass and, on the resumed run, inside the final
+    pass, then resumed from a MemoryCheckpointer: the uninterrupted fit's
+    bits, an empty store, and assign_stats launched only for the final
+    pass's chunks after its snapshot."""
+    from repro_torch.core.kmeans import kmeans_fit_stream
+    from repro_torch.resilience import MemoryCheckpointer
+    from repro_torch.testing import faults
+    from repro_torch.testing.faults import InjectedFault
+    from repro_torch.text.stream import CorpusStream
+
+    rng = np.random.default_rng(18)
+    c = rng.standard_normal((8, 96))
+    x = c[rng.integers(0, 8, 4000)] + 0.6 * rng.standard_normal((4000, 96))
+    x = (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+    st = CorpusStream.from_array(x, chunk=512)  # 8 chunks, the last with 96 pad rows
+    init = interop.data(x[:8], card)
+    want = kmeans_fit_stream(st, init, 8)
+    iters, nch = want.iterations, st.n_chunks
+    assert iters >= 3
+    ck = MemoryCheckpointer(every=2)
+    for spec in (f"raise@g{2 * nch + 5}", f"raise@g{(iters - 2) * nch + 7}"):
+        with faults.inject(spec), pytest.raises(InjectedFault):
+            kmeans_fit_stream(st, init, 8, checkpoint=ck)
+        assert ck._store
+    ops.reset_launch_counts()
+    got = kmeans_fit_stream(st, init, 8, checkpoint=ck)
+    assert ops.launch_counts()["assign_stats"] == nch - 6
+    assert got.iterations == iters and not ck._store
+    for f in ("centers", "assignment", "best_sim", "rss", "objective"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f

@@ -729,19 +729,31 @@ def test_prefetch_on_and_off_give_the_same_bits(corpus, monkeypatch):
 
 
 def test_checkpoint_is_not_ported_yet(corpus):
+    """Named for the stub it once held (every checkpoint= raised): each
+    streaming entry point now takes a Checkpointer, gives the unchecked
+    run's bits, and leaves its store empty when it completes, but for the
+    bare reservoir's result, which its caller deletes
+    (tests/test_torch_checkpoint.py cuts and resumes them)."""
+    from repro_torch.resilience import MemoryCheckpointer
+
     st = CorpusStream.from_array(corpus[2], chunk=CHUNK)
     init = interop.data(_pick(corpus[2], 6, 1), "cpu")
     calls = [
-        lambda: run_pass(st, _sum_fold, 0.0, checkpoint=object()),
-        lambda: tk.kmeans_fit_stream(st, init, 6, checkpoint=object()),
-        lambda: tbk.bkc_fit_stream(st, init, 6, 2, checkpoint=object()),
-        lambda: tbs.buckshot_stream(st, 6, torch.Generator(), checkpoint=object(), device="cpu"),
-        lambda: tfidf.df_stream(st, checkpoint=object(), device="cpu"),
-        lambda: sampling.reservoir_sample_stream(st, 3, torch.Generator(), checkpoint=object(), device="cpu"),
+        lambda ck: run_pass(st, _sum_fold, 0.0, checkpoint=ck),
+        lambda ck: tk.kmeans_fit_stream(st, init, 6, checkpoint=ck).centers,
+        lambda ck: tbk.bkc_fit_stream(st, init, 6, 2, checkpoint=ck).assignment,
+        lambda ck: tbs.buckshot_stream(st, 6, torch.Generator().manual_seed(0), checkpoint=ck,
+                                       device="cpu").kmeans.assignment,
+        lambda ck: tfidf.df_stream(st, checkpoint=ck, device="cpu")[0],
+        lambda ck: sampling.reservoir_sample_stream(st, 3, torch.Generator().manual_seed(0),
+                                                    checkpoint=ck, device="cpu")[0],
     ]
     for call in calls:
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            call()
+        ck = MemoryCheckpointer(every=1)
+        got, want = call(ck), call(None)
+        assert torch.equal(torch.as_tensor(got), torch.as_tensor(want))
+        assert set(ck._store) <= {"result/reservoir"}
+        assert ("result/reservoir" in ck._store) == (call is calls[-1])
 
 
 def test_streaming_creators_default_to_the_card(corpus):
