@@ -101,8 +101,22 @@ Phases, in order; any failure raises and exits non-zero:
      DiskCheckpointer directory: equal to the uninterrupted fit bit for bit,
      no .ckpt left; and the cost: one iteration pass with no checkpoint,
      every=2 and every=8 in turns, and one snapshot's bytes and time for the
-     K-Means carries and the reservoir's. Last the quickstart's chain on a
-     regenerated stream:
+     K-Means carries and the reservoir's. Then distributed streaming over a
+     NCCL group of world size 1 (a FileStore under build/), each against its
+     single-device stream bit for bit: kmeans_distributed_stream (k = 50,
+     bounded and not; seconds per pass against kmeans_fit_stream's, in the
+     order single, distributed, distributed, single), bkc_distributed_stream
+     (k = 400, BigK = 800, both routes), reservoir_sample_distributed_stream
+     fed the single-device reservoir's draws (the same indices in the same
+     order), buckshot_distributed_stream on that sample (also against the
+     resident buckshot_distributed on the sample's rows, agreement >= 99.9 %
+     and RSS within 1e-4 relative, and under hac="boruvka"), df_fold_distributed
+     and tfidf_distributed_stream on the regenerated stream at
+     paper_1gb_shape(scale=0.1) (df, n and every chunk's rows equal);
+     kmeans_distributed_stream and buckshot_distributed_stream cut twice by
+     raise@gN and resumed from a DiskCheckpointer under build/ (launches per
+     run equal to the chunks folded); one profiled distributed K-Means fit.
+     Last the quickstart's chain on a regenerated stream:
      prepare_synthetic_stream (its tf-idf chunks equal to the resident tfidf
      of make_corpus bit for bit, prefetch on and off) -> kmeans_stream,
      bkc_stream (BigK = 2k), buckshot_stream. That chain runs at
@@ -2173,18 +2187,29 @@ def same_bits(name, got, want, fields):
         raise AssertionError(f"{name}: the resumed run differs from the uninterrupted one in {differ}")
 
 
-def cut_and_resume(name, run, specs, expect, kernel, want, fields):
+def stored(ck) -> list:
+    """What a MemoryCheckpointer or DiskCheckpointer still holds."""
+    import os
+
+    if hasattr(ck, "_store"):
+        return sorted(ck._store)
+    return sorted(f for f in os.listdir(ck.directory) if f.endswith(".ckpt"))
+
+
+def cut_and_resume(name, run, specs, expect, kernel, want, fields, ck=None):
     """Cut ``run(checkpoint)`` by an injected producer fault at each of
     ``specs`` in turn, then run it to its end; every run resumes from the
-    MemoryCheckpointer's state. ``expect`` is each run's count of
-    ``kernel`` launches (one a folded chunk). The last run must give
-    ``want``'s bits and leave the store empty; it is returned."""
+    checkpointer's state (``ck``, a MemoryCheckpointer with every=2 by
+    default). ``expect`` is each run's count of ``kernel`` launches (one a
+    folded chunk). The last run must give ``want``'s bits and leave the
+    store empty; it is returned."""
     from repro_torch.kernels import ops
     from repro_torch.resilience import MemoryCheckpointer
     from repro_torch.testing import faults
     from repro_torch.testing.faults import InjectedFault
 
-    ck = MemoryCheckpointer(every=2)
+    store = type(ck).__name__ if ck is not None else "MemoryCheckpointer"
+    ck = MemoryCheckpointer(every=2) if ck is None else ck
     launches = []
     for spec in specs:
         ops.reset_launch_counts()
@@ -2196,17 +2221,17 @@ def cut_and_resume(name, run, specs, expect, kernel, want, fields):
             else:
                 raise AssertionError(f"{name}: {spec} did not cut the run")
         launches.append(ops.launch_counts()[kernel])
-        if not ck._store:
+        if not stored(ck):
             raise AssertionError(f"{name}: nothing was stored before the cut at {spec}")
     got, wall, counts, _ = stream_run(run, ck)
     launches.append(counts[kernel])
     same_bits(name, got, want, fields)
-    if ck._store:
-        raise AssertionError(f"{name}: the store still holds {sorted(ck._store)}")
+    if stored(ck):
+        raise AssertionError(f"{name}: the store still holds {stored(ck)}")
     if launches != expect:
         raise AssertionError(f"{name}: {kernel} launches {launches}, expected {expect} (the "
                              "chunks each run folds)")
-    log(f"phase 4 checkpoint {name}: cut at {', '.join(specs)} (MemoryCheckpointer, every=2) "
+    log(f"phase 4 checkpoint {name}: cut at {', '.join(specs)} ({store}, every=2) "
         f"and resumed: equal to the uninterrupted run bit for bit ({', '.join(fields)}); "
         f"{kernel} launches per run {launches}, the chunks each folded; the resumed run "
         f"{wall:.4f} s; store empty")
@@ -2369,6 +2394,181 @@ def phase_stream_checkpoint(ctx, card: str, dev):
         + "; one snapshot (copy to the host, pickle, write, fsync, rename): "
         + "; ".join(f"{name} {b / 2**20:.2f} MiB in {1e3 * t:.2f} ms"
                     for name, (b, t) in snaps.items()))
+
+
+def phase_distributed_stream(ctx, x, card, dev):
+    """Distributed streaming over a NCCL group of world size 1 (a FileStore
+    under build/: no network), on phase 4's host rows (8 chunks of 32,768),
+    each fit against its single-device stream bit for bit: at one rank both
+    fold the chunk partials in chunk order and the collective is a copy.
+    K-Means (k = 50, the baseline's initial centers) unbounded and bounded,
+    BKC (k = 400, BigK = 800) on both routes, the reservoir fed the
+    single-device reservoir's chunk_uniforms draws for shard 0, Buckshot
+    on that sample (also against the resident buckshot_distributed on the
+    sample's rows, and under hac="boruvka"), tf-idf on the regenerated
+    stream at paper_1gb_shape(scale=0.1); then K-Means and Buckshot cut by
+    raise@gN inside a pass and resumed from a DiskCheckpointer under
+    build/, and one profiled K-Means fit. Returns the launch counts of the
+    unbounded K-Means fit."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import sampling
+    from repro_torch.core.bkc import bkc_fit_stream
+    from repro_torch.core.kmeans import kmeans_fit_stream
+    from repro_torch.distrib import cluster as dc
+    from repro_torch.distrib.sharding import make_flat_mesh
+    from repro_torch.resilience import DiskCheckpointer
+    from repro_torch.text import synth, tfidf
+
+    st, nch = ctx["st"], ctx["st"].n_chunks
+    n, d = x.shape
+    s = sampling.buckshot_sample_size(n, K)
+    init, km = ctx["kmeans"]
+    fields = ("centers", "assignment", "rss", "objective", "iterations")
+    pass_bytes = nch * STREAM_CHUNK * (d + 1) * 4
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="dstream_", dir=root / "build") as tmp:
+        nccl_world_1(tmp)
+        try:
+            mesh, axes = make_flat_mesh(), ("data",)
+            warm = torch.zeros(1, device=dev)
+            dist.all_reduce(warm)  # the group's first collective sets up NCCL
+            torch.cuda.synchronize()
+
+            # (1) K-Means, k = 50: single, distributed, distributed, single
+            walls = {"single": [], "distributed": []}
+            for who in ("single", "distributed", "distributed", "single"):
+                if who == "single":
+                    r, wall, c, _ = stream_run(kmeans_fit_stream, st, init, K)
+                else:
+                    r, wall, c, peak = stream_run(dc.kmeans_distributed_stream, mesh, axes, st,
+                                                  init, K)
+                    got, counts = r, c
+                walls[who].append(wall)
+            same_bits("kmeans_distributed_stream", got, km, fields)
+            passes = got.iterations + 1
+            if counts["assign_stats"] != passes * nch:
+                raise AssertionError(f"kmeans_distributed_stream: launches {counts}")
+            per = {w: [t / passes for t in ts] for w, ts in walls.items()}
+            stream_report(f"kmeans_distributed_stream k={K} (NCCL, world size 1)",
+                          walls["distributed"][0], passes, pass_bytes, counts, peak,
+                          f"; equal to kmeans_fit_stream bit for bit ({', '.join(fields)}); "
+                          f"s per pass, in the order run: single {per['single'][0]:.4f}, "
+                          f"distributed {per['distributed'][0]:.4f}, "
+                          f"{per['distributed'][1]:.4f}, single {per['single'][1]:.4f} "
+                          f"(distributed / single {sum(per['distributed']) / sum(per['single']):.3f})")
+            want_b, wall_sb, _, _ = stream_run(kmeans_fit_stream, st, init, K, bounded=True)
+            got_b, wall_b, counts_b, _ = stream_run(dc.kmeans_distributed_stream, mesh, axes, st,
+                                                    init, K, bounded=True)
+            same_bits("kmeans_distributed_stream bounded", got_b, want_b, fields)
+            if counts_b["assign_stats_bounded"] != (got_b.iterations + 1) * nch:
+                raise AssertionError(f"kmeans_distributed_stream bounded: launches {counts_b}")
+            log(f"phase 4 kmeans_distributed_stream bounded: equal to kmeans_fit_stream bounded "
+                f"bit for bit; {wall_b / (got_b.iterations + 1):.4f} s per pass against "
+                f"{wall_sb / (want_b.iterations + 1):.4f}; launches {counts_b}")
+
+            # (2) BKC, k = 400, BigK = 800, both routes
+            init_b, bkc = ctx["bkc"]
+            for bounded in (True, False):
+                got_k, wall_k, counts_k, _ = stream_run(
+                    dc.bkc_distributed_stream, mesh, axes, st, init_b, BIG_K, BKC_K,
+                    bounded=bounded)
+                same_bits(f"bkc_distributed_stream bounded={bounded}", got_k, bkc,
+                          fields[:-1])
+                kernel = "assign_stats_bounded" if bounded else "assign_stats"
+                if counts_k[kernel] != 2 * nch:
+                    raise AssertionError(f"bkc_distributed_stream: launches {counts_k}")
+                log(f"phase 4 bkc_distributed_stream k={BKC_K} BigK={BIG_K} bounded={bounded}: "
+                    f"equal to bkc_fit_stream bit for bit; {wall_k:.4f} s ({wall_k / 2:.4f} s "
+                    f"per pass); launches {counts_k}")
+
+            # (3) the reservoir, fed the single-device reservoir's draws
+            bs = ctx["buckshot"]
+            base = int(torch.randint(0, 2**62, (1,), generator=torch.Generator().manual_seed(SEED)))
+
+            def unif(ci, shard):
+                return sampling.chunk_uniforms(base, ci, STREAM_CHUNK)
+
+            (rows, gidx), t_res = sync_time(dc.reservoir_sample_distributed_stream, mesh, axes,
+                                            st, s, uniforms=unif)
+            if not (np.array_equal(gidx, bs.sample_idx.numpy())
+                    and torch.equal(rows.cpu(), torch.from_numpy(ctx["x_host"][gidx]))):
+                raise AssertionError("reservoir_sample_distributed_stream: the sample differs "
+                                     "from reservoir_sample_stream's")
+            log(f"phase 4 reservoir_sample_distributed_stream s={s}: the single-device "
+                f"reservoir's indices in its order, rows equal x at them; {t_res:.4f} s (one pass)")
+
+            # (4) Buckshot on that sample: the single-device buckshot_stream's bits
+            got_s, wall_s, counts_s, _ = stream_run(
+                dc.buckshot_distributed_stream, mesh, axes, st, K, uniforms=unif, sample_size=s)
+            same_bits("buckshot_distributed_stream", got_s, bs.kmeans, fields)
+            if not (counts_s["sim_best_edge"] >= 1 and counts_s["label_stats"] >= 1
+                    and counts_s["assign_stats"] == (got_s.iterations + 1) * nch):
+                raise AssertionError(f"buckshot_distributed_stream: launches {counts_s}")
+            w = torch.ones((n,), device=dev)
+            res = dc.buckshot_distributed(mesh, axes, x, w, K, SEED, sample_size=s,
+                                          sample_rows=rows)
+            agree, r = agreement(got_s.assignment, res.assignment), rel(got_s.rss, res.rss)
+            if agree < 0.999 or r > 1e-4:
+                raise AssertionError("buckshot_distributed_stream disagrees with the resident "
+                                     "buckshot_distributed on its sample")
+            got_h, wall_h, counts_h, _ = stream_run(
+                dc.buckshot_distributed_stream, mesh, axes, st, K, uniforms=unif, sample_size=s,
+                hac="boruvka")
+            same_bits("buckshot_distributed_stream hac=boruvka", got_h, got_s, fields)
+            if counts_h["component_best_edge"] < 1:
+                raise AssertionError(f"hac='boruvka' launched {counts_h}")
+            passes_s = 1 + got_s.iterations + 1
+            log(f"phase 4 buckshot_distributed_stream k={K} s={s}: equal to buckshot_stream bit "
+                f"for bit; labels agree with the resident buckshot_distributed on the same rows "
+                f"{agree} (rss rel {r:.2e}); "
+                f"{wall_s:.4f} s ({wall_s / passes_s:.4f} s per pass), launches {counts_s}; "
+                f"hac='boruvka' the same bits, {wall_h:.4f} s, launches {counts_h}")
+
+            # (5) tf-idf on the regenerated stream
+            shape = synth.paper_1gb_shape(scale=0.1)
+            cst, _ = synth.stream_corpus(**shape, chunk=REGEN_CHUNK)
+            (df, n_docs), t_df = sync_time(tfidf.df_stream, cst, device=dev)
+            stats, t_fold = sync_time(tfidf.df_fold_distributed, mesh, axes, cst)
+            if not (torch.equal(stats["df"], df) and torch.equal(stats["n"], n_docs)):
+                raise AssertionError("df_fold_distributed: df or n differ from df_stream's")
+            a, t_a = sync_time(lambda: tfidf.tfidf_distributed_stream(mesh, axes, cst).materialize())
+            b, t_b = sync_time(lambda: tfidf.tfidf_stream(cst, device=dev).materialize())
+            if not np.array_equal(a, b):
+                raise AssertionError("tfidf_distributed_stream: rows differ from tfidf_stream's")
+            log(f"phase 4 tfidf_distributed_stream at n={shape['n_docs']} "
+                f"(paper_1gb_shape(scale=0.1)), chunks of {REGEN_CHUNK}: df and n equal "
+                f"df_stream's (df pass {t_fold:.2f} s against {t_df:.2f} s), every chunk's rows "
+                f"equal tfidf_stream's bit for bit ({t_a:.2f} s against {t_b:.2f} s, two passes "
+                f"each)")
+
+            # (6) cut and resumed from a DiskCheckpointer under build/
+            it, ib = got.iterations, bs.kmeans.iterations
+            cut_and_resume(
+                "kmeans_distributed_stream",
+                lambda ck: dc.kmeans_distributed_stream(mesh, axes, st, init, K, checkpoint=ck),
+                [f"raise@g{2 * nch + 5}", f"raise@g{(it - 2) * nch + 7}"],
+                [2 * nch + 5, (nch - 4) + (it - 3) * nch + 7, nch - 6], "assign_stats", got,
+                fields, DiskCheckpointer(os.path.join(tmp, "kmeans"), every=2))
+            cut_and_resume(
+                "buckshot_distributed_stream",
+                lambda ck: dc.buckshot_distributed_stream(mesh, axes, st, K, uniforms=unif,
+                                                          sample_size=s, checkpoint=ck),
+                [f"raise@g{nch + 5}", f"raise@g{ib * nch + 7}"],
+                [5, (nch - 4) + (ib - 1) * nch + 7, nch - 6], "assign_stats", got_s, fields,
+                DiskCheckpointer(os.path.join(tmp, "buckshot"), every=2))
+
+            log("phase 4 profile " + profile_stream(
+                "kmeans_distributed_stream", dc.kmeans_distributed_stream, mesh, axes, st, init, K))
+        finally:
+            dist.destroy_process_group()
+    return counts
 
 
 def phase_stream_regen(dev):
@@ -2633,6 +2833,9 @@ def main() -> int:
     t = time.perf_counter()
     ctx = phase_stream_host(x, dev)
     phase_stream_checkpoint(ctx, card, dev)
+    t_d = time.perf_counter()
+    phase_distributed_stream(ctx, x, card, dev)
+    log(f"phase 4 distributed streaming took {time.perf_counter() - t_d:.1f} s")
     del x, ctx
     torch.cuda.empty_cache()
     phase_stream_regen(dev)

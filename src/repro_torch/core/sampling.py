@@ -41,6 +41,16 @@ def sample_indices(
     return torch.randperm(n, generator=generator)[:s].to(dev)
 
 
+def local_top_s(u: torch.Tensor, s: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-shard step of distributed sampling: (scores, local indices int32)
+    of the top min(s, n_local) of the shard's uniforms ``u``. The JAX
+    package draws ``u`` from a key; the port takes the draws as an input.
+    Ties go to the lower index (a stable descending sort, as
+    ``jax.lax.top_k``; never ``torch.topk``)."""
+    idx = torch.sort(u, descending=True, stable=True).indices[: min(s, u.shape[0])]
+    return u[idx], idx.to(torch.int32)
+
+
 def buckshot_sample_size(n: int, k: int) -> int:
     """Paper's sample size s = sqrt(k * n)."""
     return max(k, int(math.ceil(math.sqrt(float(k) * float(n)))))
@@ -80,6 +90,15 @@ def chunk_uniforms(base_seed: int, ci: int, chunk: int) -> torch.Tensor:
     seed = int(np.random.SeedSequence((base_seed, ci)).generate_state(1, np.uint64)[0])
     g = torch.Generator().manual_seed(seed & (2**63 - 1))
     return torch.rand((chunk,), generator=g, dtype=torch.float32)
+
+
+def shard_uniforms(seed: int, ci: int, shard: int, n: int) -> torch.Tensor:
+    """Shard ``shard``'s (n,) f32 uniforms in [0, 1) for chunk ``ci`` of the
+    distributed reservoir: a CPU generator seeded from (seed, ci, shard), in
+    the manner of ``chunk_uniforms``."""
+    state = int(np.random.SeedSequence((seed, ci, shard)).generate_state(1, np.uint64)[0])
+    g = torch.Generator().manual_seed(state & (2**63 - 1))
+    return torch.rand((n,), generator=g, dtype=torch.float32)
 
 
 def _chunk_scores(

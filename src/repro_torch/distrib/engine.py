@@ -19,10 +19,12 @@ Reduce kinds may sit at any PREFIX of the output tree of dicts: one kind
 covers the whole subtree below it ('component' sees its w/row/col triple
 together). Every reduce runs per mesh axis over ``mesh.get_group(axis)``,
 innermost axis first, whatever the world size (a group of one rank too).
+Fold mode (``FoldJob`` below) consumes a stream of chunks with one
+collective pass at the end, and adds the 'topk' running-reservoir kind,
+which has a chunk monoid but no one-shot reduce; make_job rejects it.
 
 Counterpart of the JAX package's ``distrib/engine.py`` (``make_job``,
-``run_job``, ``ring_sweep``, ``_component_merge``); fold mode
-(``FoldJob``, the 'topk' kind) waits for the streaming drivers.
+``run_job``, ``ring_sweep``, ``FoldJob``/``make_fold_job``).
 """
 
 from __future__ import annotations
@@ -33,7 +35,12 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from repro_torch.distrib.sharding import axis_groups, ring_permutation
+from repro_torch.distrib.sharding import (
+    axis_groups,
+    mesh_device,
+    ring_permutation,
+    shard_index,
+)
 from repro_torch.kernels.ref import BIG_I
 
 _OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}
@@ -264,3 +271,228 @@ def _component_merge(a: dict, b: dict) -> dict:
     sets in any order gives the flat reduce's winners."""
     take_b = (b["w"] > a["w"]) | ((b["w"] == a["w"]) & (b["row"] < a["row"]))
     return {k: torch.where(take_b, b[k], a[k]) for k in a}
+
+
+# --------------------------------------------------------------- fold mode
+
+_MONOID: dict[str, Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = {
+    "sum": torch.add,
+    "min": torch.minimum,
+    "max": torch.maximum,
+}
+
+
+def _zip_tree(fn: Callable, a: Any, b: Any) -> Any:
+    if isinstance(a, dict):
+        return {k: _zip_tree(fn, a[k], b[k]) for k in a}
+    if isinstance(a, (tuple, list)):
+        return type(a)(_zip_tree(fn, x, y) for x, y in zip(a, b))
+    return fn(a, b)
+
+
+def _top(scores: torch.Tensor, s: int) -> torch.Tensor:
+    """Positions of the s highest scores, ties to the lower position (a
+    stable descending sort, as ``jax.lax.top_k`` breaks them; ``torch.topk``
+    promises no order among ties)."""
+    return torch.sort(scores, descending=True, stable=True).indices[:s]
+
+
+def _topk_merge(a: dict, b: dict) -> dict:
+    """Chunk monoid of the 'topk' fold kind: top-s (by the 'score' leaf) of
+    the union of two fixed-size candidate sets, a's before b's among ties.
+    Every other leaf of the subtree is payload, carried along dim 0:
+    top_s(A ∪ B) = top_s(top_s(A) ∪ top_s(B)), the monoid of
+    ``core/sampling.merge_top_s``."""
+    pos = _top(torch.cat([a["score"], b["score"]]), a["score"].shape[0])
+    return _zip_tree(lambda av, bv: torch.cat([av, bv])[pos], a, b)
+
+
+def _check_component(subtree: Any) -> None:
+    if not (isinstance(subtree, dict) and {"w", "row", "col"} <= set(subtree)):
+        raise ValueError(
+            "'component' fold kind expects a dict subtree with at least"
+            " {'w','row','col'} per-segment winners"
+            " (ops.component_best_edge layout, extra int32 payload leaves"
+            f" allowed), got {type(subtree).__name__}"
+        )
+
+
+def _check_topk(subtree: Any) -> None:
+    if not (isinstance(subtree, dict) and "score" in subtree):
+        raise ValueError(
+            "'topk' fold kind expects a dict subtree with a 'score' leaf"
+            " (plus payload arrays aligned on axis 0), got"
+            f" {type(subtree).__name__}"
+        )
+    s = subtree["score"].shape[0]
+
+    def check(path: str, leaf: Any) -> None:
+        if isinstance(leaf, dict):
+            for k, v in leaf.items():
+                check(f"{path}[{k!r}]", v)
+        elif tuple(leaf.shape[:1]) != (s,):
+            # a misaligned payload would otherwise survive the merge as an
+            # index error or garbage rows
+            raise ValueError(
+                "'topk' payload leaves must share the score leaf's axis-0"
+                f" length {s}; leaf {path} has shape {tuple(leaf.shape)}"
+            )
+
+    check("", subtree)
+
+
+def _split(kinds: Any, out: Any, folds: list) -> Any:
+    """Walk the kinds prefix tree over ``out``: fold-kind subtrees go to
+    ``folds`` in kind order; the returned tree keeps the 'shard' subtrees
+    and holds None at fold positions."""
+    if isinstance(kinds, dict):
+        if set(kinds) != set(out):
+            raise ValueError(f"reduce kinds {sorted(kinds)} do not match outputs {sorted(out)}")
+        return {k: _split(kinds[k], out[k], folds) for k in kinds}
+    if kinds == "shard":
+        return out
+    folds.append(out)
+    return None
+
+
+def _fill(kinds: Any, reduced: Any) -> Any:
+    if isinstance(kinds, dict):
+        return {k: _fill(v, reduced) for k, v in kinds.items()}
+    return None if kinds == "shard" else next(reduced)
+
+
+class FoldJob:
+    """Streaming fold mode of a MapReduce job (out-of-core chunk streams).
+
+    ``make_job`` maps ONE resident row block and reduces at once; a FoldJob
+    consumes a SEQUENCE of same-shaped chunks:
+
+      step(carry, data_chunk, bcast) -> (carry, shard_outs)
+          map this rank's block of the chunk and merge its partials into
+          this rank's carry, ``op(carry, chunk_partial)``: no collective
+          runs in a step. ``carry=None`` opens the fold. 'shard' outputs
+          pass through per chunk; fold positions in ``shard_outs`` are None.
+      finalize(carry) -> out
+          ONE collective pass per fold entry over the per-axis groups,
+          innermost axis first. 'shard' positions in the result are None.
+
+    The paper's combiner discipline lifted across chunks: a mapper folds
+    every split it is handed before anything shuffles, so a whole
+    multi-chunk pass costs the wire one resident job. Kinds: 'sum' | 'min'
+    | 'max' | 'topk' | 'component' (+ 'shard' passthrough), at any prefix
+    of the output tree; 'gather' has no chunk-monoid form.
+
+    'component' carries this rank's running per-segment best edge, (w desc,
+    row asc), a total order since rows are globally unique, and finalizes
+    through the tiered ``_component_reduce``.
+
+    'topk' is the running reservoir: a dict subtree with a 'score' leaf of
+    fixed size s and payload leaves aligned on dim 0. The carry keeps this
+    rank's top s; finalize owner-scatters: ONE all-gather of the P·s scores
+    in flat shard order, ranked the same way on every rank, then each
+    owner contributes its winning payload rows to a sum all-reduce and
+    every other rank zeros (one non-zero addend per slot: the sum is an
+    exact move). Wire O(P·s + s·d) instead of the O(P·s·d) payload gather.
+
+    The JAX package stacks every shard's partial into one (P, ...) carry;
+    under ``torch.distributed`` each rank holds only its own slice, so the
+    carry is this rank's partial: a tuple with one entry per fold kind.
+    """
+
+    def __init__(
+        self,
+        mesh: DeviceMesh,
+        axes: tuple[str, ...],
+        map_combine: Callable,
+        reduce_kinds: Any,
+        *,
+        name: str = "fold",
+    ):
+        flat = _kinds(reduce_kinds)
+        bad = sorted({k for k in flat if k not in ("shard", "topk", "component", *_MONOID)})
+        if bad:
+            raise ValueError(
+                f"fold mode supports sum/min/max/topk/component/shard reduce kinds, got {bad}"
+            )
+        self.name = name
+        self.mesh = mesh
+        self.axes = axes
+        self.map_combine = map_combine
+        self.reduce_kinds = reduce_kinds
+        self.fold_kinds = [k for k in flat if k != "shard"]
+        self.groups = axis_groups(mesh, axes)
+        self.me = shard_index(mesh, axes)
+        self.device = mesh_device(mesh)
+
+    def _split(self, out: Any) -> tuple[list, Any]:
+        folds: list = []
+        shards = _split(self.reduce_kinds, out, folds)
+        return folds, shards
+
+    def step(self, carry, data, bcast=()):
+        """Fold one chunk; ``carry=None`` opens the fold."""
+        folds, shards = self._split(self.map_combine(data, bcast))
+        if carry is None:
+            for f, k in zip(folds, self.fold_kinds):
+                if k == "topk":
+                    _check_topk(f)
+                elif k == "component":
+                    _check_component(f)
+            return tuple(folds), shards
+        merged = []
+        for c, f, k in zip(carry, folds, self.fold_kinds):
+            if k == "topk":  # joint merge across the subtree, not leafwise
+                merged.append(_topk_merge(c, f))
+            elif k == "component":  # joint: the selector reads w and row together
+                merged.append(_component_merge(c, f))
+            else:
+                merged.append(_zip_tree(_MONOID[k], c, f))
+        return tuple(merged), shards
+
+    def _topk_finalize(self, v: dict) -> dict:
+        s = v["score"].shape[0]
+        g_score = _gather(v["score"], self.groups)  # flat shard order
+        pos = _top(g_score, s)
+        mine = (pos // s) == self.me
+        local = torch.where(mine, pos % s, 0)
+
+        def collect(x):
+            rows = x[local]
+            keep = mine.reshape(mine.shape + (1,) * (rows.ndim - 1))
+            return _REDUCERS["sum"](torch.where(keep, rows, torch.zeros_like(rows)), self.groups)
+
+        out = _map_tree(collect, v)
+        out["score"] = g_score[pos]  # already exact from the ranked gather
+        return out
+
+    def finalize(self, carry):
+        """One collective pass over this rank's carried partials."""
+        if carry is None:
+            raise ValueError("finalize before any step: empty stream")
+        reduced = (
+            self._topk_finalize(c) if k == "topk" else _REDUCERS[k](c, self.groups)
+            for c, k in zip(carry, self.fold_kinds)
+        )
+        return _fill(self.reduce_kinds, iter(reduced))
+
+    def carry_device(self, host_carry):
+        """The ``restore_carry`` hook of ``run_pass``: a snapshot's carry
+        (this rank's partials on the host) back on this rank's device, so
+        the resumed fold is the one that never stopped."""
+        from repro_torch.resilience.checkpoint import carry_from_host
+
+        return carry_from_host(host_carry, device=self.device)
+
+
+def make_fold_job(
+    mesh: DeviceMesh,
+    axes: tuple[str, ...],
+    map_combine: Callable,
+    reduce_kinds: Any,
+    *,
+    name: str = "fold",
+) -> FoldJob:
+    """Streaming fold mode: map each chunk, combine monoid partials locally,
+    one collective at the end (see FoldJob). Supports
+    sum/min/max/topk/component/shard reduce kinds."""
+    return FoldJob(mesh, axes, map_combine, reduce_kinds, name=name)

@@ -35,10 +35,16 @@ reference's.
 The sample is PADDED to a shard multiple: pad rows carry label -1, which
 the edge search masks out, and a component id the combiner drops.
 
+Under merge='comp' the round loop checkpoints (``checkpoint=``): at a host
+read of the flag after which the loop goes on, it snapshots the comp state
+(the sharded sweep's slices gathered from every rank), ``comp_to_root``,
+the live count and the compact edge lists, all replicated, so rank 0 alone
+writes the snapshot (``resilience.RankCheckpointer`` with ``shared=True``).
+
 Counterpart of the JAX package's ``distrib/hac_parallel.py``. Left out:
-the AOT pre-warm (``prewarm``, ``impl``: PyTorch runs eagerly), the
-checkpointed rounds (``checkpoint=``, with resilience), and the benchmark
-paths ``pre_reduce=False`` (row gather) and ``synthetic_merge_rounds``.
+the AOT pre-warm (``prewarm``, ``impl``: PyTorch runs eagerly) and the
+benchmark paths ``pre_reduce=False`` (row gather) and
+``synthetic_merge_rounds``.
 """
 
 from __future__ import annotations
@@ -60,12 +66,13 @@ from repro_torch.core.hac import (
     _scatter_slots,
     cut_mst_edges,
 )
-from repro_torch.distrib.engine import make_job, ring_sweep
+from repro_torch.distrib.engine import _gather, make_job, ring_sweep
 from repro_torch.distrib.sharding import (
     axis_groups,
     mesh_axis_size,
     ring_block_rows,
     shard_rows,
+    tier_sizes,
 )
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import BIG_I, NEG
@@ -300,6 +307,8 @@ def boruvka_mst_distributed(
     sweep: str = "auto",
     overlap: bool = True,
     compact: bool = True,
+    checkpoint=None,
+    pass_id: str = "boruvka_mst",
 ) -> MSTEdges:
     """Borůvka MST with the per-row edge search sharded over the mesh.
 
@@ -320,6 +329,13 @@ def boruvka_mst_distributed(
     (s,)-slot layout, bit-identical to merge='point' and to the resident
     ``boruvka_mst`` for the rounds run. 'point': the replicated point-level
     alignment.
+
+    checkpoint (merge='comp' only): a ``resilience.Checkpointer``; the round
+    loop snapshots its carry at every ``CHECK_EVERY`` host read after which
+    it continues, so a resume replays the uninterrupted run's rounds and
+    gives its edges bit for bit. Rank 0 writes the (replicated) snapshot;
+    it is deleted when the loop completes. ``pass_id`` names it in the
+    store.
     """
     if merge not in ("comp", "point"):
         raise ValueError(f"merge must be 'comp' or 'point', got {merge!r}")
@@ -333,21 +349,32 @@ def boruvka_mst_distributed(
         )
     if mode == "comp" and sweep != "bcast":
         mode = "comp_sharded"
+    if checkpoint is not None and mode not in ("comp", "comp_sharded"):
+        raise ValueError(
+            "checkpointed Borůvka requires merge='comp' (the comp-graph "
+            "carry is the snapshot unit)"
+        )
     s, d = xs.shape
     xs = l2_normalize(xs)
     pad = (-s) % mesh_axis_size(mesh, axes)
     xs_p = torch.cat([xs, xs.new_zeros((pad, d))]) if pad else xs
     rowid_p = torch.arange(s + pad, dtype=torch.int32, device=xs.device)
     job = _cand_job(mesh, axes, mode, overlap)
+    from repro_torch.resilience.checkpoint import RankCheckpointer
+
+    ck = RankCheckpointer.of(checkpoint, shared=True)
     edges, _ = _boruvka_rounds(
         job, mesh, axes, xs, xs_p, rowid_p, s, pad, _rounds_for(s), mode,
-        compact,
+        compact, ck, pass_id,
     )
+    if ck is not None:
+        ck.delete(pass_id)  # the loop completed
     return edges
 
 
 def _boruvka_rounds(
     job, mesh, axes, xs, xs_p, rowid_p, s, pad, rounds, mode, compact,
+    checkpoint=None, pass_id="boruvka_mst",
 ) -> tuple[MSTEdges, int]:
     """The host-chained round loop of ``boruvka_mst_distributed``.
 
@@ -375,7 +402,31 @@ def _boruvka_rounds(
     comp_l = sharded(padded(comp_all, -1)) if mode == "comp_sharded" else None
     eus, evs, ews, evalids = [], [], [], []
     rounds_run = 0
-    for r in range(rounds):
+    start_r = 0
+    ck_fp = None
+    if checkpoint is not None:
+        from repro_torch.resilience.checkpoint import carry_from_host, carry_to_host
+
+        # structural fingerprint (the reference's): the round schedule and
+        # every carry shape follow from these, and the shapes shrink per
+        # round, so a static string rather than carry_fingerprint
+        ck_fp = (
+            f"boruvka:{mode}:tiers{tier_sizes(mesh, axes)}:s{s}:d{xs.shape[1]}:pad{pad}"
+            f":compact{int(compact)}:ck{CHECK_EVERY}"
+        )
+        snap = checkpoint.load(pass_id, fingerprint=ck_fp)
+        if snap is not None:
+            carry = carry_from_host(snap["carry"], device=dev)
+            start_r = int(snap["chunk"]) + 1
+            rounds_run = start_r
+            comp_to_root, n_real = carry["comp_to_root"], carry["n_real"]
+            eus, evs = list(carry["eu"]), list(carry["ev"])
+            ews, evalids = list(carry["ew"]), list(carry["evalid"])
+            if mode == "comp_sharded":
+                comp_l = sharded(carry["comp"])
+            else:
+                comp_all = carry["comp"]
+    for r in range(start_r, rounds):
         rounds_run = r + 1
         cap = round_cap(s, r)
         if mode in ("comp", "comp_sharded"):
@@ -426,8 +477,20 @@ def _boruvka_rounds(
         # the done flag is computed on the device every round; the host reads
         # it every CHECK_EVERY rounds: a late exit costs at most
         # CHECK_EVERY - 1 no-op rounds, and the round count is deterministic
-        if ((r + 1) % CHECK_EVERY == 0 or r == rounds - 1) and bool(done):
-            break
+        if (r + 1) % CHECK_EVERY == 0 or r == rounds - 1:
+            if bool(done):
+                break
+            if checkpoint is not None:
+                # only when the loop goes on: a snapshot always names a round
+                # the uninterrupted run executes, so a resume replays it
+                comp = (
+                    _gather(comp_l, axis_groups(mesh, axes)) if mode == "comp_sharded"
+                    else comp_all
+                )
+                carry = {"comp": comp, "comp_to_root": comp_to_root, "n_real": n_real,
+                         "eu": eus, "ev": evs, "ew": ews, "evalid": evalids}
+                checkpoint.save(pass_id, chunk=r, carry_host=carry_to_host(carry),
+                                fingerprint=ck_fp)
     edges = MSTEdges(
         u=torch.cat(eus), v=torch.cat(evs), w=torch.cat(ews), valid=torch.cat(evalids)
     )

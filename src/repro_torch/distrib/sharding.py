@@ -96,15 +96,49 @@ def ring_block_rows(s: int, n_shards: int) -> int:
     return (s + ((-s) % n_shards)) // n_shards
 
 
+def mesh_device(mesh: DeviceMesh) -> torch.device:
+    """The device this rank computes on: its current CUDA device under a
+    NCCL mesh, else the CPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
 def shard_rows(mesh: DeviceMesh, axes: Sequence[str], x: torch.Tensor) -> torch.Tensor:
-    """This rank's row block of a full tensor (a view). The row count must
-    divide over the shards: pad first (``pad_rows_to_multiple``)."""
+    """This rank's row block of a full tensor or numpy array (a view). The
+    row count must divide over the shards: pad first
+    (``pad_rows_to_multiple``)."""
     n_shards = mesh_axis_size(mesh, axes)
     if x.shape[0] % n_shards:
         raise ValueError(f"{x.shape[0]} rows do not divide over {n_shards} shards")
     b = x.shape[0] // n_shards
     i = shard_index(mesh, axes)
     return x[i * b:(i + 1) * b]
+
+
+def check_stream_shardable(stream, mesh: DeviceMesh, axes: Sequence[str]) -> None:
+    """Streaming entry points shard each fixed-size chunk on arrival; the
+    chunk row count must divide over the data shards."""
+    n_shards = mesh_axis_size(mesh, axes)
+    if stream.chunk % n_shards:
+        raise ValueError(f"stream chunk {stream.chunk} must divide over {n_shards} shards")
+
+
+def shard_stream(stream, mesh: DeviceMesh, axes: Sequence[str]):
+    """The chunk stream as this rank sees it: every chunk cut to this rank's
+    row block on arrival (``shard_rows``; ``start`` stays the chunk's first
+    global row), so the streaming executor stages only this rank's rows
+    onto its device. It keeps the source's n, dim and chunk: snapshots and
+    fault triggers count the source's chunks."""
+    from repro_torch.text.stream import CorpusStream
+
+    check_stream_shardable(stream, mesh, axes)
+
+    def chunks():
+        for ch in stream.chunks():
+            yield ch._replace(x=shard_rows(mesh, axes, ch.x), w=shard_rows(mesh, axes, ch.w))
+
+    return CorpusStream(chunks, n=stream.n, dim=stream.dim, chunk=stream.chunk)
 
 
 def pad_rows_to_multiple(

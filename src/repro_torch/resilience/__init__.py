@@ -18,6 +18,7 @@ from repro_torch.resilience.checkpoint import (
     Checkpointer,
     DiskCheckpointer,
     MemoryCheckpointer,
+    RankCheckpointer,
     array_token,
     carry_fingerprint,
     carry_from_host,
@@ -37,6 +38,7 @@ __all__ = [
     "Checkpointer",
     "DiskCheckpointer",
     "MemoryCheckpointer",
+    "RankCheckpointer",
     "array_token",
     "carry_fingerprint",
     "carry_to_host",

@@ -34,6 +34,11 @@ tensors fingerprints as the same shapes in numpy would, and a tensor's token
 equals the token of the same numpy array. Tensor leaves are held on the host
 as numpy copies with their dtype and device (``_DeviceLeaf``) and walked by
 the port's own tree walk over dicts, tuples, NamedTuples and lists.
+
+``RankCheckpointer`` has no counterpart in the JAX package, whose single
+controller writes one snapshot of the whole mesh: under ``torch.distributed``
+every rank runs the driver, so it is the view of a store that one rank of
+the group uses (see its docstring).
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _FORMAT_VERSION = 1
 
@@ -377,3 +383,104 @@ class DiskCheckpointer(Checkpointer):
                     os.remove(os.path.join(self.directory, name))
                 except OSError:
                     pass
+
+
+class RankCheckpointer(Checkpointer):
+    """One rank's view of a store, for drivers that every rank of the
+    default ``torch.distributed`` group runs (SPMD).
+
+    Snapshots. A fold pass's carry is this rank's partial, so each rank
+    writes its own snapshot under the scope ``rank{r}``. A kill can land
+    between two ranks' writes and leave snapshots of different chunks, so
+    ``load`` is a collective: the ranks all-reduce the chunk of what they
+    loaded (-1 for none) to its min and max, and resume only if every rank
+    holds a snapshot of the same chunk; otherwise every rank cold-starts.
+    With ``shared=True`` the snapshot is replicated state (the distributed
+    Borůvka loop): rank 0 alone writes and deletes it, and ``load``
+    broadcasts rank 0's record.
+
+    Pass results are replicated: rank 0 alone writes and deletes them (two
+    writers would race on one file of a shared ``DiskCheckpointer``
+    directory), and ``load_result`` broadcasts rank 0's record, so every
+    rank takes the same branch even when each rank holds its own
+    ``MemoryCheckpointer``. Every call of ``load`` and ``load_result`` is a
+    collective of the whole group: every rank makes it, in the same order.
+    """
+
+    def __init__(self, parent: Checkpointer, *, shared: bool = False):
+        super().__init__(every=parent.every)
+        self.parent = parent
+        self.shared = shared
+        self.rank = dist.get_rank()
+
+    @classmethod
+    def of(cls, checkpoint: Checkpointer | None, *, shared: bool = False):
+        """``checkpoint`` as a RankCheckpointer (None stays None)."""
+        if checkpoint is None:
+            return None
+        if isinstance(checkpoint, RankCheckpointer):
+            checkpoint = checkpoint.parent
+        return cls(checkpoint, shared=shared)
+
+    def _own(self) -> Checkpointer:
+        return self.parent if self.shared else self.parent.scoped(f"rank{self.rank}")
+
+    def _writes(self) -> bool:
+        return not self.shared or self.rank == 0
+
+    def save(self, pass_id, *, chunk, carry_host, fingerprint, meta=None) -> None:
+        if self._writes():
+            self._own().save(pass_id, chunk=chunk, carry_host=carry_host,
+                             fingerprint=fingerprint, meta=meta)
+
+    def load(self, pass_id, *, fingerprint, meta=None):
+        if self.shared:
+            return _broadcast(
+                self.parent.load(pass_id, fingerprint=fingerprint, meta=meta)
+                if self.rank == 0 else None
+            )
+        snap = self._own().load(pass_id, fingerprint=fingerprint, meta=meta)
+        lo, hi = _agree(-1 if snap is None else int(snap["chunk"]))
+        return snap if lo == hi >= 0 else None
+
+    def delete(self, pass_id) -> None:
+        if self._writes():
+            self._own().delete(pass_id)
+
+    def save_result(self, pass_id, value, *, meta=None) -> None:
+        if self.rank == 0:
+            self.parent.save_result(pass_id, value, meta=meta)
+
+    def load_result(self, pass_id, *, meta=None, device=None):
+        state = (
+            self.parent._state(f"result/{pass_id}", pass_id, meta) if self.rank == 0 else None
+        )
+        state = _broadcast(state)
+        return None if state is None else carry_from_host(state["value"], device=device)
+
+    def delete_result(self, pass_id) -> None:
+        if self.rank == 0:
+            self.parent.delete_result(pass_id)
+
+    def scoped(self, prefix: str) -> "RankCheckpointer":
+        return RankCheckpointer(self.parent.scoped(prefix), shared=self.shared)
+
+
+def _broadcast(obj: Any) -> Any:
+    """Rank 0's ``obj`` on every rank of the default group."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _agree(chunk: int) -> tuple[int, int]:
+    """(min, max) of ``chunk`` over the default group: one MAX all-reduce of
+    (chunk, -chunk), on the card under NCCL."""
+    dev = (
+        torch.device("cuda", torch.cuda.current_device())
+        if dist.get_backend() == "nccl" else torch.device("cpu")
+    )
+    t = torch.tensor([chunk, -chunk], dtype=torch.int64, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    hi, neg_lo = (int(v) for v in t.cpu())
+    return -neg_lo, hi

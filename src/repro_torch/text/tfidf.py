@@ -1,12 +1,18 @@
 """TF-IDF weighting in the vector space model (paper §2: 'most of them are
 based on the vector space model representation with tf-idf weights').
 
-Single-device counterpart of the JAX package's ``text/tfidf.py``. The
-streaming (out-of-core) form is TWO passes over a ``text/stream.CorpusStream``:
-pass 1 folds (df, n) over chunks on the device, and pass 2 is a lazily
-mapped stream that rescales and L2-normalizes each chunk on the device as it
-arrives. df and n are integer-valued, so the chunked f32 fold is exact and
-the streamed rows equal the resident ``tfidf``'s bit for bit.
+Counterpart of the JAX package's ``text/tfidf.py``: the single-device entry
+point plus the distributed document-frequency job, where df is a per-rank
+partial summed across the data axes (the combiner discipline again: the
+reduce payload is (d,), not (n, d)).
+
+The streaming (out-of-core) form is TWO passes over a
+``text/stream.CorpusStream``: pass 1 folds (df, n) over chunks, on one
+device or through the engine's fold job on a mesh (one all-reduce for the
+whole pass), and pass 2 is a lazily mapped stream that rescales and
+L2-normalizes each chunk on the device as it arrives. df and n are
+integer-valued, so the chunked f32 fold is exact and the streamed rows equal
+the resident ``tfidf``'s bit for bit.
 """
 
 from __future__ import annotations
@@ -98,4 +104,60 @@ def tfidf_stream(
     df, n = df_stream(stream, device=dev, checkpoint=checkpoint, guard=guard)
     from repro_torch.text.stream import to_device
 
+    return stream.map(lambda c, w: _rescale(to_device(c, dev), df, n))
+
+
+# ------------------------------------------------------------------ mesh
+
+
+def _df_job_map(data, bcast):
+    """map+combine of the (df, n) job: this rank's weighted presence."""
+    df, n = _df_map(data["counts"], data["w"])
+    return {"df": df, "n": n}
+
+
+def tfidf_distributed(mesh, axes: tuple[str, ...], counts: torch.Tensor, w: torch.Tensor):
+    """Distributed tf-idf: one MapReduce job for (df, n), then a local
+    rescale. Each rank passes its row block of the counts and weights
+    (padding rows have w == 0) and gets its block of the rows."""
+    from repro_torch.distrib.engine import make_job
+
+    job = make_job(mesh, axes, _df_job_map, {"df": "sum", "n": "sum"}, name="tfidf_df")
+    stats = job({"counts": counts, "w": w}, {})
+    return _rescale(counts, stats["df"], stats["n"])
+
+
+def df_fold_distributed(mesh, axes: tuple[str, ...], stream) -> dict:
+    """Distributed pass 1: the engine's fold job. Each chunk is cut to the
+    rank's block and folded into the rank's (df, n); ONE all-reduce closes
+    the pass (not one per chunk). Pass id ``tfidf/df``. Returns {"df", "n"}
+    on the rank's device, replicated."""
+    from repro_torch.distrib.engine import make_fold_job
+    from repro_torch.distrib.sharding import mesh_device, shard_stream
+    from repro_torch.text.stream import run_pass, to_device
+
+    dev = mesh_device(mesh)
+    job = make_fold_job(mesh, axes, _df_job_map, {"df": "sum", "n": "sum"},
+                        name="tfidf_df_fold")
+
+    def fold(carry, ch, ci):
+        data = {"counts": to_device(ch.x, dev), "w": to_device(ch.w, dev)}
+        return job.step(carry, data, {})[0]
+
+    carry = run_pass(shard_stream(stream, mesh, axes), fold, None, copy_to=dev,
+                     pass_id="tfidf/df")
+    return job.finalize(carry)
+
+
+def tfidf_distributed_stream(mesh, axes: tuple[str, ...], stream):
+    """Streaming distributed tf-idf: the fold-job pass 1, then a lazily
+    mapped stream that rescales each chunk on the rank's device. Its chunks
+    are whole; the distributed drivers cut each to the rank's block on
+    arrival."""
+    from repro_torch.distrib.sharding import mesh_device
+    from repro_torch.text.stream import to_device
+
+    dev = mesh_device(mesh)
+    stats = df_fold_distributed(mesh, axes, stream)
+    df, n = stats["df"], stats["n"]
     return stream.map(lambda c, w: _rescale(to_device(c, dev), df, n))

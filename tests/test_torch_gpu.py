@@ -808,3 +808,53 @@ def test_kmeans_fit_stream_cut_and_resumed_bit_for_bit_on_card(card):
     assert got.iterations == iters and not ck._store
     for f in ("centers", "assignment", "best_sim", "rss", "objective"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_kmeans_distributed_stream_nccl_world_1_equals_single_device(card, tmp_path):
+    """kmeans_distributed_stream over a NCCL group of one rank (a FileStore:
+    no network), bounded and not, equals the single-device
+    kmeans_fit_stream on the same stream bit for bit: both fold the chunk
+    partials in chunk order, the collective is a copy, and both sum the
+    per-cluster squared norms for the RSS. Cut by a producer fault in
+    iteration 1 and resumed, it gives the same bits again."""
+    import torch.distributed as dist
+
+    from repro_torch.core.kmeans import kmeans_fit_stream
+    from repro_torch.distrib import cluster as dc
+    from repro_torch.distrib.sharding import make_flat_mesh
+    from repro_torch.resilience import MemoryCheckpointer
+    from repro_torch.testing import faults
+    from repro_torch.testing.faults import InjectedFault
+    from repro_torch.text.stream import CorpusStream
+
+    rng = np.random.default_rng(19)
+    c = rng.standard_normal((8, 96))
+    x = c[rng.integers(0, 8, 4000)] + 0.6 * rng.standard_normal((4000, 96))
+    x = (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+    st = CorpusStream.from_array(x, chunk=512)
+    init = interop.data(x[:8], card)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_flat_mesh()
+        fits = {}
+        for bounded in (True, False):
+            want = kmeans_fit_stream(st, init, 8, bounded=bounded)
+            got = fits[bounded] = dc.kmeans_distributed_stream(mesh, ("data",), st, init, 8,
+                                                               bounded=bounded)
+            assert got.iterations == want.iterations >= 2
+            for f in ("centers", "assignment", "rss", "objective"):
+                assert torch.equal(getattr(got, f), getattr(want, f)), (bounded, f)
+        got = fits[False]
+        ck = MemoryCheckpointer(every=2)
+        with faults.inject(f"raise@g{st.n_chunks + 3}"), pytest.raises(InjectedFault):
+            dc.kmeans_distributed_stream(mesh, ("data",), st, init, 8, checkpoint=ck)
+        ops.reset_launch_counts()
+        again = dc.kmeans_distributed_stream(mesh, ("data",), st, init, 8, checkpoint=ck)
+        assert ops.launch_counts()["assign_stats"] == (got.iterations + 1) * st.n_chunks - (
+            st.n_chunks + 2)
+        assert torch.equal(again.centers, got.centers) and torch.equal(again.rss, got.rss)
+        assert torch.equal(again.assignment, got.assignment) and not ck._store
+    finally:
+        dist.destroy_process_group()

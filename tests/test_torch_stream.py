@@ -437,7 +437,13 @@ def test_tfidf_stream_bits_hold_beside_other_passes_and_thread_counts(corpus):
         faults.clear()
 
 
-def test_prepare_synthetic_stream(corpus):
+def test_prepare_synthetic_stream(corpus, tmp_path):
+    """The single-device route, then the mesh route in a gloo group of one
+    rank: both give the resident tfidf's rows bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.distrib.sharding import make_flat_mesh
+
     prep = pipeline.prepare_synthetic_stream(
         n_docs=N, vocab=D, n_topics=TOPICS, seed=SEED, chunk=CHUNK, device="cpu"
     )
@@ -445,8 +451,15 @@ def test_prepare_synthetic_stream(corpus):
     np.testing.assert_array_equal(prep.labels, corpus[1])
     want = _np(tfidf.tfidf(torch.from_numpy(corpus[0])))
     assert prep.x.materialize().tobytes() == want.tobytes()
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        pipeline.prepare_synthetic_stream(n_docs=N, vocab=D, mesh=object(), device="cpu")
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh_prep = pipeline.prepare_synthetic_stream(
+            n_docs=N, vocab=D, n_topics=TOPICS, seed=SEED, chunk=CHUNK, mesh=make_flat_mesh()
+        )
+        assert mesh_prep.x.materialize().tobytes() == want.tobytes()
+    finally:
+        dist.destroy_process_group()
 
 
 # ------------------------------------------------------------------ stats fold
