@@ -3,7 +3,7 @@
 
 Run from the repository root, with no arguments:  python3 chip_smoke.py
 (``python3 chip_smoke.py --kernels`` runs phase 1 and phase 3's timings of
-sim_best_edge, component_best_edge, label_stats, assign_stats,
+sim_best_edge, component_best_edge, label_stats, assign_stats, best_edge,
 assign_argmax, assign_stats_bounded and flash_decode on random unit rows of
 the 1 GB shape, then Buckshot on the 1 GB collection (its RSS and a digest of
 its labels), and stops: copied into an older tree's root it times that
@@ -23,13 +23,17 @@ Phases, in order; any failure raises and exits non-zero:
      component; for component_best_edge f32.min rows, row-id ties on either
      side, ids -1 and c, c > r, -0.0 against +0.0, r = 0, and both grids
      (one block; the cooperative grid past its keys or rows, r = 200,000,
-     several calls in a row); for best_edge ties across warp steps and row
-     blocks, rows all in one component, -0.0, r = 0 and c = 0, the main
-     path's round-1 block xs @ xs.T and a block with round-2 labels, all with
-     torch.equal; for flash_decode lengths 0, 1, 511, 512, 513, 20,000, s and
-     s + 7 with g = 1, 3 and 4, and at g = 12, dh = 64, 256 and 30, in f32
-     within 2e-5 and in bf16 within one bf16 ulp of the plain value (for
-     the g = 12 and dh cases plus 16 f32 ulps, 2^-20, of the size of each
+     several calls in a row); for best_edge every alignment of a row start
+     (c = 4,097 to 4,100), c = 70,001 past the labels' staging in shared
+     memory, r = 1, 131, 132, 133 and 20,000 around the persistent grid,
+     ties across warp steps and row blocks, rows all in one component, -0.0,
+     rows of NaN and of -inf, a block and labels off 16 bytes, r = 0 and
+     c = 0, the main path's round-1 block xs @ xs.T and a block with round-2
+     labels, all with torch.equal (NaN equal to NaN); for flash_decode
+     lengths 0, 1, 511, 512, 513, 20,000, s and s + 7 with g = 1, 3 and 4,
+     and at g = 12, dh = 64, 256 and 30, in f32 within 2e-5 and in bf16
+     within one bf16 ulp of the plain value (for the g = 12 and dh cases
+     plus 16 f32 ulps, 2^-20, of the size of each
      output's terms, sum p|v| / sum p: an output that cancels far below its
      terms moves past a bf16 ulp by the logits' f32 rounding alone), and two
      equal calls around a call of another shape, so the ticket counters are
@@ -53,7 +57,8 @@ Phases, in order; any failure raises and exits non-zero:
      best_edge at the kernel
      bench's 2,000 x 2,000 block and the main path's 3,536 x 3,536, with the
      L2 cache flushed before each call by a 512 MB write (the kernels line)
-     and, beside it, by a 512 MB read, which leaves no dirty line; flash_decode at the kernel bench's
+     and, beside it, by a 512 MB read, which leaves no dirty line, with
+     torch.max(sim, 1) under both flushes; flash_decode at the kernel bench's
      cache, f32, and at llama3.2-3b's heads, bf16, length 20,000 of 32,768,
      with the kernel alone, profiled; label_stats at Buckshot's centers
      also with the L2 flushed and profiled, and the fold alone at
@@ -205,20 +210,26 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
 # ------------------------------------------------------------------ checks
 
 
-def check_equal(name, got, want):
+def same(a, b) -> bool:
+    """torch.equal, with NaN equal to NaN in the same place (best_edge
+    passes a row's first NaN on, as torch.amax does)."""
     import torch
 
+    if a.is_floating_point() and a.dtype == b.dtype and a.shape == b.shape:
+        return bool(((a == b) | (a.isnan() & b.isnan())).all())
+    return torch.equal(a, b)
+
+
+def check_equal(name, got, want):
     for i, (g, w) in enumerate(zip(got, want)):
-        if not torch.equal(g, w):
+        if not same(g, w):
             bad = (g != w).sum().item()
             raise AssertionError(f"{name}: output {i} differs in {bad} entries")
 
 
 def check_repeat(name, a, b):
-    import torch
-
     for i, (x, y) in enumerate(zip(a, b)):
-        if not torch.equal(x, y):
+        if not same(x, y):
             raise AssertionError(f"{name}: output {i} is not bit-identical on a repeat run")
 
 
@@ -1760,11 +1771,16 @@ def decode_inputs(name, dev):
 
 
 def phase_parity_best_edge(xs, dev) -> float:
-    """best_edge against its plain version with torch.equal, on integer and
-    float blocks: sizes off the tiles, ties across warp steps and row
-    blocks, rows all in one component, labels -1 on rows and columns,
-    -0.0 against +0.0, r = 0 and c = 0, the main path's round-1 block and a
-    block with round-2 labels. Each case runs twice and repeats its bits."""
+    """best_edge against its plain version with torch.equal (NaN equal to
+    NaN), on integer and float blocks: sizes off the tiles, every alignment
+    of a row start (c = 4,097 to 4,100), columns past the labels' staging in
+    shared memory (c = 70,001), rows fewer than, equal to and far more than
+    the persistent grid's blocks (r = 1, 131, 132, 133, 20,000), ties across
+    warp steps and row blocks, rows all in one component, labels -1 on rows
+    and columns, -0.0 against +0.0, rows of NaN and of -inf, a block and
+    labels that start off 16 bytes, r = 0 and c = 0, the main path's round-1
+    block and a block with round-2 labels. Each case runs twice and repeats
+    its bits."""
     import numpy as np
     import torch
 
@@ -1781,7 +1797,10 @@ def phase_parity_best_edge(xs, dev) -> float:
         check_equal(f"best_edge {name}", got, ref.best_edge(sim, lr, lc))
         return got
 
-    for r, c in [(300, 270), (1, 129), (33, 1), (13, 1000), (257, 4097), (0, 5), (5, 0)]:
+    shapes = [(300, 270), (1, 129), (33, 1), (13, 1000), (257, 4097), (0, 5), (5, 0),
+              (9, 4098), (9, 4099), (9, 4100), (5, 70_001), (131, 257), (132, 257),
+              (133, 257), (20_000, 257)]
+    for r, c in shapes:
         lr = interop.labels(rng.integers(-1, 5, size=r), dev)  # -1 = pad
         lc = interop.labels(rng.integers(-1, 5, size=c), dev)
         check(f"{r}x{c} integer", interop.data(rng.integers(-3, 4, size=(r, c)), dev), lr, lc)
@@ -1798,16 +1817,38 @@ def phase_parity_best_edge(xs, dev) -> float:
     j, _ = check("ties", sim, lr, lc)
     if j[[0, 69, 5, 9, 11]].tolist() != [300, 300, -1, -1, 0]:
         raise AssertionError(f"best_edge ties: {j[[0, 69, 5, 9, 11]].tolist()}")
+    # the same block and labels one float past a 16-byte boundary
+    off = [torch.empty((t.numel() + 1,), dtype=t.dtype, device=dev) for t in (sim, lc)]
+    off[0][1:], off[1][1:] = sim.flatten(), lc
+    check("ties, off 16 bytes", off[0][1:].view(r, c), lr, off[1][1:])
+    # every column a candidate: a row of -inf (column 0), -inf but one f32.min
+    # (none), NaN at 333 and 555 (333), NaN in a pad row and in a row of one
+    # component (none); with a pad column: -inf everywhere (none)
+    r, c = 6, 1003
+    sim = interop.data(rng.normal(size=(r, c)), dev)
+    sim[0] = sim[1] = sim[5] = -torch.inf
+    sim[1, 777] = ref.NEG
+    sim[2:5, 333] = sim[2:5, 555] = torch.nan
+    lr = torch.tensor([0, 0, 0, -1, 1, 0], dtype=torch.int32, device=dev)
+    lc = torch.ones((c,), dtype=torch.int32, device=dev)
+    j, v = check("NaN and -inf rows", sim[:5].contiguous(), lr[:5].contiguous(), lc)
+    lc[900] = -1
+    j5, _ = check("-inf with a pad column", sim[5:].contiguous(), lr[5:].contiguous(), lc)
+    if (j.tolist() + j5.tolist() != [0, -1, 333, -1, -1, -1] or v[0].item() != -torch.inf
+            or not v[2].isnan().item()):
+        raise AssertionError(f"best_edge NaN and -inf rows: {j.tolist()}, {v.tolist()}")
     s = xs.shape[0]
     ids = torch.arange(s, dtype=torch.int32, device=dev)
     sim = xs @ xs.T
     j1, _ = check("main path round 1", sim, ids, ids)
     comp = components_from_edges(s, ids, torch.where(j1 >= 0, j1, ids), j1 >= 0)
     check("main path round 2", sim, comp, comp)
-    log(f"phase 2 parity: best_edge equal to its plain version on every case (ties across warp "
-        f"steps and row blocks, pads, one component, -0.0, r = 0, c = 0, the main path's round-1 "
-        f"block and its round-2 labels: {int(torch.unique(comp).shape[0])} components), "
-        f"repeats bit-identical")
+    log(f"phase 2 parity: best_edge equal to its plain version on every case ({len(shapes)} "
+        f"shapes: every row alignment, c = 70,001 past the staged labels, r = 1 to 20,000 "
+        f"around the grid; ties across warp steps and row blocks, pads, one component, -0.0, "
+        f"NaN and -inf rows, a block and labels off 16 bytes, r = 0, c = 0, the main path's "
+        f"round-1 block and its round-2 labels: {int(torch.unique(comp).shape[0])} "
+        f"components), repeats bit-identical")
     return 0.0
 
 
@@ -1877,36 +1918,62 @@ def phase_timing_stream_kernels(xs, dev):
     and the bound, at the kernel bench's and the main path's shapes. Returns
     the rows of the kernels line (best_edge at the main path's block,
     flash_decode at the kernel bench's cache) and the others."""
+    rows = timing_best_edge(xs, dev)
+    rows.update(timing_flash_decode(dev))
+    return rows
+
+
+def timing_best_edge(xs, dev):
+    """best_edge at the kernel bench's 2,000 x 2,000 block and at
+    xs @ xs.T with round-1 labels: the kernel and torch.max(sim, 1) with the
+    L2 flushed before each call by a 512 MB write (the kernels line) and by a
+    512 MB read (the L2 left clean), the kernel back to back and alone
+    (profiled), the plain version and the bound. Only best_edge_cuda's
+    public signature: an older tree's kernel is timed the same way."""
     import torch
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.best_edge import best_edge_cuda
 
     rows = {}
+    one = torch.zeros((1, 1), device=dev), *(2 * [torch.zeros((1,), dtype=torch.int32, device=dev)])
+    floor = event_ms_cold(lambda: best_edge_cuda(*one), 30, flush_by="read")
     for name, (sim, lr, lc) in best_edge_inputs(xs, dev).items():
         r, c = sim.shape
+
+        def call():
+            return best_edge_cuda(sim, lr, lc)
+
+        def library():
+            return torch.max(sim, dim=1)
+
+        # bytes: the rows a candidate can come from (a pad row's answer
+        # needs none of its columns), both label vectors, both outputs
+        live = int((lr >= 0).sum())
         row = dict(
-            ms=event_ms_cold(lambda: best_edge_cuda(sim, lr, lc), 30),
+            ms=event_ms_cold(call, 30),
             plain_ms=event_ms_cold(lambda: ref.best_edge(sim, lr, lc), 10),
-            library_ms=event_ms_cold(lambda: torch.max(sim, dim=1), 30),
-            warm_ms=event_ms(lambda: best_edge_cuda(sim, lr, lc), 30),
-            bound=bound_ms(0.0, r * c * 4 + (r + c) * 4 + r * 8),
+            library_ms=event_ms_cold(library, 30),
+            warm_ms=event_ms(call, 30),
+            bound=bound_ms(0.0, live * c * 4 + (r + c) * 4 + r * 8),
+            profiled_ms=profiled_kernel_ms(call, 20, ("best_edge_rows",)),
+            clean_ms=event_ms_cold(call, 30, flush_by="read"),
+            library_clean_ms=event_ms_cold(library, 30, flush_by="read"),
+            read_ms=event_ms_cold(lambda: torch.amax(sim), 30, flush_by="read"),
         )
-        row["profiled_ms"] = profiled_kernel_ms(lambda: best_edge_cuda(sim, lr, lc), 20,
-                                                ("best_edge_rows",))
-        row["clean_ms"] = event_ms_cold(lambda: best_edge_cuda(sim, lr, lc), 30, flush_by="read")
         rows[f"best_edge {name}"] = row
         b = row["bound"][0]
         log(f"phase 3 timing best_edge {name} (L2 flushed before each call): kernel "
             f"{row['ms']:.4f} ms after a 512 MB write, {100 * b / row['ms']:.1f} % of the bound; "
             f"{row['clean_ms']:.4f} ms after a 512 MB read (the L2 left clean), "
             f"{100 * b / row['clean_ms']:.1f} % of the bound (back to back, L2 warm: "
-            f"{row['warm_ms']:.4f} ms; the kernel "
-            f"alone, profiled, L2 warm: {row['profiled_ms']:.4f} ms), plain "
-            f"{row['plain_ms']:.4f} ms, library torch.max(sim, dim=1) {row['library_ms']:.4f} ms "
-            f"(the unmasked row max only), bound {row['bound'][0]:.4f} ms ({row['bound'][1]}: "
-            f"{r}*{c}*4 B read, no arithmetic)")
-    rows.update(timing_flash_decode(dev))
+            f"{row['warm_ms']:.4f} ms; the kernel alone, profiled, L2 warm: "
+            f"{row['profiled_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, library "
+            f"torch.max(sim, dim=1) {row['library_ms']:.4f} ms after the write, "
+            f"{row['library_clean_ms']:.4f} ms after the read (the unmasked row max only), "
+            f"bound {b:.4f} ms ({row['bound'][1]}: {live}*{c}*4 B read, no arithmetic); "
+            f"after the read, torch.amax(sim) (one read of the block) {row['read_ms']:.4f} ms "
+            f"and the kernel on a 1 x 1 block (launch and events) {floor:.4f} ms")
     return rows
 
 
@@ -2732,9 +2799,9 @@ def timing_flash_decode(dev):
 def kernels_only(dev) -> None:
     """``--kernels``: phase 1, then phase 3's timings of sim_best_edge (the
     self-search and the full grid), component_best_edge (round 1 of that
-    search), label_stats, assign_stats (k = 50), assign_argmax (k = 400),
-    assign_stats_bounded (BigK = 800, the five settings of phase_timing_bkc)
-    and flash_decode, on random unit rows of the 1 GB shape, without the
+    search), label_stats, assign_stats (k = 50), best_edge (2,000 x 2,000
+    and xs @ xs.T), assign_argmax (k = 400), assign_stats_bounded (BigK =
+    800, the five settings of phase_timing_bkc) and flash_decode, on random unit rows of the 1 GB shape, without the
     paths; last Buckshot on the 1 GB collection, its RSS and a digest of its
     labels: the tool for timing two trees' kernels in one call. It uses only
     the wrappers' and ops' public signatures, so it also times an older
@@ -2756,6 +2823,7 @@ def kernels_only(dev) -> None:
     log(f"phase 3 timing assign_stats (k={K}): kernel {r['ms']:.4f} ms, plain "
         f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
         f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    timing_best_edge(xs, dev)
     del xs
     phase_timing_bkc(x, bkc_state(x, dev), dev)
     del x

@@ -607,9 +607,14 @@ def test_boruvka_distributed_nccl_world_1_matches_resident(card, tmp_path):
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("r,c", [(300, 270), (1, 129), (33, 1), (2000, 2000), (0, 5), (5, 0)])
+@pytest.mark.parametrize("r,c", [(300, 270), (1, 129), (33, 1), (2000, 2000), (0, 5), (5, 0),
+                                 (7, 4097), (7, 4098), (7, 4099), (7, 4100), (5, 70_001),
+                                 (131, 257), (132, 257), (133, 257), (20_000, 257)])
 def test_best_edge_matches_plain(card, r, c):
-    """Exact on integer and on float blocks: the kernel only compares."""
+    """Exact on integer and on float blocks: the kernel only compares. The
+    shapes take every alignment of a row start (c = 4,097 to 4,100), the
+    labels past what shared memory stages (c = 70,001), and rows fewer than,
+    equal to and far more than the persistent grid's blocks."""
     rng = np.random.default_rng(r + c)
     lr = interop.labels(rng.integers(-1, 5, size=r), card)
     lc = interop.labels(rng.integers(-1, 5, size=c), card)
@@ -632,6 +637,26 @@ def test_best_edge_ties_and_signed_zeros(card):
     _equal(got, ref.best_edge(sim, lr, lc))
     assert got[0][0] == 40 and got[0][1] == 0 and got[0][2] == -1 and got[0][3] == -1
     assert got[1][2] == ref.NEG
+    # the same block and labels one float past a 16-byte boundary
+    sim_off = torch.empty((r * c + 1,), device=card)
+    lc_off = torch.empty((c + 1,), dtype=torch.int32, device=card)
+    sim_off[1:], lc_off[1:] = sim.flatten(), lc
+    _equal(_twice(best_edge_cuda, sim_off[1:].view(r, c), lr, lc_off[1:]), got)
+    # every column a candidate: all -inf (column 0), -inf but one f32.min
+    # (none), NaN at 333 and 555 (the first), NaN in a pad row and in a row
+    # of the columns' component (none)
+    sim = torch.randn((5, 1003), generator=torch.Generator().manual_seed(5)).to(card)
+    sim[0] = sim[1] = -torch.inf
+    sim[1, 777] = ref.NEG
+    sim[2:, 333] = sim[2:, 555] = torch.nan
+    lr = torch.tensor([0, 0, 0, -1, 1], dtype=torch.int32, device=card)
+    lc = torch.ones((1003,), dtype=torch.int32, device=card)
+    got, again = best_edge_cuda(sim, lr, lc), best_edge_cuda(sim, lr, lc)
+    for g, a, w in zip(got, again, ref.best_edge(sim, lr, lc)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+        torch.testing.assert_close(a, g, rtol=0, atol=0, equal_nan=True)
+    assert got[0].tolist() == [0, -1, 333, -1, -1]
+    assert got[1][0] == -torch.inf and got[1][2].isnan()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -22,6 +22,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.assign_stats import label_stats_pallas
+from repro.kernels.best_edge import best_edge_pallas
 from repro.kernels.flash_decode import flash_decode_pallas
 from repro_torch import interop
 from repro_torch.kernels import _build, ops, ref
@@ -158,12 +159,30 @@ def test_label_stats_plain_versions_match_pallas_interpret(rng, case, weighted):
 # ------------------------------------------------------------------ best edge
 
 
-@pytest.mark.parametrize("r,c", [(5, 9), (130, 70), (64, 300)])
+@pytest.mark.parametrize("r,c", [(5, 9), (130, 70), (64, 300), (3, 4097), (7, 1023), (2, 70_001)])
 def test_best_edge_matches_jax(rng, r, c):
     sim = _ints(rng, (r, c), -3, 3)  # ties everywhere
     lr = rng.integers(-1, 4, size=r).astype(np.int32)  # -1 = pad
     lc = rng.integers(-1, 4, size=c).astype(np.int32)
     want = jref.best_edge(sim, lr, lc)
+    _same(ref.best_edge(_t(sim), _t(lr), _t(lc)), want, exact=True)
+
+
+@pytest.mark.parametrize("r,c", [(257, 513), (33, 7), (300, 260)])
+def test_best_edge_plain_version_matches_pallas_interpret(rng, r, c):
+    """The plain version the card's tests trust, against the Pallas kernel
+    at shapes off its 256 x 256 tiles: ties everywhere (across column
+    tiles too), pad rows and columns, a row all in the columns' component."""
+    sim = _ints(rng, (r, c), -3, 3)
+    sim[:, c // 2] = sim[:, c - 1] = 4  # the row max twice, in two column tiles at c > 256
+    lr = rng.integers(-1, 4, size=r).astype(np.int32)
+    lc = rng.integers(-1, 4, size=c).astype(np.int32)
+    lc[c // 2] = 3
+    lr[0] = 3  # column c // 2 is in row 0's component: c - 1 or another wins
+    lc[c - 1] = 0
+    want = best_edge_pallas(jnp.asarray(sim), jnp.asarray(lr), jnp.asarray(lc), interpret=True)
+    for a, b in zip(want, jref.best_edge(sim, lr, lc)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     _same(ref.best_edge(_t(sim), _t(lr), _t(lc)), want, exact=True)
 
 
