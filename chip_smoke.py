@@ -129,6 +129,25 @@ Phases, in order; any failure raises and exits non-zero:
      regenerates the multinomial draws on the host, and the whole 1 GB
      corpus takes 22-28 s to generate, so at full size its ~20 passes would
      not fit the smoke's time.
+     Then the online service (repro_torch.serve.ClusterService) on the card
+     at the 20 Newsgroups shape (20,000 docs, 20 topics, seed 20), each count
+     row written as a text of tokens t{j}, dim = 2,048, k = 20, chunks of
+     4,096, micro-batches of 64, a queue of 256 rows, s = sqrt(kn), 3 K-Means
+     iterations: (a) 300 serial requests of 64 docs, each answer equal to
+     assign_batch on the same rescaled rows under the served model bit for
+     bit, the labels equal to the plain version's on the CPU but at near-ties
+     within 1e-5; (b) 8 caller threads sending requests of 8 docs while
+     ingest (batches of 500 of a drifted corpus, seed 21, tokens u{j}, until
+     the detector trips, and two more) and the refit run, each answer equal
+     to that oracle under the version that served it; (c) the swapped
+     centers equal to an offline buckshot_stream on the card over base +
+     absorbed rows with the refit's generator, bit for bit, version 1
+     serving. Printed: assign p50/p99 idle and during the refit, assign_batch
+     alone on 64 rows (median of 300), the fit's and refit's seconds, ingest
+     docs/s, the launches of fit, assign, ingest and the refit's window; then
+     the refit's K-Means bounded against unbounded on the combined rows held
+     in host memory (from its Buckshot centers and from the live centers,
+     with the pruned share per pass) and its buckshot_stream both ways.
   5. End-to-end oracles at the 20 Newsgroups shape: Buckshot (k = 20) and BKC
      (Table 1: k = 50, BigK = 250) on the card against the plain path on the
      CPU, on the same draws; BKC also on that collection with 5 % off-topic
@@ -155,7 +174,9 @@ reason.
 
 from __future__ import annotations
 
+import collections
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -2703,6 +2724,319 @@ def phase_stream_regen(dev):
 # ------------------------------------------------------ the redesign slice
 
 
+# ------------------------------------------------------------ the online service
+
+SERVE_DIM, SERVE_CHUNK = 2048, 4096  # the service's hashing width and stream chunk
+DRIFT_BATCH = 500  # docs per ingest batch
+
+
+def corpus_texts(counts, prefix: str) -> list[str]:
+    """Each count row as a text: the token f"{prefix}{j}" repeated by the
+    row's count of term j."""
+    import numpy as np
+
+    texts = []
+    for row in counts:
+        cols = np.nonzero(row)[0]
+        texts.append(" ".join(" ".join([f"{prefix}{j}"] * int(row[j])) for j in cols))
+    return texts
+
+
+def p50_p99_ms(lat) -> str:
+    import numpy as np
+
+    if not lat:
+        return "no requests"
+    a = np.asarray(lat, np.float64) * 1e3
+    return f"p50 {np.percentile(a, 50):.3f} ms, p99 {np.percentile(a, 99):.3f} ms ({a.size} requests)"
+
+
+def delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def serve_oracle(model, docs, max_batch, dev):
+    """What the service must answer for ``docs`` served alone under
+    ``model``: assign_batch on the rescaled rows of its zero-padded
+    ``max_batch`` slab. Returns host (idx, best_sim) and the rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.kmeans import assign_batch
+    from repro_torch.text import hashing, tfidf
+
+    counts = hashing.vectorize(docs, model.df.shape[0])
+    m = counts.shape[0]
+    slab = np.zeros((max_batch, counts.shape[1]), np.float32)
+    slab[:m] = counts
+    x = tfidf._rescale(torch.from_numpy(slab).to(dev), model.df, model.n_docs)
+    idx, sim = assign_batch(x, model.centers, index=model.index)
+    return idx[:m].cpu().numpy(), sim[:m].cpu().numpy(), x[:m]
+
+
+def phase_serve(card: str, dev, shape=None, requests: int = 300, drift_docs: int = 5000):
+    """The online clustering service (repro_torch.serve) at the paper's 20
+    Newsgroups shape: fit, 300 serial assigns (a), assigns from 8 threads
+    while ingest and the drift-triggered refit run (b), the swapped centers
+    against an offline buckshot_stream (c), then the refit's K-Means bounded
+    against unbounded. The launch counts are set to 0 before the fit and
+    read after each endpoint; the oracles' launches are left out."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.buckshot import buckshot_stream
+    from repro_torch.core.kmeans import assign_batch, kmeans_fit_stream
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ClusterService, ServiceConfig
+    from repro_torch.serve.cluster_service import draw_generator
+    from repro_torch.text import synth, tfidf
+    from repro_torch.text.stream import CorpusStream
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    shape = shape or synth.paper_20ng_shape()
+    seed = shape["seed"]
+    t = time.perf_counter()
+    base = corpus_texts(synth.make_corpus(**shape).counts, "t")
+    drift_shape = {**shape, "n_docs": drift_docs, "seed": seed + 1}
+    drifted = corpus_texts(synth.make_corpus(**drift_shape).counts, "u")
+    log(f"phase 4 serve set-up: {len(base)} base and {len(drifted)} drifted texts in "
+        f"{time.perf_counter() - t:.1f} s")
+    # validate_slack: any finite candidate swaps, as in the reference's
+    # determinism tests (the RSS gate has its own tests); both RSS are printed
+    cfg = ServiceConfig(k=shape["n_topics"], dim=SERVE_DIM, chunk=SERVE_CHUNK,
+                        max_batch=BATCH, queue_cap=256, sample_size=None, kmeans_iters=3,
+                        validate_slack=100.0)
+    path = dict.fromkeys(ops.launch_counts(), 0)  # the service's own launches
+
+    def add(part):
+        for k, v in part.items():
+            path[k] += v
+
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    svc = ClusterService.fit(base, seed, config=cfg, device=dev)
+    sync()
+    t_fit = time.perf_counter() - t
+    fit_counts = ops.launch_counts()
+    add(fit_counts)
+    try:
+        m0 = svc.model
+        if m0.centers.device.type != dev.type or (cfg.bounded and dev.type == "cuda"
+                                                    and m0.index is None):
+            raise AssertionError("serve: the model is not on the card with its index")
+        log(f"phase 4 serve fit ({card}): n={len(base)} k={cfg.k} dim={cfg.dim} "
+            f"chunk={cfg.chunk}: {t_fit:.3f} s, rss {m0.rss}, launches {fit_counts}")
+
+        # (a) serial requests of BATCH docs at version 0
+        c = ops.launch_counts()
+        answers = []
+        for r in range(requests):
+            lo = (r * BATCH) % (len(base) - BATCH)
+            docs = base[lo:lo + BATCH]
+            answers.append((docs, svc.assign(docs)))
+        assign_counts = delta(ops.launch_counts(), c)
+        add(assign_counts)
+        rows, got = [], []
+        for docs, out in answers:
+            idx, sim, x = serve_oracle(m0, docs, cfg.max_batch, dev)
+            if out.version != 0 or not np.array_equal(out.idx, idx) \
+                    or out.best_sim.tobytes() != sim.tobytes():
+                raise AssertionError("serve (a): an answer differs from assign_batch")
+            rows.append(x.cpu())
+            got.append(torch.from_numpy(out.idx))
+        xc, cc = torch.cat(rows), m0.centers.cpu()
+        pidx, psim = assign_batch(xc, cc)  # the plain version, on the CPU
+        sims = xc @ cc.T
+        near = check_argmax("serve (a) labels against the plain version", torch.cat(got), None,
+                            pidx, psim, lambda r, k: sims[r, k])
+        # micro-batch latency: assign_batch alone on one request's rows
+        x64 = serve_oracle(m0, answers[0][0], cfg.max_batch, dev)[2]
+        ab = []
+        for _ in range(requests):
+            sync()
+            t = time.perf_counter()
+            assign_batch(x64, m0.centers, index=m0.index)
+            sync()
+            ab.append(time.perf_counter() - t)
+        log(f"phase 4 serve (a) ({card}): {requests} serial requests of {BATCH} docs equal "
+            f"assign_batch bit for bit; labels equal the plain version's but {near} near-ties "
+            f"of {xc.shape[0]}; assign idle {p50_p99_ms([o.latency_s for _, o in answers])}; "
+            f"assign_batch alone on {BATCH} rows {p50_p99_ms(ab)}; launches {assign_counts}")
+
+        # one ingest batch of in-distribution docs, alone
+        ingested = list(base[:DRIFT_BATCH])
+        c = ops.launch_counts()
+        t = time.perf_counter()
+        rec = svc.ingest(ingested)
+        t_ing = [time.perf_counter() - t]
+        ingest_counts = delta(ops.launch_counts(), c)
+        add(ingest_counts)
+        if rec.drift or rec.idx.shape != (DRIFT_BATCH,):
+            raise AssertionError("serve: an in-distribution batch tripped the drift detector")
+
+        # (b) 8 caller threads of 8-doc requests while ingest and the refit run
+        stop = threading.Event()
+        results, errors = [], []
+
+        def caller(i):
+            j = 0
+            while not stop.is_set():
+                lo = (1000 * i + 8 * j) % (len(base) - 8)
+                docs = base[lo:lo + 8]
+                try:
+                    out = svc.assign(docs, deadline=120.0)
+                    results.append((docs, out, time.monotonic() - out.latency_s))
+                except BaseException as e:  # noqa: BLE001
+                    errors.append(e)
+                    return
+                j += 1
+
+        c = ops.launch_counts()
+        callers = [threading.Thread(target=caller, args=(i,)) for i in range(8)]
+        for th in callers:
+            th.start()
+        time.sleep(0.5)
+        rid, batches = None, 0
+        while rid is None:
+            if batches * DRIFT_BATCH >= len(drifted):
+                raise AssertionError("serve (b): the drifted corpus never tripped the detector")
+            docs = drifted[batches * DRIFT_BATCH:(batches + 1) * DRIFT_BATCH]
+            t = time.perf_counter()
+            rec = svc.ingest(docs)
+            t_ing.append(time.perf_counter() - t)
+            ingested += docs
+            batches += 1
+            rid = rec.refit_id
+        t_refit0 = time.monotonic()
+        during = 0
+        for _ in range(2):  # ingest goes on while the refit runs
+            docs = drifted[batches * DRIFT_BATCH:(batches + 1) * DRIFT_BATCH]
+            if not docs:
+                break
+            t = time.perf_counter()
+            svc.ingest(docs)
+            t_ing.append(time.perf_counter() - t)
+            ingested += docs
+            batches += 1
+            during += 1
+        if not svc.refit_wait(rid, timeout=600.0):
+            raise AssertionError("serve (b): the refit did not end")
+        t_refit1 = time.monotonic()
+        time.sleep(0.5)  # requests at the new version
+        stop.set()
+        for th in callers:
+            th.join()
+        window = delta(ops.launch_counts(), c)
+        add(window)
+        refits = dict(svc._refits)
+        m1 = svc.model
+        if errors or m1.version != 1 or refits.get("swapped") != 1:
+            raise AssertionError(f"serve (b): errors {errors[:3]}, refits {refits}, "
+                                 f"version {m1.version}")
+        models = {0: m0, 1: m1}
+        for docs, out, _ in results:
+            idx, sim, _ = serve_oracle(models[out.version], docs, cfg.max_batch, dev)
+            if not np.array_equal(out.idx, idx) or out.best_sim.tobytes() != sim.tobytes():
+                raise AssertionError("serve (b): an answer differs from its version's oracle")
+        in_refit = [o.latency_s for _, o, s in results if t_refit0 <= s <= t_refit1]
+        versions = collections.Counter(o.version for _, o, _ in results)
+        n_ing = DRIFT_BATCH * (len(t_ing) - 1)
+        log(f"phase 4 serve (b) ({card}): {len(results)} requests of 8 docs from 8 threads "
+            f"(versions {dict(versions)}) equal their version's oracle bit for bit; assign "
+            f"during the refit {p50_p99_ms(in_refit)}; refit {t_refit1 - t_refit0:.3f} s "
+            f"(from the tripping batch, {batches} drifted batches, {during} during the refit; "
+            f"refits {refits}); ingest alone {DRIFT_BATCH / t_ing[0]:.0f} docs/s, beside the "
+            f"callers and the refit {n_ing / sum(t_ing[1:]):.0f} docs/s over {len(t_ing) - 1} "
+            f"batches of {DRIFT_BATCH}; launches: ingest alone {ingest_counts}, the window "
+            f"(refit + {during + batches} ingests + assigns) {window}")
+
+        # (c) the swapped centers against an offline buckshot_stream
+        absorbed = svc._absorbed
+        stream = CorpusStream.from_texts(base + ingested[:absorbed], dim=cfg.dim,
+                                         chunk=cfg.chunk)
+        xs = tfidf.tfidf_stream(stream, device=dev)
+        t = time.perf_counter()
+        res = buckshot_stream(xs, cfg.k, draw_generator(seed, rid), kmeans_iters=3, tol=0.0,
+                              device=dev, bounded=True)
+        sync()
+        t_off = time.perf_counter() - t
+        if not torch.equal(res.kmeans.centers, m1.centers):
+            raise AssertionError("serve (c): the swapped centers differ from buckshot_stream")
+        old_rss = float(kmeans_fit_stream(xs, m0.centers, cfg.k, max_iters=0).rss)
+        log(f"phase 4 serve (c) ({card}): swapped centers equal an offline buckshot_stream "
+            f"over {stream.n} docs bit for bit ({t_off:.3f} s on the regenerated stream); "
+            f"version {m1.version} serves; RSS on the combined stream: swapped {m1.rss}, "
+            f"old centers {old_rss}")
+    finally:
+        svc.close()
+    missing = [k for k in ("sim_best_edge", "label_stats", "assign_stats", "assign_argmax",
+                           "assign_stats_bounded") if path[k] == 0]
+    if dev.type == "cuda" and (missing or assign_counts["assign_stats_bounded"] != requests
+                               or ingest_counts["assign_stats"] != 1):
+        raise AssertionError(f"serve: the path did not go through its kernels: {path}, "
+                             f"assign {assign_counts}, ingest {ingest_counts}")
+    log(f"phase 4 serve launches ({card}): {path}")
+    serve_bounded_decision(card, dev, xs, res, m0, cfg.k, lambda: draw_generator(seed, rid), sync)
+
+
+def serve_bounded_decision(card, dev, xs, res, m0, k, draws, sync):
+    """The refit's K-Means bounded against unbounded, on the combined
+    stream's tf-idf rows held in host memory (no hashing in the way): from
+    the refit's own Buckshot initial centers and warm-started from the live
+    centers, 3 iterations each, five times each way in turns, with the
+    pruned share per pass; and buckshot_stream itself."""
+    import torch
+
+    from repro_torch.core.buckshot import buckshot_stream
+    from repro_torch.core.kmeans import kmeans_fit_stream
+    from repro_torch.text.stream import CorpusStream
+
+    def median(runs):
+        return statistics.median(r[0] for r in runs)
+
+    hs = CorpusStream.from_array(xs.materialize(), chunk=xs.chunk)
+    for label, init in (("refit init", res.init_centers), ("live centers", m0.centers)):
+        runs = {True: [], False: []}
+        for bounded in (True, False) * 5:
+            prof = {}
+            sync()
+            t = time.perf_counter()
+            km = kmeans_fit_stream(hs, init, k, max_iters=3, tol=0.0, bounded=bounded,
+                                   profile=prof)
+            sync()
+            runs[bounded].append((time.perf_counter() - t, km, prof.get("prune_rate")))
+        kb, ku = runs[True][0][1], runs[False][0][1]
+        if not (torch.equal(kb.centers, ku.centers) and torch.equal(kb.assignment, ku.assignment)):
+            raise AssertionError(f"serve K-Means ({label}): bounded and unbounded differ")
+        log(f"phase 4 serve K-Means from the {label} ({card}), {hs.n} rows in {hs.n_chunks} "
+            f"host chunks, {kb.iterations} iterations: bounded "
+            f"{[round(r[0], 4) for r in runs[True]]} s, unbounded "
+            f"{[round(r[0], 4) for r in runs[False]]} s (medians {median(runs[True]):.4f} and "
+            f"{median(runs[False]):.4f} s); pruned share per pass "
+            f"{[round(p, 4) for p in runs[True][0][2]]}")
+    walls = {True: [], False: []}
+    for bounded in (True, False) * 5:
+        sync()
+        t = time.perf_counter()
+        r = buckshot_stream(hs, k, draws(), kmeans_iters=3, tol=0.0, device=dev,
+                            bounded=bounded)
+        sync()
+        walls[bounded].append(time.perf_counter() - t)
+        if bounded:
+            want = r.kmeans.centers
+        elif not torch.equal(r.kmeans.centers, want):
+            raise AssertionError("serve buckshot_stream: bounded and unbounded differ")
+    log(f"phase 4 serve buckshot_stream on the host rows ({card}): bounded "
+        f"{[round(w, 4) for w in walls[True]]} s, unbounded {[round(w, 4) for w in walls[False]]} s "
+        f"(medians {statistics.median(walls[True]):.4f} and "
+        f"{statistics.median(walls[False]):.4f} s)")
+
+
 def timing_label_stats(x, xs, labels, dev):
     """label_stats at Buckshot's centers (3,536 x 2,048, k = 50): back to
     back, with the L2 flushed before each call, the two kernels alone
@@ -2908,6 +3242,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_stream_regen(dev)
     log(f"phase 4 streaming paths took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_serve(card, dev)
+    log(f"phase 4 serve took {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     phase_oracle(dev)
     phase_oracle_bkc(dev)

@@ -10,6 +10,13 @@ one nvcc process per source. Only sources in the repository are compiled.
 
 Every C entry returns ``cudaGetLastError()`` after its launches, and
 ``check(err, name)`` raises when it is not 0.
+
+Kernel calls may come from several threads at once (the online service's
+assign worker, its callers' ``ingest`` and its refit). A wrapper that keeps
+buffers per device holds ``device_lock(index)`` from taking them to the
+return of the C entry that enqueues its launches on them, so two calls never
+interleave their launches on one buffer; every wrapper adds to its launch
+count under ``COUNT_LOCK``.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from functools import cache
 from pathlib import Path
 
@@ -34,8 +42,27 @@ SOURCES = (
     "sim_best_edge", "label_stats", "assign_stats", "assign_argmax",
     "assign_stats_bounded", "component_reduce", "best_edge", "flash_decode",
 )
+# debug builds, for tests only: library -> (source, extra nvcc flags).
+# label_stats_delay issues each odd ring stage's copies of the fold after the
+# next stage's and after a pause, so a later stage's copies land first.
+VARIANTS = {
+    "label_stats_delay": ("label_stats", ("-DREPRO_FOLD_DELAY_STAGES=1",)),
+}
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+_device_locks: dict[int, threading.Lock] = {}
+_device_locks_guard = threading.Lock()
+COUNT_LOCK = threading.Lock()
+
+
+def device_lock(index: int) -> threading.Lock:
+    """The lock of the wrappers' held buffers on CUDA device ``index``."""
+    lock = _device_locks.get(index)
+    if lock is None:
+        with _device_locks_guard:
+            lock = _device_locks.setdefault(index, threading.Lock())
+    return lock
 
 
 def _nvcc() -> str:
@@ -79,8 +106,9 @@ def build(names: tuple[str, ...] = SOURCES) -> dict[str, Path]:
     for name, path in paths.items():
         if path.exists():
             continue
+        source, flags = VARIANTS.get(name, (name, ()))
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(CSRC / f"{source}.cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))
@@ -98,14 +126,18 @@ def build(names: tuple[str, ...] = SOURCES) -> dict[str, Path]:
 
 def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     """Load ``lib<name>.so`` (building it first if needed) and declare the
-    argument types of its C entries; every entry returns int."""
+    argument types of its C entries; every entry returns int. The first
+    call builds and loads under a lock, so threads share one build."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build((name,))[name]))
-        for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _loaded[name] = lib
+        with _load_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                lib = ctypes.CDLL(str(build((name,))[name]))
+                for fn, argtypes in signatures.items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+                _loaded[name] = lib
     return lib
 
 

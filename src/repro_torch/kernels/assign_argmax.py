@@ -45,5 +45,6 @@ def assign_argmax_cuda(
         best_sim.data_ptr(), scratch.data_ptr() or None, _build.stream(x),
     )
     _build.check(err, "assign_argmax")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return idx, best_sim

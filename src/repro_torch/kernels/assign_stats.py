@@ -5,6 +5,13 @@ pass pruned by carried bounds and by the slabs' cone bounds).
 
 Counterpart of the JAX package's ``kernels/assign_stats.py``. ``launches``
 counts, per kernel, the calls that launched it.
+
+The three kernels fold through one partials buffer per device. A call holds
+the device's lock (``_build.device_lock``) from taking the buffer to the
+return of its C entry, which enqueues the fold and the reduce of the
+partials: calls from several threads then enqueue their launches one call
+after another, never a fold of one between the fold and the reduce of
+another.
 """
 
 from __future__ import annotations
@@ -40,6 +47,13 @@ _SIGNATURES = {
 }
 
 
+def _count(name: str) -> None:
+    from repro_torch.kernels import _build
+
+    with _build.COUNT_LOCK:
+        launches[name] += 1
+
+
 def _lib(name: str):
     from repro_torch.kernels import _build
 
@@ -71,7 +85,7 @@ _workspace: dict[int, tuple[int, torch.Tensor]] = {}
 def _scratch(name: str, n: int, k: int, d: int, dev: torch.device, stream: int):
     """The fold's partials: (chunks, k, d) sums, then (chunks, 3, k) scalars,
     in one buffer per device. Returns (chunks, buf, part, part_k); the
-    caller holds ``buf`` until its launch is enqueued.
+    caller holds the device's lock and ``buf`` until its launch is enqueued.
 
     The buffer lives until a call on another stream, or a larger call,
     replaces it: calls on one stream run in order, so each reuses it. It is
@@ -109,15 +123,16 @@ def label_stats_cuda(
     wp = _weights(w, n, dev)
     lib = _lib("label_stats")
     stream = _build.stream(x)
-    chunks, buf, part, part_k = _scratch("label_stats", n, k, d, dev, stream)
     sums = torch.empty((k, d), dtype=torch.float32, device=dev)
     counts = torch.empty((k,), dtype=torch.float32, device=dev)
-    err = lib.label_stats(
-        x.data_ptr(), idx.data_ptr(), wp, n, d, k, chunks, part, part_k,
-        sums.data_ptr(), counts.data_ptr(), stream,
-    )
+    with _build.device_lock(dev.index):
+        chunks, buf, part, part_k = _scratch("label_stats", n, k, d, dev, stream)
+        err = lib.label_stats(
+            x.data_ptr(), idx.data_ptr(), wp, n, d, k, chunks, part, part_k,
+            sums.data_ptr(), counts.data_ptr(), stream,
+        )
     _build.check(err, "label_stats")
-    launches["label_stats"] += 1
+    _count("label_stats")
     return sums, counts
 
 
@@ -137,7 +152,6 @@ def assign_stats_cuda(
     wp = _weights(w, n, dev)
     lib = _lib("assign_stats")
     stream = _build.stream(x)
-    chunks, buf, part, part_k = _scratch("assign_stats", n, k, d, dev, stream)
     idx = torch.empty((n,), dtype=torch.int32, device=dev)
     best_sim = torch.empty((n,), dtype=torch.float32, device=dev)
     rowsq = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -147,14 +161,16 @@ def assign_stats_cuda(
     sumsq = torch.empty((k,), dtype=torch.float32, device=dev)
     # the center tiles' winners, merged by launch 1's second kernel
     tile = torch.empty((n * lib.assign_stats_scratch(k),), dtype=torch.float32, device=dev)
-    err = lib.assign_stats(
-        x.data_ptr(), centers.data_ptr(), wp, n, d, k, chunks,
-        idx.data_ptr(), best_sim.data_ptr(), rowsq.data_ptr(), part,
-        part_k, tile.data_ptr() or None, sums.data_ptr(), counts.data_ptr(),
-        min_sim.data_ptr(), sumsq.data_ptr(), stream,
-    )
+    with _build.device_lock(dev.index):
+        chunks, buf, part, part_k = _scratch("assign_stats", n, k, d, dev, stream)
+        err = lib.assign_stats(
+            x.data_ptr(), centers.data_ptr(), wp, n, d, k, chunks,
+            idx.data_ptr(), best_sim.data_ptr(), rowsq.data_ptr(), part,
+            part_k, tile.data_ptr() or None, sums.data_ptr(), counts.data_ptr(),
+            min_sim.data_ptr(), sumsq.data_ptr(), stream,
+        )
     _build.check(err, "assign_stats")
-    launches["assign_stats"] += 1
+    _count("assign_stats")
     return idx, best_sim, sums, counts, min_sim, sumsq
 
 
@@ -245,7 +261,6 @@ def assign_stats_bounded_cuda(
     ns = reps.shape[0]
 
     stream = _build.stream(x)
-    chunks, buf, part, part_k = _scratch("assign_stats_bounded", n, k, d, dev, stream)
     idx = torch.empty((n,), dtype=torch.int32, device=dev)
     best_sim = torch.empty((n,), dtype=torch.float32, device=dev)
     sec = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -254,15 +269,17 @@ def assign_stats_bounded_cuda(
     counts = torch.empty((k,), dtype=torch.float32, device=dev)
     min_sim = torch.empty((k,), dtype=torch.float32, device=dev)
     sumsq = torch.empty((k,), dtype=torch.float32, device=dev)
-    err = lib.assign_stats_bounded(
-        x.data_ptr(), centers.data_ptr(), cp.data_ptr(), perm_p.data_ptr(),
-        reps.data_ptr(), cone.data_ptr(), idx0.data_ptr(), wp,
-        n, d, k, ns, ref.PRUNE_MARGIN, chunks, idx.data_ptr(), best_sim.data_ptr(),
-        sec.data_ptr(), rowsq.data_ptr(), part, part_k,
-        sums.data_ptr(), counts.data_ptr(), min_sim.data_ptr(),
-        sumsq.data_ptr(), stream,
-    )
+    with _build.device_lock(dev.index):
+        chunks, buf, part, part_k = _scratch("assign_stats_bounded", n, k, d, dev, stream)
+        err = lib.assign_stats_bounded(
+            x.data_ptr(), centers.data_ptr(), cp.data_ptr(), perm_p.data_ptr(),
+            reps.data_ptr(), cone.data_ptr(), idx0.data_ptr(), wp,
+            n, d, k, ns, ref.PRUNE_MARGIN, chunks, idx.data_ptr(), best_sim.data_ptr(),
+            sec.data_ptr(), rowsq.data_ptr(), part, part_k,
+            sums.data_ptr(), counts.data_ptr(), min_sim.data_ptr(),
+            sumsq.data_ptr(), stream,
+        )
     _build.check(err, "assign_stats_bounded")
-    launches["assign_stats_bounded"] += 1
+    _count("assign_stats_bounded")
     hi_out = torch.where(pruned, hi_adj, sec)
     return idx, best_sim, sums, counts, min_sim, sumsq, idx, best_sim, hi_out, pruned

@@ -44,5 +44,6 @@ def best_edge_cuda(
         best_j.data_ptr(), best_s.data_ptr(), _build.stream(sim),
     )
     _build.check(err, "best_edge")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return best_j, best_s

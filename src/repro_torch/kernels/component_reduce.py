@@ -93,14 +93,16 @@ def component_best_edge_cuda(
         err = lib.component_best_edge_block(*args, _build.stream(row_w))
     else:
         stream = _build.stream(row_w)
-        held = _grid_keys(dev, stream, c)
-        keys, bar, cur, last_c = held[1], held[2], held[3], held[4]
-        err = lib.component_best_edge_grid(
-            *args, keys[cur].data_ptr(), keys[1 - cur].data_ptr(), last_c, bar.data_ptr(),
-            stream,
-        )
-        if err == 0:
-            held[3], held[4] = 1 - cur, c
+        with _build.device_lock(dev.index):  # the grid's state is the device's
+            held = _grid_keys(dev, stream, c)
+            keys, bar, cur, last_c = held[1], held[2], held[3], held[4]
+            err = lib.component_best_edge_grid(
+                *args, keys[cur].data_ptr(), keys[1 - cur].data_ptr(), last_c,
+                bar.data_ptr(), stream,
+            )
+            if err == 0:
+                held[3], held[4] = 1 - cur, c
     _build.check(err, "component_best_edge")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return best_w, best_row, best_j

@@ -196,7 +196,18 @@ __global__ void __launch_bounds__((kStatsMaxWarps + 3) * 32)
   auto stage = [&](int s) { return ring + s * kStatsStage; };
 
   if (warp == nw + 2) {  // producer
-    for (int i = 0; i < nst; ++i) {
+    for (int j = 0; j < nst; ++j) {
+#ifdef REPRO_FOLD_DELAY_STAGES
+      // Debug build (the sorter-race test only): each odd stage's copies go
+      // out after the next stage's, and after a pause, so a later stage's
+      // copies land first. Rings have at least three stages, so stage j + 1
+      // waits only on stages before j.
+      const int i = j % 2 == 1 && j + 1 < nst ? j + 1 : j % 2 == 0 && j > 0 ? j - 1 : j;
+      if (i < j)
+        for (int t = 0; t < 20; ++t) __nanosleep(1000);
+#else
+      const int i = j;
+#endif
       const int s = i % stages;
       mbar_wait(&empty[s], ((i / stages) & 1) ^ 1);
       float* dst = reinterpret_cast<float*>(stage(s));

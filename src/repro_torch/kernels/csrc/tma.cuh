@@ -46,6 +46,14 @@ inline int make_tensor_map(CUtensorMap* map, CUtensorMapDataType type,
                            CUtensorMapSwizzle swizzle) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
+  // cuTensorMapEncodeTiled needs a context current in this thread. A thread whose
+  // CUDA work so far only reused cached memory has none yet (the runtime
+  // binds one at its first launch), so bind the current device's primary
+  // context here, as that launch would.
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaSetDevice(dev);
+  if (e != cudaSuccess) return (int)e;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base),
                         dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,

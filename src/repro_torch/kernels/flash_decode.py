@@ -104,12 +104,16 @@ def flash_decode_cuda(
     nsplit = _splits(s, hk, g, dh, dtype, dev.index)
     blocks = hk * -(-g // heads)
     stream = _build.stream(q)
-    part, tickets = _scratch(dev, stream, blocks * nsplit * heads * (dh + 2), blocks)
     out = torch.empty((h, dh), dtype=q.dtype, device=dev)
-    err = lib.flash_decode(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), len_ptr, len_val, s, hk, g,
-        dh, dtype, nsplit, part.data_ptr(), tickets.data_ptr(), out.data_ptr(), stream,
-    )
+    # the partials and tickets are the device's: held from here to the
+    # launch's enqueue, so a call from another thread cannot share them
+    with _build.device_lock(dev.index):
+        part, tickets = _scratch(dev, stream, blocks * nsplit * heads * (dh + 2), blocks)
+        err = lib.flash_decode(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), len_ptr, len_val, s, hk, g,
+            dh, dtype, nsplit, part.data_ptr(), tickets.data_ptr(), out.data_ptr(), stream,
+        )
     _build.check(err, "flash_decode")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return out

@@ -7,7 +7,7 @@ code imports only this module, never the kernels directly.
 
 ``launch_counts()`` reads each kernel wrapper's count of launches and
 ``reset_launch_counts()`` sets them to 0, so a run can show that it went
-through the kernels.
+through the kernels; both hold the lock the wrappers count under.
 """
 
 from __future__ import annotations
@@ -28,26 +28,32 @@ from repro_torch.kernels import sim_best_edge as _sim_best_edge_k
 
 
 def launch_counts() -> dict[str, int]:
-    return {
-        "sim_best_edge": _sim_best_edge_k.launches,
-        "label_stats": _assign_stats_k.launches["label_stats"],
-        "assign_stats": _assign_stats_k.launches["assign_stats"],
-        "assign_argmax": _assign_argmax_k.launches,
-        "assign_stats_bounded": _assign_stats_k.launches["assign_stats_bounded"],
-        "component_best_edge": _component_reduce_k.launches,
-        "best_edge": _best_edge_k.launches,
-        "flash_decode": _flash_decode_k.launches,
-    }
+    from repro_torch.kernels import _build
+
+    with _build.COUNT_LOCK:
+        return {
+            "sim_best_edge": _sim_best_edge_k.launches,
+            "label_stats": _assign_stats_k.launches["label_stats"],
+            "assign_stats": _assign_stats_k.launches["assign_stats"],
+            "assign_argmax": _assign_argmax_k.launches,
+            "assign_stats_bounded": _assign_stats_k.launches["assign_stats_bounded"],
+            "component_best_edge": _component_reduce_k.launches,
+            "best_edge": _best_edge_k.launches,
+            "flash_decode": _flash_decode_k.launches,
+        }
 
 
 def reset_launch_counts() -> None:
-    _sim_best_edge_k.launches = 0
-    _assign_argmax_k.launches = 0
-    _component_reduce_k.launches = 0
-    _best_edge_k.launches = 0
-    _flash_decode_k.launches = 0
-    for name in _assign_stats_k.launches:
-        _assign_stats_k.launches[name] = 0
+    from repro_torch.kernels import _build
+
+    with _build.COUNT_LOCK:
+        _sim_best_edge_k.launches = 0
+        _assign_argmax_k.launches = 0
+        _component_reduce_k.launches = 0
+        _best_edge_k.launches = 0
+        _flash_decode_k.launches = 0
+        for name in _assign_stats_k.launches:
+            _assign_stats_k.launches[name] = 0
 
 
 def _on_card(t: torch.Tensor) -> bool:

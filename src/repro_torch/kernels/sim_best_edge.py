@@ -65,5 +65,6 @@ def sim_best_edge_cuda(
         best_j.data_ptr(), best_s.data_ptr(), _build.stream(xs_rows),
     )
     _build.check(err, "sim_best_edge")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return best_j, best_s

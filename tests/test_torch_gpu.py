@@ -883,3 +883,180 @@ def test_kmeans_distributed_stream_nccl_world_1_equals_single_device(card, tmp_p
         assert torch.equal(again.assignment, got.assignment) and not ck._store
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------------------------ calls from several threads
+
+
+def _thread_case(rng, n, d, k, card):
+    """One thread's inputs: integer-valued rows, centers, labels, weights."""
+    x = _ints(rng, (n, d), -3, 3, card)
+    centers = _ints(rng, (k, d), -3, 3, card)
+    lab = interop.labels(rng.integers(-1, k + 1, size=n), card)
+    w = _ints(rng, (n,), 0, 2, card)
+    bounds = ops.bounds_identity(n, card)
+    drift = torch.zeros((k,), device=card)
+    calls = (
+        lambda: label_stats_cuda(x, lab, k, w),
+        lambda: assign_stats_cuda(x, centers, w),
+        lambda: assign_stats_bounded_cuda(x, centers, bounds.idx, bounds.lo, bounds.hi,
+                                          drift, w),
+    )
+    return calls, [call() for call in calls]  # each call made alone
+
+
+def test_fold_kernels_from_two_threads_equal_each_call_alone(card):
+    """Two threads on the default stream make 200 calls each of label_stats,
+    assign_stats and assign_stats_bounded at different shapes: the fold's
+    partials buffer is the device's, so a call that enqueued its fold
+    between another's fold and reduce would take that call's partials. The
+    launch counts, added to from both threads, must count every call."""
+    import sys
+    import threading
+
+    cases = [_thread_case(np.random.default_rng(s), n, d, k, card)
+             for s, (n, d, k) in enumerate([(3000, 96, 50), (1700, 130, 300)])]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    bad, errors = [], []
+
+    def work(t):
+        calls, alone = cases[t]
+        try:
+            for i in range(200):
+                for c, (call, want) in enumerate(zip(calls, alone)):
+                    got = call()
+                    if not all(torch.equal(g, w_) for g, w_ in zip(got, want)):
+                        bad.append((t, i, c))
+        except BaseException as e:  # noqa: BLE001
+            errors.append(e)
+
+    ts = [threading.Thread(target=work, args=(t,)) for t in range(2)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)  # switch threads as often as the interpreter can
+    try:
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=600)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in ts)
+    assert not errors, errors
+    assert not bad, bad[:10]
+    counts = ops.launch_counts()
+    assert [counts[n] for n in ("label_stats", "assign_stats", "assign_stats_bounded")] == [400] * 3
+
+
+@pytest.mark.parametrize("d", [96, 130])  # the TMA path, and plain loads
+def test_label_stats_first_call_of_a_fresh_thread(card, d):
+    """A thread whose CUDA work so far only reused cached memory has no
+    context current; the fold's tensor-map encode (cuTensorMapEncodeTiled)
+    must bind one first."""
+    import threading
+
+    rng = np.random.default_rng(d)
+    x = _ints(rng, (3000, d), -3, 3, card)
+    lab = interop.labels(rng.integers(0, 50, size=3000), card)
+    want = label_stats_cuda(x, lab, 50)
+    label_stats_cuda(x, lab, 50)  # its outputs' blocks go back to the cache, for the thread
+    torch.cuda.synchronize()
+    got, errors = [], []
+
+    def run():
+        try:
+            got.append(label_stats_cuda(x, lab, 50))
+        except BaseException as e:  # noqa: BLE001
+            errors.append(e)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive() and not errors, errors
+    _equal(got[0], want)
+
+
+# ------------------------------------------------------ the fold's sorter race
+
+
+def _label_stats_delayed(x, idx, k, w):
+    """label_stats through the debug build whose producer issues each odd
+    ring stage's copies after the next stage's (``_build.VARIANTS``)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import assign_stats as ak
+
+    lib = _build.library("label_stats_delay", ak._SIGNATURES["label_stats"])
+    n, d = x.shape
+    chunks = lib.label_stats_chunks(n, k, d)
+    part = torch.empty((chunks * k * (d + 3),), dtype=torch.float32, device=x.device)
+    sums = torch.empty((k, d), dtype=torch.float32, device=x.device)
+    counts = torch.empty((k,), dtype=torch.float32, device=x.device)
+    err = lib.label_stats(
+        x.data_ptr(), idx.data_ptr(), None if w is None else w.data_ptr(), n, d, k, chunks,
+        part.data_ptr(), part.data_ptr() + 4 * chunks * k * d, sums.data_ptr(),
+        counts.data_ptr(), _build.stream(x),
+    )
+    _build.check(err, "label_stats_delay")
+    return sums, counts
+
+
+@pytest.mark.parametrize("k", [1000, 2000, 4200])  # label tiles of 1,000-1,050: 3 stages
+@pytest.mark.parametrize("weighted", [False, True])
+def test_label_stats_sorters_with_later_stages_landing_first(card, k, weighted):
+    """Each sorter warp must wait on every phase of the ring slots it owns:
+    with a three-stage ring a sorter that took alternate stages would find
+    a later stage's copies landed and read a slot whose copies had not.
+    The debug build lands them in that order on every odd stage."""
+    rng = np.random.default_rng(k + weighted)
+    n, d = 60_000, 256
+    x = _ints(rng, (n, d), -3, 3, card)
+    idx = interop.labels(rng.integers(-1, k + 1, size=n), card)
+    w = _ints(rng, (n,), 0, 2, card) if weighted else None
+    want = ref.label_stats(x, idx, k, w)
+    for _ in range(2):
+        _equal(_label_stats_delayed(x, idx, k, w), want)
+
+
+# ------------------------------------------------------ the online service
+
+
+def test_cluster_service_on_card_matches_assign_batch_and_offline_buckshot(card):
+    """The service on the card (device=None): each answer equals
+    assign_batch on the same rescaled slab bit for bit, and the swapped
+    centers equal an offline buckshot_stream on the card with the same
+    generator bit for bit."""
+    from repro_torch.core.buckshot import buckshot_stream
+    from repro_torch.core.kmeans import assign_batch
+    from repro_torch.serve import ClusterService, ServiceConfig
+    from repro_torch.serve.cluster_service import draw_generator
+    from repro_torch.text import hashing, tfidf
+    from repro_torch.text.stream import CorpusStream
+
+    def texts(n, seed, lo, hi):
+        r = np.random.default_rng(seed)
+        return [" ".join(f"t{v}" for v in r.integers(lo, hi, 30)) for _ in range(n)]
+
+    base, new = texts(900, 0, 0, 300), texts(200, 1, 250, 500)
+    cfg = ServiceConfig(k=6, dim=256, chunk=128, max_batch=32, sample_size=60,
+                        kmeans_iters=3, drift_mass=0.2, validate_slack=100.0)
+    ops.reset_launch_counts()
+    with ClusterService.fit(base, 11, config=cfg) as svc:
+        m = svc.model
+        assert m.centers.is_cuda and m.index is not None
+        docs = texts(32, 2, 0, 300)
+        out = svc.assign(docs)
+        x = tfidf._rescale(interop.data(hashing.vectorize(docs, 256), card), m.df, m.n_docs)
+        idx, sim = assign_batch(x, m.centers, index=m.index)
+        np.testing.assert_array_equal(out.idx, idx.cpu().numpy())
+        np.testing.assert_array_equal(out.best_sim, sim.cpu().numpy())
+        rec = svc.ingest(new)
+        assert rec.drift and rec.refit_id == 1
+        assert svc.refit_wait(1, timeout=300.0) and svc.model.version == 1
+        stream = CorpusStream.from_texts(base + new, dim=256, chunk=128)
+        want = buckshot_stream(tfidf.tfidf_stream(stream), 6, draw_generator(11, 1),
+                               sample_size=60, kmeans_iters=3, bounded=True)
+        assert torch.equal(svc.model.centers, want.kmeans.centers)
+    counts = ops.launch_counts()
+    for name in ("sim_best_edge", "label_stats", "assign_stats", "assign_argmax",
+                 "assign_stats_bounded"):
+        assert counts[name] > 0, counts
