@@ -148,6 +148,27 @@ Phases, in order; any failure raises and exits non-zero:
      the refit's K-Means bounded against unbounded on the combined rows held
      in host memory (from its Buckshot centers and from the live centers,
      with the pruned share per pass) and its buckshot_stream both ways.
+     Then the LM zoo's serving path (repro_torch.models, ServeEngine) at
+     qwen2-1.5b's full width and depth (28 layers, d_model 1,536, 1.54 B
+     params, f32 weights drawn on the card from a seeded generator, no TF32):
+     generate on 8 requests of 32-token prompts and 16 new tokens (prefill ms,
+     decode ms a step, tokens/s, each beside the card's bound: model_flops
+     over 67 TFLOP/s, the params and cache read once over 3.35 TB/s, and the
+     host's CPU seconds over wall and involuntary context switches), 5 decode steps of 8 rows at a 32,768-slot f32 cache
+     against their bound, one prefill and one decode step at each context
+     profiled, the plain flash_attention beside SDPA (not on the path);
+     prefill(T) + decode against prefill(T + 1) and greedy decode against
+     the teacher-forced argmax within 2e-3, one 8-token prefill against the
+     port on the CPU with the same weights; then embed-and-cluster (the
+     pipeline of examples/torch_embed_and_cluster.py): 512 synthetic
+     documents (8 topics, 64 tokens) embedded through ServeEngine.embed,
+     Buckshot k = 8 on the card with its launch counts set to 0 just before
+     (sim_best_edge, label_stats and assign_stats must each launch); the
+     labels equal to the plain CPU Buckshot's on the same embeddings and
+     sample but at near-ties, the initial and last centers within the sum
+     tolerance, the final similarities within 1e-5; each of the three
+     kernels against its plain version at the path's shapes; purity and NMI
+     beside tf-idf's.
   5. End-to-end oracles at the 20 Newsgroups shape: Buckshot (k = 20) and BKC
      (Table 1: k = 50, BigK = 250) on the card against the plain path on the
      CPU, on the same draws; BKC also on that collection with 5 % off-topic
@@ -191,6 +212,11 @@ SIM_TOL = 1e-5
 SUM_RTOL, SUM_ATOL = 1e-4, 1e-5
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 without tensor cores (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 (data sheet)
+LM_ARCH = "qwen2-1.5b"  # the LM serve phase's model, at full width
+LM_REQUESTS, LM_PROMPT, LM_NEW = 8, 32, 16
+EMBED_DOCS, EMBED_TOPICS, EMBED_SEQ = 512, 8, 64
+LM_TOL = 2e-3  # full-width f32 logits: 28 layers of sums in another order
+LM_LONG_CTX, LM_LONG_STEPS = 32_768, 5  # decode_32k's context, 8 rows: ~15 GB f32 cache
 
 
 def log(msg: str) -> None:
@@ -205,6 +231,16 @@ def sync_time(fn, *args, **kwargs):
     out = fn(*args, **kwargs)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t
+
+
+def host_usage() -> tuple[float, int]:
+    """(CPU seconds of this process, its involuntary context switches so
+    far): beside a wall time, the share the host spent computing and how
+    often other work took its cores."""
+    import resource
+
+    ru = resource.getrusage(resource.RUSAGE_SELF)
+    return ru.ru_utime + ru.ru_stime, ru.ru_nivcsw
 
 
 def event_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -272,6 +308,19 @@ def check_argmax(name, got_idx, got_val, want_idx, want_val, plain_at) -> int:
         if gap.max().item() > SIM_TOL:
             raise AssertionError(f"{name}: {n_diff} indices differ, not at near-ties")
     return n_diff
+
+
+def check_stats_fold(name, x, w, k, st) -> float:
+    """A fused pass's statistics (sums, counts, min_sim, sumsq) against the
+    plain fold over the kernel's own assignment, so that a near-tie row
+    cannot move a sum across clusters; returns the max abs error."""
+    return max(
+        check_close(f"{name} {part}", got, want, *tol)
+        for part, got, want, tol in zip(
+            ("sums", "counts", "min_sim", "sumsq"), st[2:], plain_stats(x, st[0], st[1], k, w),
+            ((SUM_RTOL, SUM_ATOL), (SUM_RTOL, SUM_ATOL), (0.0, SIM_TOL), (SUM_RTOL, SUM_ATOL)),
+        )
+    )
 
 
 # ------------------------------------------------------------------ phases
@@ -421,7 +470,6 @@ def phase_parity_main(x, xs, dev):
     """The three kernels at the main path's shapes on real tf-idf rows."""
     import torch
 
-    from repro_torch.common import segment_min, segment_sum
     from repro_torch.kernels import ref
     from repro_torch.kernels.assign_stats import assign_stats_cuda, label_stats_cuda
     from repro_torch.kernels.sim_best_edge import sim_best_edge_cuda
@@ -471,24 +519,7 @@ def phase_parity_main(x, xs, dev):
         lambda rows, cols: (x[rows] * centers[cols]).sum(1),
     )
     err = check_close("assign_stats best_sim", a[1], want[1], 0.0, SIM_TOL)
-    # the statistics are held against the plain fold over the kernel's own
-    # assignment, so a near-tie row cannot move a sum across clusters
-    idx_k, sim_k = a[0], a[1]
-    xf = x * w[:, None]
-    plain = (
-        segment_sum(xf, idx_k, K),
-        segment_sum(w, idx_k, K),
-        torch.where(segment_sum(w, idx_k, K) > 0,
-                    segment_min(torch.where(w > 0, sim_k, ref.BIG), idx_k, K), ref.BIG),
-        segment_sum((x * x).sum(1) * w, idx_k, K),
-    )
-    del xf
-    for name, got, ref_t, tol in zip(
-        ("sums", "counts", "min_sim", "sumsq"), a[2:], plain,
-        ((SUM_RTOL, SUM_ATOL), (SUM_RTOL, SUM_ATOL), (0.0, SIM_TOL), (SUM_RTOL, SUM_ATOL)),
-    ):
-        err = max(err, check_close(f"assign_stats {name}", got, ref_t, *tol))
-    errs["assign_stats"] = err
+    errs["assign_stats"] = max(err, check_stats_fold("assign_stats", x, w, K, a))
     log(f"phase 2 parity: main-path shapes within tolerance; max abs err {errs}; "
         f"near-tie index differences {ties}")
     return errs
@@ -3037,6 +3068,329 @@ def serve_bounded_decision(card, dev, xs, res, m0, k, draws, sync):
         f"{statistics.median(walls[False]):.4f} s)")
 
 
+def lm_bounds(cfg, b: int, t: int, cache_len: int, param_bytes: int) -> dict:
+    """The card's least time for one prefill of b x t tokens and for one
+    decode step at the end of a cache_len cache: model_flops (dense params,
+    attention) plus the LM head on one position a row, against the params read
+    once and the f32 cache read or written once."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.configs.flops import model_flops
+
+    head = 2.0 * b * cfg.d_model * cfg.vocab
+    kv_row = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 4  # k and v, f32
+    pre = model_flops(cfg, ShapeCell("serve_prefill", "prefill", t, b))["model_flops"] + head
+    dec = model_flops(cfg, ShapeCell("serve_decode", "decode", cache_len, b))["model_flops"] + head
+    return {
+        "prefill": bound_ms(pre, param_bytes + b * cache_len * kv_row),
+        "decode": bound_ms(dec, param_bytes + b * cache_len * kv_row),
+        "prefill_flops": pre, "decode_bytes": param_bytes + b * cache_len * kv_row,
+    }
+
+
+def lm_attention_vs_sdpa(cfg, dev) -> None:
+    """A finding, not on the path: the port's plain flash_attention (the
+    reference's chunked online softmax) against SDPA on one layer's causal
+    attention at the embed batch's shape (64 docs x 64 tokens)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models.attention import flash_attention
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    b, s, hk, grp, dh = 64, EMBED_SEQ, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn((b, s, hk, grp, dh), generator=g, device=dev)
+    k, v = (torch.randn((b, s, hk, dh), generator=g, device=dev) for _ in range(2))
+    qs = q.reshape(b, s, hk * grp, dh).transpose(1, 2)
+    ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+    ours = event_ms(lambda: flash_attention(q, k, v, chunk=cfg.attn_chunk), 20)
+    sdpa = event_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                           enable_gqa=True), 20)
+    want = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    err = (flash_attention(q, k, v, chunk=cfg.attn_chunk).reshape(b, s, hk * grp, dh)
+           - want.transpose(1, 2)).abs().max().item()
+    log(f"phase 4 LM attention ({b} x {s} tokens, {cfg.n_heads}/{hk} heads of {dh}, causal): "
+        f"plain flash_attention {ours:.4f} ms, SDPA {sdpa:.4f} ms (max abs diff {err:.3g}; "
+        f"SDPA is not on the path)")
+
+
+def check_near_ties(name, got, want, logits, tol) -> int:
+    """Greedy tokens equal to the teacher-forced argmax, but where the
+    teacher-forced logit of the greedy token is within ``tol`` of the max."""
+    import torch
+
+    diff = got != want
+    n_diff = int(diff.sum())
+    if n_diff:
+        at = torch.gather(logits, -1, got[..., None].long())[..., 0]
+        gap = (logits.amax(-1) - at)[diff]
+        if gap.max().item() > tol:
+            raise AssertionError(f"{name}: {n_diff} tokens differ, not at near-ties")
+    return n_diff
+
+
+def phase_lm_serve(card: str, dev):
+    """The LM zoo's serving path (repro_torch.models, repro_torch.serve.engine)
+    at qwen2-1.5b's full width and depth, f32 weights drawn on the card from
+    a seeded generator: (a) ServeEngine.generate on 8 requests of 32-token
+    prompts and 16 new tokens, three timed runs after a warm-up: prefill ms,
+    decode ms a step (median), tokens/s against the bounds, the host's CPU
+    share and involuntary context switches beside them; then decode at a 32,768-token context (lm_decode_long);
+    (b) prefill(T) + decode = prefill(T + 1) and greedy decode = the
+    teacher-forced argmax, at full width; the prefill logits of one request
+    against the port on the CPU with the same weights; (c) embed-and-cluster
+    (lm_embed_and_cluster)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import lm_logits
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = get_config(LM_ARCH)
+    model = get_model(cfg)
+    t = time.perf_counter()
+    lm = model.init_params(torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in lm.parameters())
+    p_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    if n_params != model.param_count():
+        raise AssertionError(f"LM serve: {n_params} params built, {model.param_count()} in the recs")
+    log(f"phase 4 LM serve: {cfg.name} full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}): {n_params:,} params, {p_bytes:,} bytes f32, drawn on "
+        f"the device in {time.perf_counter() - t:.2f} s; {card}")
+
+    # (a) generate
+    engine = ServeEngine(cfg=cfg, params=lm, device=dev)
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(1, cfg.vocab, size=(LM_REQUESTS, LM_PROMPT + 1))
+    reqs = [Request(prompt=[int(v) for v in p[:-1]], max_new_tokens=LM_NEW) for p in prompts]
+    first = engine.generate(reqs)  # warm-up: cuBLAS handles, the allocator's pool
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t, (cpu, csw) = time.perf_counter(), host_usage()
+        outs = engine.generate(reqs)
+        wall_s = time.perf_counter() - t
+        cpu1, csw1 = host_usage()
+        runs.append((wall_s, dict(engine.stats), (cpu1 - cpu) / wall_s, csw1 - csw))
+        if [o.tokens for o in outs] != [o.tokens for o in first]:
+            raise AssertionError("LM serve: generate is not deterministic")
+    toks = torch.tensor([o.tokens for o in first])
+    if toks.shape != (LM_REQUESTS, LM_NEW) or not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"LM serve: completions of shape {tuple(toks.shape)}")
+    wall = statistics.median(r[0] for r in runs)
+    pre_ms = 1e3 * statistics.median(r[1]["prefill_s"] for r in runs)
+    steps = [s for r in runs for s in r[1]["decode_s"]]
+    dec_ms = 1e3 * statistics.median(steps)
+    pre_runs = ", ".join(f"{1e3 * r[1]['prefill_s']:.3f}" for r in runs)
+    cache_len = LM_PROMPT + LM_NEW
+    bnd = lm_bounds(cfg, LM_REQUESTS, LM_PROMPT, cache_len, p_bytes)
+    log(f"phase 4 LM serve generate: {LM_REQUESTS} requests x {LM_PROMPT}-token prompts, "
+        f"{LM_NEW} new tokens, f32 weights and cache, no TF32: wall {1e3 * wall:.2f} ms "
+        f"(median of 3) -> {LM_REQUESTS * LM_NEW / wall:.1f} tokens/s; prefill "
+        f"{pre_ms:.3f} ms (runs {pre_runs}), "
+        f"bound {bnd['prefill'][0]:.3f} ms ({bnd['prefill'][1]}: {bnd['prefill_flops']:.4g} flops); "
+        f"decode {dec_ms:.3f} ms a step (median of {len(steps)}; min {1e3 * min(steps):.3f}, "
+        f"max {1e3 * max(steps):.3f}), bound {bnd['decode'][0]:.3f} ms ({bnd['decode'][1]}: "
+        f"{bnd['decode_bytes']:,} bytes), {bnd['decode'][0] / dec_ms:.1%} of it; host CPU "
+        f"seconds over wall, each run: {', '.join(f'{r[2]:.2f}' for r in runs)}, involuntary "
+        f"context switches {', '.join(str(r[3]) for r in runs)} ({os.cpu_count()} cores)")
+    lm_decode_long(lm, cfg, p_bytes, dev)
+
+    # (b) the caches carry the forward's state, greedy = teacher-forced
+    full = {"tokens": torch.from_numpy(prompts.astype(np.int32)).to(dev)}
+    pre = {"tokens": full["tokens"][:, :-1]}
+    # where the time goes: one prefill, one decode step
+    profile_run(f"LM prefill {LM_REQUESTS} x {LM_PROMPT}", transformer.prefill, lm, cfg,
+                pre, torch.float32, cache_len=cache_len)
+    _, caches, pos = transformer.prefill(lm, cfg, pre, torch.float32, cache_len=cache_len)
+    profile_run(f"LM decode step, {LM_REQUESTS} rows", transformer.decode_step, lm, cfg,
+                full["tokens"][:, -1:], caches, pos)
+    lm_attention_vs_sdpa(cfg, dev)
+    want, _, _ = transformer.prefill(lm, cfg, full, torch.float32)
+    _, caches, pos = transformer.prefill(lm, cfg, pre, torch.float32, cache_len=LM_PROMPT + 8)
+    got, _ = transformer.decode_step(lm, cfg, full["tokens"][:, -1:], caches, pos)
+    err = check_close("LM prefill(T)+decode vs prefill(T+1)", got, want, LM_TOL, LM_TOL)
+    seq = torch.cat([pre["tokens"], toks[:, :-1].to(dev, torch.int32)], dim=1)
+    with torch.no_grad():
+        h, _, _ = transformer.forward(lm, cfg, {"tokens": seq})
+        tf_logits = lm_logits(lm.embed, h[:, LM_PROMPT - 1 :], cfg)
+    ties = check_near_ties("LM greedy vs teacher-forced", toks.to(dev), tf_logits.argmax(-1),
+                           tf_logits, LM_TOL)
+    del h, tf_logits
+    cpu = model.init_params(torch.Generator(device=dev).manual_seed(SEED), "cpu")
+    one = {"tokens": pre["tokens"][:1, :8]}
+    t = time.perf_counter()
+    ref_logits = transformer.prefill(cpu, cfg, {"tokens": one["tokens"].cpu()}, torch.float32)[0]
+    t_cpu = time.perf_counter() - t
+    err_cpu = check_close("LM prefill card vs CPU", transformer.prefill(
+        lm, cfg, one, torch.float32)[0].cpu(), ref_logits, LM_TOL, LM_TOL)
+    del cpu
+    log(f"phase 4 LM serve checks: prefill(T)+decode vs prefill(T+1) max abs err {err:.3g} "
+        f"(tol {LM_TOL}); greedy = teacher-forced argmax on {toks.numel()} tokens, "
+        f"{ties} at near-ties; one 8-token prefill card vs the port on the CPU (same weights, "
+        f"{t_cpu:.1f} s there) max abs err {err_cpu:.3g}")
+    return lm_embed_and_cluster(engine, p_bytes, dev)
+
+
+def lm_decode_long(lm, cfg, p_bytes: int, dev) -> None:
+    """Decode at a long context: LM_REQUESTS rows one step at the end of an
+    LM_LONG_CTX-slot f32 cache per layer (decode_32k's context at the batch
+    one card holds in f32: ~15 GB of cache), its contents drawn from a seeded
+    generator. LM_LONG_STEPS steps timed on the host clock as generate runs
+    them, then one profiled; beside the bound (params and cache read once)
+    and the host's CPU share."""
+    import os
+
+    import torch
+
+    from repro_torch.models import transformer
+
+    b, ctx = LM_REQUESTS, LM_LONG_CTX
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    caches = transformer.init_cache(cfg, b, ctx, torch.float32, dev)
+    for c in caches:
+        c["k"].normal_(generator=g)
+        c["v"].normal_(generator=g)
+    cache_bytes = sum(c[n].numel() * c[n].element_size() for c in caches for n in ("k", "v"))
+    tok = torch.randint(0, cfg.vocab, (b, 1), generator=g, device=dev, dtype=torch.int32)
+    pos = ctx - 1  # the step fills the last slot: every slot is valid
+    logits, _ = transformer.decode_step(lm, cfg, tok, caches, pos)  # warm-up
+    if logits.shape != (b, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"LM long decode: logits {tuple(logits.shape)} not finite")
+    cpu, csw = host_usage()
+    steps = [1e3 * sync_time(transformer.decode_step, lm, cfg, tok, caches, pos)[1]
+             for _ in range(LM_LONG_STEPS)]
+    cpu1, csw1 = host_usage()
+    bnd = lm_bounds(cfg, b, 1, ctx, p_bytes)
+    if bnd["decode_bytes"] != p_bytes + cache_bytes:
+        raise AssertionError("LM long decode: the bound's bytes are not the params and cache")
+    med = statistics.median(steps)
+    log(f"phase 4 LM serve long decode: {b} rows at a {ctx:,}-token f32 cache "
+        f"({cache_bytes:,} bytes) on {cfg.name}: {med:.3f} ms a step (median of {len(steps)}; "
+        f"min {min(steps):.3f}, max {max(steps):.3f}) -> {b * 1e3 / med:.1f} tokens/s; bound "
+        f"{bnd['decode'][0]:.3f} ms ({bnd['decode'][1]}: {bnd['decode_bytes']:,} bytes), "
+        f"{bnd['decode'][0] / med:.1%} of it; host CPU seconds over wall "
+        f"{1e3 * (cpu1 - cpu) / sum(steps):.2f}, involuntary context switches {csw1 - csw} "
+        f"({os.cpu_count()} cores)")
+    profile_run(f"LM decode step, {b} rows at {ctx:,}", transformer.decode_step, lm, cfg,
+                tok, caches, pos)
+    del caches
+    torch.cuda.empty_cache()
+
+
+def lm_embed_and_cluster(engine, p_bytes: int, dev) -> dict:
+    """Embed-and-cluster through the engine's model: 512 synthetic documents
+    (8 topics, 64 tokens) embedded through ServeEngine.embed, Buckshot k = 8
+    on the card with its launch counts set to 0 just before and read just
+    after (sim_best_edge, label_stats, assign_stats must each launch). Held
+    against the port's plain CPU Buckshot on the same embeddings and sample:
+    the HAC labels equal, the assignment equal but at near-ties, the initial
+    centers (label_stats' sums) and the last centers (the K-Means passes)
+    within the sum tolerance, the final similarities within SIM_TOL where
+    both assign alike. Then each kernel against its plain version on the
+    card at the path's shapes (launches made after the counts were read):
+    label_stats on the sample and its labels, the final assign_stats pass
+    (it must repeat the path's bit for bit, RSS included) against the plain
+    fold over its own assignment, and sim_best_edge's round 1 on the sample
+    (indices but at near-ties, similarities within SIM_TOL). Returns the
+    launch counts."""
+    import torch
+
+    from repro_torch.common import l2_normalize
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.configs.flops import model_flops
+    from repro_torch.core import metrics, sampling
+    from repro_torch.core.buckshot import buckshot_fit
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve.engine import embed_documents
+    from repro_torch.text import pipeline, synth
+
+    cfg = engine.cfg
+    corpus = synth.make_corpus(EMBED_DOCS, vocab=512, n_topics=EMBED_TOPICS, seed=1)
+    tokens = synth.tokens_from_counts(corpus.counts, cfg.vocab, EMBED_SEQ, seed=2)
+    embed_documents(engine, tokens[:64])  # warm-up
+    x, t_embed = sync_time(embed_documents, engine, tokens)
+    n = x.shape[0]
+    if x.shape != (EMBED_DOCS, cfg.d_model) or not bool(torch.isfinite(x).all()):
+        raise AssertionError(f"LM embed: {tuple(x.shape)} rows, finite {bool(torch.isfinite(x).all())}")
+    k = EMBED_TOPICS
+    s = sampling.buckshot_sample_size(n, k)
+    sidx = sampling.sample_indices(n, s, torch.Generator().manual_seed(SEED), dev)
+    ops.reset_launch_counts()
+    res, t_fit = sync_time(buckshot_fit, x, sidx, k, kmeans_iters=2)
+    counts = ops.launch_counts()
+    path = {name: counts[name] for name in ("sim_best_edge", "label_stats", "assign_stats")}
+    if min(path.values()) == 0:
+        raise AssertionError(f"LM embed-and-cluster did not launch every kernel: {path}")
+
+    # the path against the plain CPU path
+    plain = buckshot_fit(x.cpu(), sidx.cpu(), k, kmeans_iters=2)
+    if not torch.equal(res.sample_labels.cpu(), plain.sample_labels):
+        raise AssertionError("LM embed-and-cluster: HAC labels differ from the plain path's")
+    xc, centers = x.cpu(), plain.kmeans.centers
+    near = check_argmax("LM embed-and-cluster assignment", res.kmeans.assignment.cpu(),
+                        None, plain.kmeans.assignment, (xc @ centers.T).amax(1),
+                        lambda rows, cols: (xc[rows] * centers[cols]).sum(1))
+    alike = res.kmeans.assignment.cpu() == plain.kmeans.assignment
+    errs = {
+        "init_centers": check_close("LM embed-and-cluster init_centers", res.init_centers.cpu(),
+                                    plain.init_centers, SUM_RTOL, SUM_ATOL),
+        "centers": check_close("LM embed-and-cluster centers", res.kmeans.centers.cpu(),
+                               plain.kmeans.centers, SUM_RTOL, SUM_ATOL),
+        "best_sim": check_close("LM embed-and-cluster best_sim", res.kmeans.best_sim.cpu()[alike],
+                                plain.kmeans.best_sim[alike], 0.0, SIM_TOL),
+    }
+
+    # each kernel against its plain version at the path's shapes
+    xs = l2_normalize(x[sidx.long()])
+    got = ops.label_stats(xs, res.sample_labels, k)
+    want = ref.label_stats_scatter(xs, res.sample_labels, k)
+    errs["label_stats"] = max(
+        check_close(f"LM embed-and-cluster label_stats {name}", a, b, SUM_RTOL, SUM_ATOL)
+        for name, a, b in zip(("sums", "counts"), got, want)
+    )
+    st = ops.assign_stats(x, res.kmeans.centers)
+    rss = metrics.rss_from_assignment_stats(st.sums, st.counts, torch.sum(st.sumsq), k)
+    if not (torch.equal(st.idx, res.kmeans.assignment)
+            and torch.equal(st.best_sim, res.kmeans.best_sim) and torch.equal(rss, res.kmeans.rss)):
+        raise AssertionError("LM embed-and-cluster: the final assign_stats pass does not repeat")
+    errs["assign_stats"] = check_stats_fold(
+        "LM embed-and-cluster assign_stats", x, torch.ones((n,), device=dev), k, st)
+    lab = torch.arange(s, dtype=torch.int32, device=dev)
+    got = ops.sim_best_edge(xs, xs, lab, lab)
+    want = ref.sim_best_edge(xs, xs, lab, lab)
+    near_edge = check_argmax("LM embed-and-cluster sim_best_edge", got[0], got[1], want[0],
+                             want[1], lambda rows, cols: (xs[rows] * xs[cols]).sum(1))
+    errs["sim_best_edge"] = check_close("LM embed-and-cluster sim_best_edge best_s", got[1],
+                                        want[1], 0.0, SIM_TOL)
+
+    def quality(assignment):
+        t = torch.from_numpy(truth).to(dev)
+        return (float(metrics.purity(assignment, t, k, k)),
+                float(metrics.nmi(assignment, t, k, k)))
+
+    embed_flops = model_flops(cfg, ShapeCell("embed", "prefill", EMBED_SEQ, n))["model_flops"]
+    embed_bound = bound_ms(embed_flops, p_bytes + x.numel() * 4)
+    x_tfidf, truth = pipeline.prepare_local(corpus, dev)
+    pur, nmi = quality(buckshot_fit(x_tfidf, sidx, k, kmeans_iters=2).kmeans.assignment)
+    pur2, nmi2 = quality(res.kmeans.assignment)
+    log(f"phase 4 LM embed-and-cluster: {n} docs x {EMBED_SEQ} tokens embedded in "
+        f"{t_embed:.3f} s ({n * EMBED_SEQ / t_embed:.0f} tokens/s; bound "
+        f"{embed_bound[0] / 1e3:.3f} s by {embed_bound[1]}), Buckshot k = {k} "
+        f"(s = {s}) in {t_fit:.4f} s; launches {path}; labels equal to the plain CPU path's "
+        f"but {near} at near-ties; max abs err against the plain path and, per kernel, "
+        f"against its plain version at these shapes {errs} (sim_best_edge round 1: {near_edge} "
+        f"at near-ties); tf-idf + Buckshot purity={pur:.3f} nmi={nmi:.3f}; "
+        f"{cfg.name} + Buckshot purity={pur2:.3f} nmi={nmi2:.3f} (random weights)")
+    return path
+
+
 def timing_label_stats(x, xs, labels, dev):
     """label_stats at Buckshot's centers (3,536 x 2,048, k = 50): back to
     back, with the L2 flushed before each call, the two kernels alone
@@ -3245,6 +3599,10 @@ def main() -> int:
     t = time.perf_counter()
     phase_serve(card, dev)
     log(f"phase 4 serve took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_lm_serve(card, dev)
+    torch.cuda.empty_cache()
+    log(f"phase 4 LM serve took {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     phase_oracle(dev)
     phase_oracle_bkc(dev)

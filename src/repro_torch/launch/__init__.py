@@ -1,0 +1,1 @@
+"""Launchers of the port: ``python -m repro_torch.launch.serve``."""

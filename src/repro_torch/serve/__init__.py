@@ -1,5 +1,6 @@
-"""Serving substrate of the port: the resident-model online clustering
-service (the JAX package's ``serve/cluster_service.py``, DESIGN.md §14)."""
+"""Serving substrate of the port: the batched prefill+decode engine over the
+model zoo (the JAX package's ``serve/engine.py``), and the resident-model
+online clustering service (``serve/cluster_service.py``, DESIGN.md §14)."""
 
 from repro_torch.serve.cluster_service import (
     AssignResult,
@@ -11,6 +12,9 @@ from repro_torch.serve.cluster_service import (
     ServiceConfig,
     ShedError,
 )
+# the engine is importable from here too; ``__all__`` lists the service's
+# names only, as the JAX package's ``repro.serve`` does
+from repro_torch.serve.engine import Completion, Request, ServeEngine  # noqa: F401
 
 __all__ = [
     "AssignResult",

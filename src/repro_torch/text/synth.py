@@ -177,3 +177,16 @@ def paper_1gb_shape(scale: float = 1.0) -> dict:
     return dict(
         n_docs=max(1000, int(250_000 * scale)), vocab=2048, n_topics=50, seed=21
     )
+
+
+def tokens_from_counts(counts: np.ndarray, vocab: int, seq: int, seed: int) -> np.ndarray:
+    """Render bag-of-words counts as pseudo token sequences (offline stand-in
+    for a tokenizer: sample tokens proportional to counts), as the JAX
+    package's ``examples/embed_and_cluster.py`` does. (n, seq) int32."""
+    rng = np.random.default_rng(seed)
+    n, _ = counts.shape
+    out = np.zeros((n, seq), np.int32)
+    for i in range(n):
+        p = counts[i] / max(counts[i].sum(), 1.0)
+        out[i] = rng.choice(len(p), size=seq, p=p)
+    return out % vocab

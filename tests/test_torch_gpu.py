@@ -1060,3 +1060,65 @@ def test_cluster_service_on_card_matches_assign_batch_and_offline_buckshot(card)
     for name in ("sim_best_edge", "label_stats", "assign_stats", "assign_argmax",
                  "assign_stats_bounded"):
         assert counts[name] > 0, counts
+
+
+# ------------------------------------------------------------------ LM zoo
+
+
+LM_ARCHS = ["qwen2-1.5b", "llama3.2-3b", "minitron-8b", "gemma3-4b", "paligemma-3b", "whisper-base"]
+
+
+def _lm(arch, device, seed=0):
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+
+    cfg = get_config(arch, reduced=True)
+    return cfg, get_model(cfg).init_params(torch.Generator().manual_seed(seed), device)
+
+
+def test_lm_serve_on_card_matches_the_cpu(card):
+    """qwen2-1.5b REDUCED, the same weights on the card and the CPU: prefill
+    and decode logits and embeddings within rtol/atol 1e-4 (f32, no TF32),
+    greedy completions equal."""
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import make_batch
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg, cpu = _lm("qwen2-1.5b", "cpu")
+    _, gpu = _lm("qwen2-1.5b", card)
+    batch = make_batch(cfg, 3, 20, torch.Generator().manual_seed(1), "cpu")
+    on_card = {k: v.to(card) for k, v in batch.items()}
+    want = transformer.prefill(cpu, cfg, batch, torch.float32, cache_len=24)
+    got = transformer.prefill(gpu, cfg, on_card, torch.float32, cache_len=24)
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-4, atol=1e-4)
+    step = batch["tokens"][:, -1:]
+    want_d = transformer.decode_step(cpu, cfg, step, want[1], want[2])[0]
+    got_d = transformer.decode_step(gpu, cfg, step.to(card), got[1], got[2])[0]
+    torch.testing.assert_close(got_d.cpu(), want_d, rtol=1e-4, atol=1e-4)
+    reqs = [Request(prompt=[1, 2, 3, 4], max_new_tokens=6), Request(prompt=[7, 8], max_new_tokens=3)]
+    e_cpu = ServeEngine(cfg=cfg, params=cpu, device="cpu")
+    e_gpu = ServeEngine(cfg=cfg, params=gpu)  # device=None: the card
+    assert [o.tokens for o in e_gpu.generate(reqs)] == [o.tokens for o in e_cpu.generate(reqs)]
+    emb = e_gpu.embed(batch)
+    assert emb.is_cuda
+    torch.testing.assert_close(emb.cpu(), e_cpu.embed(batch), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_prefill_decode_consistent_on_card(card, arch):
+    """logits(prefill(T) + decode) == logits(prefill(T + 1)) on the card."""
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import make_batch
+
+    cfg, lm = _lm(arch, card, seed=3)
+    batch = make_batch(cfg, 2, 25, torch.Generator().manual_seed(4), card)
+    prefix = {**batch, "tokens": batch["tokens"][:, :-1]}
+    want = transformer.prefill(lm, cfg, batch, torch.float32)[0]
+    _, caches, pos = transformer.prefill(lm, cfg, prefix, torch.float32, cache_len=pos_cap(cfg, 24))
+    got, _ = transformer.decode_step(lm, cfg, batch["tokens"][:, -1:], caches, pos)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def pos_cap(cfg, t):
+    """Cache capacity past a prompt of t text tokens (and a vlm's prefix)."""
+    return t + 8 + (cfg.n_frontend_tokens if cfg.family == "vlm" else 0)

@@ -471,7 +471,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
         "new = ['text.stream', 'resilience.policy', 'testing.faults', 'text.hashing',\n"
-        "       'kernels.best_edge', 'kernels.flash_decode']\n"
+        "       'kernels.best_edge', 'kernels.flash_decode', 'configs.flops',\n"
+        "       'configs.qwen2_1_5b', 'models.transformer', 'models.interop',\n"
+        "       'serve.engine', 'launch.serve']\n"
         "assert all('repro_torch.' + m in sys.modules for m in new)\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
     )
