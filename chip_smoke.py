@@ -168,7 +168,17 @@ Phases, in order; any failure raises and exits non-zero:
      sample but at near-ties, the initial and last centers within the sum
      tolerance, the final similarities within 1e-5; each of the three
      kernels against its plain version at the path's shapes; purity and NMI
-     beside tf-idf's.
+     beside tf-idf's. Then the zoo's other families (phase_lm_families) at
+     their published widths, f32 weights drawn on the card from SEED, each
+     model freed before the next: zamba2-2.7b (hybrid) and rwkv6-3b whole,
+     moonshot-v1-16b-a3b cut to 16 of 48 layers and mixtral-8x22b to 2 of
+     56 (neither fits one card whole in f32): generate as above against
+     per-family bounds (lm_bounds: attention caches, SSM and RWKV states,
+     every expert's weights), the dropped MoE choices of one prefill, one
+     prefill and one step profiled; prefill(T) + decode against prefill(T +
+     1) and greedy against teacher-forced within 2e-3 (MoE at a capacity
+     factor that drops nothing); one 8-token prefill against the port on the
+     CPU at a shallower depth with the same weights.
   5. End-to-end oracles at the 20 Newsgroups shape: Buckshot (k = 20) and BKC
      (Table 1: k = 50, BigK = 250) on the card against the plain path on the
      CPU, on the same draws; BKC also on that collection with 5 % off-topic
@@ -217,6 +227,15 @@ LM_REQUESTS, LM_PROMPT, LM_NEW = 8, 32, 16
 EMBED_DOCS, EMBED_TOPICS, EMBED_SEQ = 512, 8, 64
 LM_TOL = 2e-3  # full-width f32 logits: 28 layers of sums in another order
 LM_LONG_CTX, LM_LONG_STEPS = 32_768, 5  # decode_32k's context, 8 rows: ~15 GB f32 cache
+# the zoo's other families at their published widths: (arch, layers run on
+# the card (None: all), layers of the card-vs-CPU check). moonshot and mixtral
+# do not fit one 80 GB card whole in f32 (110.3 and 562.5 GB): their depth is cut.
+LM_FAMILIES = (
+    ("zamba2-2.7b", None, 6),  # 54 mamba layers, 9 shared-block calls; CPU: one group
+    ("rwkv6-3b", None, 2),
+    ("moonshot-v1-16b-a3b", 16, 2),  # 1 dense + 15 MoE; CPU: dense + 1 MoE
+    ("mixtral-8x22b", 2, 1),  # the 16 x 6,144 x 8,192 virtual experts
+)
 
 
 def log(msg: str) -> None:
@@ -3068,22 +3087,47 @@ def serve_bounded_decision(card, dev, xs, res, m0, k, draws, sync):
         f"{statistics.median(walls[False]):.4f} s)")
 
 
+def lm_state_bytes(cfg, b: int, cache_len: int) -> tuple[int, int]:
+    """The f32 decode state a model carries for b rows: (attention cache
+    bytes, recurrent state bytes). Attention: k and v of every slot of each
+    attention layer (a window layer min(W, cache_len) slots; hybrid's
+    n_layers / attn_every shared-block calls). Recurrent: hybrid's (B, H, N,
+    P) SSM state and (B, W-1, d_in + 2N) conv tail a layer; rwkv's (B, H,
+    hd, hd) state and two (B, 1, D) shifts a layer; 0 for the others."""
+    f4 = 4
+    slot = 2 * cfg.n_kv_heads * cfg.head_dim * f4  # one position's k and v
+    if cfg.family == "rwkv":
+        hd = cfg.rwkv.head_size
+        return 0, cfg.n_layers * b * ((cfg.d_model // hd) * hd * hd + 2 * cfg.d_model) * f4
+    if cfg.family == "hybrid":
+        ssm = cfg.ssm
+        d_in = ssm.expand * cfg.d_model
+        state = (d_in // ssm.head_dim) * ssm.d_state * ssm.head_dim
+        conv = (ssm.conv_width - 1) * (d_in + 2 * ssm.d_state)
+        return ((cfg.n_layers // cfg.attn_every) * b * cache_len * slot,
+                cfg.n_layers * b * (state + conv) * f4)
+    return sum(b * (min(w, cache_len) if w else cache_len) * slot for w in cfg.layer_windows()), 0
+
+
 def lm_bounds(cfg, b: int, t: int, cache_len: int, param_bytes: int) -> dict:
     """The card's least time for one prefill of b x t tokens and for one
-    decode step at the end of a cache_len cache: model_flops (dense params,
-    attention) plus the LM head on one position a row, against the params read
-    once and the f32 cache read or written once."""
+    decode step at the end of a cache_len cache: model_flops (active params,
+    attention, the SSM/RWKV sequence mix) plus the LM head on one position a
+    row, against every param read once (a MoE's static-capacity dispatch runs
+    every expert's slots, so all experts' weights count) and the decode
+    state (lm_state_bytes): a prefill writes it once; a step reads the
+    attention caches and reads and rewrites the recurrent states."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.configs.flops import model_flops
 
     head = 2.0 * b * cfg.d_model * cfg.vocab
-    kv_row = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 4  # k and v, f32
+    attn, rec = lm_state_bytes(cfg, b, cache_len)
     pre = model_flops(cfg, ShapeCell("serve_prefill", "prefill", t, b))["model_flops"] + head
     dec = model_flops(cfg, ShapeCell("serve_decode", "decode", cache_len, b))["model_flops"] + head
+    pre_bytes, dec_bytes = param_bytes + attn + rec, param_bytes + attn + 2 * rec
     return {
-        "prefill": bound_ms(pre, param_bytes + b * cache_len * kv_row),
-        "decode": bound_ms(dec, param_bytes + b * cache_len * kv_row),
-        "prefill_flops": pre, "decode_bytes": param_bytes + b * cache_len * kv_row,
+        "prefill": bound_ms(pre, pre_bytes), "decode": bound_ms(dec, dec_bytes),
+        "prefill_flops": pre, "decode_bytes": dec_bytes,
     }
 
 
@@ -3169,18 +3213,7 @@ def phase_lm_serve(card: str, dev):
     rng = np.random.default_rng(SEED)
     prompts = rng.integers(1, cfg.vocab, size=(LM_REQUESTS, LM_PROMPT + 1))
     reqs = [Request(prompt=[int(v) for v in p[:-1]], max_new_tokens=LM_NEW) for p in prompts]
-    first = engine.generate(reqs)  # warm-up: cuBLAS handles, the allocator's pool
-    runs = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t, (cpu, csw) = time.perf_counter(), host_usage()
-        outs = engine.generate(reqs)
-        wall_s = time.perf_counter() - t
-        cpu1, csw1 = host_usage()
-        runs.append((wall_s, dict(engine.stats), (cpu1 - cpu) / wall_s, csw1 - csw))
-        if [o.tokens for o in outs] != [o.tokens for o in first]:
-            raise AssertionError("LM serve: generate is not deterministic")
-    toks = torch.tensor([o.tokens for o in first])
+    toks, runs = lm_generate_runs(engine, reqs)
     if toks.shape != (LM_REQUESTS, LM_NEW) or not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
         raise AssertionError(f"LM serve: completions of shape {tuple(toks.shape)}")
     wall = statistics.median(r[0] for r in runs)
@@ -3236,6 +3269,195 @@ def phase_lm_serve(card: str, dev):
         f"{ties} at near-ties; one 8-token prefill card vs the port on the CPU (same weights, "
         f"{t_cpu:.1f} s there) max abs err {err_cpu:.3g}")
     return lm_embed_and_cluster(engine, p_bytes, dev)
+
+
+def lm_generate_runs(engine, reqs):
+    """generate: one warm-up, then three timed runs (host clock, each ending
+    in a host read), each with the process's CPU seconds over wall and its
+    involuntary context switches. Returns (first completions' tokens, runs)."""
+    import torch
+
+    first = engine.generate(reqs)  # warm-up: cuBLAS handles, the allocator's pool
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t, (cpu, csw) = time.perf_counter(), host_usage()
+        outs = engine.generate(reqs)
+        wall_s = time.perf_counter() - t
+        cpu1, csw1 = host_usage()
+        runs.append((wall_s, dict(engine.stats), (cpu1 - cpu) / wall_s, csw1 - csw))
+        if [o.tokens for o in outs] != [o.tokens for o in first]:
+            raise AssertionError(f"{engine.cfg.name}: generate is not deterministic")
+    return torch.tensor([o.tokens for o in first]), runs
+
+
+def moe_drops(fn, *args, **kwargs) -> tuple[int, int]:
+    """(dropped choices, choices) over every MoE layer of one call of fn:
+    the dispatch's sink slot counted layer by layer (a host read each, so
+    not timed)."""
+    from repro_torch.models import moe
+
+    seen = []
+    dispatch = moe._dispatch_group
+
+    def counting(xf, gate, eids, e, k, cap):
+        out = dispatch(xf, gate, eids, e, k, cap)
+        seen.append((int((out[1] == e * cap).sum()), out[1].numel()))
+        return out
+
+    moe._dispatch_group = counting
+    try:
+        fn(*args, **kwargs)
+    finally:
+        moe._dispatch_group = dispatch
+    return sum(d for d, _ in seen), sum(n for _, n in seen)
+
+
+def no_drop_config(cfg):
+    """A moe config whose capacity factor gives every expert t slots (cap =
+    t: int(t * k / E * E) + 1 > t), so no choice drops; others unchanged."""
+    import dataclasses
+
+    if cfg.family != "moe":
+        return cfg
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+
+
+def phase_lm_families(card: str, dev) -> None:
+    """The zoo's moe, hybrid and rwkv families (models/moe.py, ssm.py,
+    rwkv.py through transformer.py and ServeEngine) at their published
+    widths, f32 weights drawn on the card from SEED, one model at a time
+    (each freed before the next). Per model: (a) ServeEngine.generate on
+    LM_REQUESTS x LM_PROMPT + LM_NEW, a warm-up and three timed runs:
+    prefill ms, decode ms a step (median), tokens/s, each beside its bound
+    (lm_bounds), the host's CPU seconds over wall and involuntary context
+    switches; for a MoE the choices one prefill drops at the published
+    capacity factor; one prefill and one decode step profiled. (b)
+    prefill(T) + decode within LM_TOL of prefill(T + 1), greedy decode equal
+    to the teacher-forced argmax but at near-ties (a MoE at a copy of its
+    config whose capacity factor drops nothing: at the published one the
+    longer prefill drops other choices, as the reference's would). (c) one
+    8-token prefill on the card against the port on the CPU, the same
+    weights drawn from SEED at a shallower depth (host memory <= ~12 GB)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import lm_logits
+    from repro_torch.models.moe import capacity
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    for arch, depth, cpu_depth in LM_FAMILIES:
+        t_model = time.perf_counter()
+        full = get_config(arch)
+        cfg = full.replace(n_layers=depth) if depth else full
+        model = get_model(cfg)
+        t = time.perf_counter()
+        lm = model.init_params(torch.Generator(device=dev).manual_seed(SEED), dev)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in lm.parameters())
+        p_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+        if n_params != model.param_count():
+            raise AssertionError(f"{arch}: {n_params} params built, {model.param_count()} in the recs")
+        cut = (f"cut to {depth} of {full.n_layers} layers: the whole model is "
+               f"{4 * get_model(full).param_count():,} bytes in f32" if depth else "whole")
+        log(f"phase 4 LM families: {arch} ({cfg.family}) at its published widths (d_model "
+            f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab}), {cfg.n_layers} layers ({cut}): {n_params:,} params, "
+            f"{p_bytes:,} bytes f32, drawn on the device in {time.perf_counter() - t:.2f} s; {card}")
+
+        # (a) generate
+        engine = ServeEngine(cfg=cfg, params=lm, device=dev)
+        rng = np.random.default_rng(SEED)
+        prompts = rng.integers(1, cfg.vocab, size=(LM_REQUESTS, LM_PROMPT + 1))
+        reqs = [Request(prompt=[int(v) for v in p[:-1]], max_new_tokens=LM_NEW) for p in prompts]
+        toks, runs = lm_generate_runs(engine, reqs)
+        if toks.shape != (LM_REQUESTS, LM_NEW) or not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+            raise AssertionError(f"{arch}: completions of shape {tuple(toks.shape)}")
+        wall = statistics.median(r[0] for r in runs)
+        pre_ms = 1e3 * statistics.median(r[1]["prefill_s"] for r in runs)
+        steps = [st for r in runs for st in r[1]["decode_s"]]
+        dec_ms = 1e3 * statistics.median(steps)
+        cache_len = LM_PROMPT + LM_NEW
+        bnd = lm_bounds(cfg, LM_REQUESTS, LM_PROMPT, cache_len, p_bytes)
+        tok_bound = LM_REQUESTS * LM_NEW * 1e3 / (bnd["prefill"][0] + len(runs[0][1]["decode_s"])
+                                                   * bnd["decode"][0])
+        pre_runs = ", ".join(f"{1e3 * r[1]['prefill_s']:.3f}" for r in runs)
+        log(f"phase 4 LM families {arch} generate: {LM_REQUESTS} requests x {LM_PROMPT}-token "
+            f"prompts, {LM_NEW} new tokens, f32: wall {1e3 * wall:.2f} ms (median of 3) -> "
+            f"{LM_REQUESTS * LM_NEW / wall:.1f} tokens/s (bound {tok_bound:.1f}); prefill "
+            f"{pre_ms:.3f} ms (runs {pre_runs}), "
+            f"bound {bnd['prefill'][0]:.3f} ms ({bnd['prefill'][1]}: {bnd['prefill_flops']:.4g} "
+            f"flops); decode {dec_ms:.3f} ms a step (median of {len(steps)}; min "
+            f"{1e3 * min(steps):.3f}, max {1e3 * max(steps):.3f}), bound {bnd['decode'][0]:.3f} ms "
+            f"({bnd['decode'][1]}: {bnd['decode_bytes']:,} bytes), {bnd['decode'][0] / dec_ms:.1%} "
+            f"of it; host CPU seconds over wall {', '.join(f'{r[2]:.2f}' for r in runs)}, "
+            f"involuntary context switches {', '.join(str(r[3]) for r in runs)} "
+            f"({os.cpu_count()} cores)")
+        full_b = {"tokens": torch.from_numpy(prompts.astype(np.int32)).to(dev)}
+        pre = {"tokens": full_b["tokens"][:, :-1]}
+        if cfg.family == "moe":
+            dropped, choices = moe_drops(transformer.prefill, lm, cfg, pre, torch.float32,
+                                         cache_len=cache_len)
+            t_tok = LM_REQUESTS * LM_PROMPT
+            log(f"phase 4 LM families {arch}: one prefill of {LM_REQUESTS} x {LM_PROMPT} at the "
+                f"published capacity factor {cfg.moe.capacity_factor} ({t_tok} tokens, "
+                f"{capacity(cfg.moe, t_tok)} slots an expert) dropped {dropped} of {choices} choices over "
+                f"{cfg.n_layers - cfg.moe.first_k_dense} MoE layers; a decode step of "
+                f"{LM_REQUESTS} rows drops none (cap = t)")
+        profile_run(f"{arch} prefill {LM_REQUESTS} x {LM_PROMPT}", transformer.prefill, lm, cfg,
+                    pre, torch.float32, cache_len=cache_len)
+        _, caches, pos = transformer.prefill(lm, cfg, pre, torch.float32, cache_len=cache_len)
+        profile_run(f"{arch} decode step, {LM_REQUESTS} rows", transformer.decode_step, lm, cfg,
+                    full_b["tokens"][:, -1:], caches, pos)
+        del caches
+
+        # (b) the caches carry the forward's state; greedy = teacher-forced
+        ccfg = no_drop_config(cfg)
+        if ccfg is not cfg:
+            outs = ServeEngine(cfg=ccfg, params=lm, device=dev).generate(reqs)
+            toks = torch.tensor([o.tokens for o in outs])
+        want, _, _ = transformer.prefill(lm, ccfg, full_b, torch.float32)
+        _, caches, pos = transformer.prefill(lm, ccfg, pre, torch.float32, cache_len=LM_PROMPT + 8)
+        got, _ = transformer.decode_step(lm, ccfg, full_b["tokens"][:, -1:], caches, pos)
+        del caches
+        err = check_close(f"{arch} prefill(T)+decode vs prefill(T+1)", got, want, LM_TOL, LM_TOL)
+        seq = torch.cat([pre["tokens"], toks[:, :-1].to(dev, torch.int32)], dim=1)
+        with torch.no_grad():
+            h, _, _ = transformer.forward(lm, ccfg, {"tokens": seq})
+            tf_logits = lm_logits(lm.embed, h[:, LM_PROMPT - 1 :], ccfg)
+        ties = check_near_ties(f"{arch} greedy vs teacher-forced", toks.to(dev),
+                               tf_logits.argmax(-1), tf_logits, LM_TOL)
+        del h, tf_logits, engine, lm
+        torch.cuda.empty_cache()
+
+        # (c) card against CPU, the same weights at a shallower depth
+        dcfg = full.replace(n_layers=cpu_depth)
+        dmodel = get_model(dcfg)
+        on_card = dmodel.init_params(torch.Generator(device=dev).manual_seed(SEED), dev)
+        on_cpu = dmodel.init_params(torch.Generator(device=dev).manual_seed(SEED), "cpu")
+        one = pre["tokens"][:1, :8]
+        t = time.perf_counter()
+        ref_logits = transformer.prefill(on_cpu, dcfg, {"tokens": one.cpu()}, torch.float32)[0]
+        t_cpu = time.perf_counter() - t
+        err_cpu = check_close(f"{arch} prefill card vs CPU", transformer.prefill(
+            on_card, dcfg, {"tokens": one}, torch.float32)[0].cpu(), ref_logits, LM_TOL, LM_TOL)
+        del on_card, on_cpu
+        torch.cuda.empty_cache()
+        log(f"phase 4 LM families {arch} checks: prefill(T)+decode vs prefill(T+1) max abs err "
+            f"{err:.3g} (tol {LM_TOL}); greedy = teacher-forced argmax on {toks.numel()} tokens, "
+            f"{ties} at near-ties"
+            + (f" (both at capacity factor {ccfg.moe.capacity_factor}: cap = t, no drops)"
+               if ccfg is not cfg else "")
+            + f"; one 8-token prefill card vs the port on the CPU at {cpu_depth} of "
+            f"{full.n_layers} layers (same weights, {t_cpu:.1f} s there) max abs err {err_cpu:.3g}; "
+            f"{arch} took {time.perf_counter() - t_model:.1f} s")
+    log(f"phase 4 LM families took {time.perf_counter() - t_phase:.1f} s")
 
 
 def lm_decode_long(lm, cfg, p_bytes: int, dev) -> None:
@@ -3603,6 +3825,7 @@ def main() -> int:
     phase_lm_serve(card, dev)
     torch.cuda.empty_cache()
     log(f"phase 4 LM serve took {time.perf_counter() - t:.1f} s")
+    phase_lm_families(card, dev)
     t = time.perf_counter()
     phase_oracle(dev)
     phase_oracle_bkc(dev)

@@ -51,7 +51,8 @@ class Model:
 
 
 def get_model(cfg: ModelConfig) -> Model:
-    """Raises NotImplementedError for the families not ported yet."""
+    """The bound functions of any of the ten configs (every family is ported);
+    an unknown family raises ValueError, as in the reference."""
     return Model(cfg=cfg, recs=transformer.model_recs(cfg))
 
 

@@ -1065,7 +1065,9 @@ def test_cluster_service_on_card_matches_assign_batch_and_offline_buckshot(card)
 # ------------------------------------------------------------------ LM zoo
 
 
-LM_ARCHS = ["qwen2-1.5b", "llama3.2-3b", "minitron-8b", "gemma3-4b", "paligemma-3b", "whisper-base"]
+LM_NEW_FAMILIES = ["mixtral-8x22b", "moonshot-v1-16b-a3b", "zamba2-2.7b", "rwkv6-3b"]
+LM_ARCHS = ["qwen2-1.5b", "llama3.2-3b", "minitron-8b", "gemma3-4b", "paligemma-3b",
+            "whisper-base", *LM_NEW_FAMILIES]
 
 
 def _lm(arch, device, seed=0):
@@ -1122,3 +1124,68 @@ def test_lm_prefill_decode_consistent_on_card(card, arch):
 def pos_cap(cfg, t):
     """Cache capacity past a prompt of t text tokens (and a vlm's prefix)."""
     return t + 8 + (cfg.n_frontend_tokens if cfg.family == "vlm" else 0)
+
+
+def _tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree(v, fn) for v in tree]
+    return fn(tree)
+
+
+def _flat(tree) -> list:
+    out = []
+    _tree(tree, out.append)
+    return out
+
+
+@pytest.mark.parametrize("arch", LM_NEW_FAMILIES)
+def test_lm_family_on_card_matches_the_cpu(card, arch):
+    """moe, hybrid and rwkv at REDUCED, the same weights on the card and the
+    CPU: forward (and the MoE aux), prefill logits and every cache leaf
+    (K/V, SSM and RWKV states, conv tails, shifts), and one decode step
+    within rtol/atol 1e-4 (f32, no TF32)."""
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import make_batch
+
+    cfg, cpu = _lm(arch, "cpu", seed=5)
+    _, gpu = _lm(arch, card, seed=5)
+    batch = make_batch(cfg, 2, 21, torch.Generator().manual_seed(6), "cpu")
+    on_card = {k: v.to(card) for k, v in batch.items()}
+    tol = dict(rtol=1e-4, atol=1e-4)
+    h_c, aux_c, _ = transformer.forward(cpu, cfg, batch)
+    h_g, aux_g, _ = transformer.forward(gpu, cfg, on_card)
+    torch.testing.assert_close(h_g.cpu(), h_c, **tol)
+    torch.testing.assert_close(aux_g.cpu(), aux_c, **tol)
+    want = transformer.prefill(cpu, cfg, batch, torch.float32, cache_len=28)
+    got = transformer.prefill(gpu, cfg, on_card, torch.float32, cache_len=28)
+    torch.testing.assert_close(got[0].cpu(), want[0], **tol)
+    for g, w in zip(_flat(got[1]), _flat(want[1]), strict=True):
+        torch.testing.assert_close(g.cpu(), w, **tol)
+    step = batch["tokens"][:, -1:]
+    want_d = transformer.decode_step(cpu, cfg, step, want[1], want[2])
+    got_d = transformer.decode_step(gpu, cfg, step.to(card), got[1], got[2])
+    torch.testing.assert_close(got_d[0].cpu(), want_d[0], **tol)
+    for g, w in zip(_flat(got_d[1]), _flat(want_d[1]), strict=True):
+        torch.testing.assert_close(g.cpu(), w, **tol)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "moonshot-v1-16b-a3b"])
+def test_moe_prefill_on_card_is_deterministic(card, arch):
+    """Two MoE prefills on the card equal bit for bit, at the published
+    capacity factor (1.25), where tokens drop: the dispatch (stable sort,
+    bincount, distinct slots written by index) has no order to vary."""
+    import dataclasses
+
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import make_batch
+
+    cfg, gpu = _lm(arch, card, seed=7)
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=1.25))
+    batch = make_batch(cfg, 4, 32, torch.Generator().manual_seed(8), card)
+    a = transformer.prefill(gpu, cfg, batch, torch.float32)
+    b = transformer.prefill(gpu, cfg, batch, torch.float32)
+    assert torch.equal(a[0], b[0])
+    for x, y in zip(_flat(a[1]), _flat(b[1]), strict=True):
+        assert torch.equal(x, y)

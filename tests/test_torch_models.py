@@ -1,13 +1,15 @@
-"""The port's model zoo (configs, layers, attention, the dense/vlm/encdec
-models) against the JAX package's, on the CPU.
+"""The port's model zoo (configs, layers, attention, MoE, Mamba2, RWKV-6 and
+the models of all six families) against the JAX package's, on the CPU.
 
 Configs are copies and must equal the originals field for field. Layers and
 attention get the same numpy inputs in both packages and agree within
-rtol 1e-5 (a few f32 ulps; atol 1e-6 where outputs cross zero). Each ported
-arch runs at its REDUCED config with the JAX params carried across by
-``params_from_jax``: forward hidden states, prefill logits and caches (ring
-layout included) and one decode step agree within rtol/atol 1e-4, and the
-port's prefill(T) + decode equals its prefill(T + 1) within the same.
+rtol 1e-5 (a few f32 ulps; atol 1e-6 where outputs cross zero); the MoE
+dispatch's slots and tokens are equal as integers, drops included. Each of
+the ten archs runs at its REDUCED config with the JAX params carried across
+by ``params_from_jax``: forward hidden states, prefill logits and caches
+(ring layout, SSM and RWKV states included) and one decode step agree within
+rtol/atol 1e-4, and the port's prefill(T) + decode equals its prefill(T + 1)
+within the same.
 """
 
 from __future__ import annotations
@@ -36,8 +38,7 @@ from repro_torch.models import registry as tregistry
 from repro_torch.models import transformer as ttransformer
 from repro_torch.models.interop import params_from_jax
 
-PORTED = ["qwen2-1.5b", "llama3.2-3b", "minitron-8b", "gemma3-4b", "paligemma-3b", "whisper-base"]
-UNPORTED = ["mixtral-8x22b", "zamba2-2.7b", "rwkv6-3b"]
+PORTED = jconfigs.list_archs()
 LAYER_TOL = dict(rtol=1e-5, atol=1e-6)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -114,10 +115,11 @@ def test_recs_and_param_count_equal_the_reference(arch):
     assert abs(n - analytic) / analytic < 0.02
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    _, tcfg = _cfgs(arch)
-    with pytest.raises(NotImplementedError, match="item 12b"):
+def test_unknown_family_raises():
+    jcfg, tcfg = (c.replace(family="mlp-mixer") for c in _cfgs("qwen2-1.5b"))
+    with pytest.raises(ValueError, match="unknown family mlp-mixer"):
+        jtransformer.model_recs(jcfg)
+    with pytest.raises(ValueError, match="unknown family mlp-mixer"):
         tregistry.get_model(tcfg)
 
 
@@ -149,16 +151,16 @@ def test_init_params_follow_the_reference_rules():
 
 @pytest.mark.parametrize("arch", PORTED)
 def test_init_cache_matches_the_reference(arch):
-    """Slots per layer (gemma3's rings), dtypes and encdec's enc_out."""
+    """The same tree: slots per layer (gemma3's rings), encdec's enc_out,
+    hybrid's SSM states and conv tails beside its shared-block caches,
+    rwkv's shifts and states; every leaf zero, of the reference's dtype."""
     jcfg, tcfg = _cfgs(arch)
-    want = jtransformer.init_cache(jcfg, 2, 100, jnp.float32)
-    got = tregistry.get_model(tcfg).init_cache(2, 100, torch.float32, "cpu")
-    for g, w in zip(_cache_layers(got), _cache_layers(want), strict=True):
-        for name in ("k", "v"):
-            assert tuple(g[name].shape) == w[name].shape and not g[name].any()
-            assert g[name].dtype == torch.float32
-    if isinstance(want, dict):
-        assert tuple(got["enc_out"].shape) == want["enc_out"].shape
+    want = jtransformer.init_cache(jcfg, 2, 100, jnp.bfloat16)
+    got = tregistry.get_model(tcfg).init_cache(2, 100, torch.bfloat16, "cpu")
+    assert _paths(got) == _paths(want)
+    for (_, g), (_, w) in zip(_leaves(got), _leaves(want), strict=True):
+        assert tuple(g.shape) == w.shape and not g.any()
+        assert str(g.dtype).removeprefix("torch.") == str(w.dtype)
 
 
 # ------------------------------------------------------------------ layers
@@ -294,10 +296,29 @@ def _both(arch: str):
     return jcfg, tcfg, params, lm
 
 
-def _clone(caches):
-    if isinstance(caches, dict):
-        return {"self": _clone(caches["self"]), "enc_out": caches["enc_out"].clone()}
-    return [{k: v.clone() for k, v in c.items()} for c in caches]
+def _leaves(tree, path=()):
+    """(path, leaf) of a cache tree (dicts, lists), dict keys sorted."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _leaves(tree[key], path + (key,))
+    elif isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            yield from _leaves(sub, path + (i,))
+    else:
+        yield path, tree
+
+
+def _paths(tree) -> list:
+    return [path for path, _ in _leaves(tree)]
+
+
+def _clone(tree):
+    """A deep copy of a cache tree: decode writes attention caches in place."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(v) for v in tree]
+    return tree.clone()
 
 
 @pytest.fixture(scope="module", params=PORTED)
@@ -330,17 +351,13 @@ def run(request):
     return jcfg, j, p
 
 
-def _cache_layers(caches):
-    return caches["self"] if isinstance(caches, dict) else caches
-
-
 def _check_caches(got, want) -> None:
-    for g, w in zip(_cache_layers(got), _cache_layers(want), strict=True):
-        for name in ("k", "v"):
-            assert tuple(g[name].shape) == w[name].shape
-            _close(g[name], w[name], MODEL_TOL)
-    if isinstance(want, dict):
-        _close(got["enc_out"], want["enc_out"], MODEL_TOL)
+    """Every leaf of the tree (attention K/V, enc_out, SSM and RWKV states,
+    conv tails and shifts) of the reference's shape, within MODEL_TOL."""
+    assert _paths(got) == _paths(want)
+    for (_, g), (_, w) in zip(_leaves(got), _leaves(want), strict=True):
+        assert tuple(g.shape) == w.shape
+        _close(g, w, MODEL_TOL)
 
 
 def test_forward_matches_the_reference(run):
@@ -386,3 +403,249 @@ def test_ring_cache_matches_the_reference():
     _check_caches(tc, jc)
     h, _, _ = ttransformer.forward(lm, tcfg, tb)
     _close(td, tlayers.lm_logits(lm.embed, h[:, -1], tcfg).numpy(), MODEL_TOL)
+
+
+# ------------------------------------------------------------------ MoE, Mamba2, RWKV-6
+
+
+from repro.models import moe as jmoe  # noqa: E402
+from repro.models import rwkv as jrwkv  # noqa: E402
+from repro.models import ssm as jssm  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models import rwkv as trwkv  # noqa: E402
+from repro_torch.models import ssm as tssm  # noqa: E402
+
+MOE_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _pair(tree: dict):
+    """A numpy tree as JAX arrays and as torch tensors."""
+    return (
+        {k: _pair(v)[0] if isinstance(v, dict) else jnp.asarray(v) for k, v in tree.items()},
+        {k: _pair(v)[1] if isinstance(v, dict) else _t(v) for k, v in tree.items()},
+    )
+
+
+def _moe_case(rng, arch: str, cf: float, skew: bool):
+    """REDUCED moe config at capacity factor ``cf``; 2 x 16 tokens. With
+    ``skew`` every token's router logit for expert 0 is pushed up, so that
+    expert 0 gets more choices than its slots."""
+    jcfg, tcfg = (c.replace(moe=dataclasses.replace(c.moe, capacity_factor=cf)) for c in _cfgs(arch))
+    p = _random_tree(rng, jmoe.moe_recs(jcfg))
+    x = rng.normal(size=(2, 16, jcfg.d_model)).astype(np.float32)
+    if skew:
+        p["router"][:, 0] += 1.0
+        x += 1.0
+    return jcfg, tcfg, p, x
+
+
+@pytest.mark.parametrize("arch,cf,skew", [
+    ("mixtral-8x22b", 8.0, False),  # virtual experts (split 4), no drops
+    ("mixtral-8x22b", 1.0, True),  # drops
+    ("moonshot-v1-16b-a3b", 8.0, False),
+    ("moonshot-v1-16b-a3b", 1.0, True),
+])
+def test_moe_apply_matches_the_reference(rng, arch, cf, skew):
+    """Output within 1e-5, aux within 1e-6; the router's choices and the
+    dispatch's slots (dest) and tokens (tok) equal as integers, drops too."""
+    jcfg, tcfg, p, x = _moe_case(rng, arch, cf, skew)
+    jp, tp = _pair(p)
+    jout, jaux = jax.jit(lambda p, x: jmoe.moe_apply(p, x, jcfg))(jp, jnp.asarray(x))
+    tout, taux = tmoe.moe_apply(tp, _t(x), tcfg)
+    _close(tout, jout, MOE_TOL)
+    _close(taux, jaux, dict(rtol=0, atol=1e-6))
+
+    moe, t = tcfg.moe, 2 * 16
+    e, k = moe.n_experts, moe.top_k
+    xf = x.reshape(t, -1)
+    jprobs = jax.nn.softmax(jnp.asarray(xf) @ jp["router"], axis=-1)
+    jgate, jeids = jax.lax.top_k(jprobs, k)
+    _, _, tgate, teids = tmoe.route(tp, _t(xf), tcfg)
+    np.testing.assert_array_equal(teids.numpy(), np.asarray(jeids))
+    _close(tgate, jgate / jnp.sum(jgate, axis=-1, keepdims=True), MOE_TOL)
+    cap = tmoe.capacity(moe, t)
+    jbuf, jdest, jtok = jmoe._dispatch_group(jnp.asarray(xf), jgate, jeids, e, k, cap)
+    tbuf, tdest, ttok = tmoe._dispatch_group(_t(xf), tgate, teids, e, k, cap)
+    np.testing.assert_array_equal(tdest.numpy(), np.asarray(jdest))
+    np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+    np.testing.assert_array_equal(tbuf.numpy(), np.asarray(jbuf)[: e * cap])
+    dropped = int((tdest == e * cap).sum())
+    assert (dropped > 0) == skew, dropped
+
+
+def test_moe_router_ties_go_to_the_lowest_index():
+    """A zero router gives every expert the same probability: the top k are
+    experts 0..k-1, as ``jax.lax.top_k`` ranks them."""
+    jcfg, tcfg = _cfgs("moonshot-v1-16b-a3b")
+    p = {"router": np.zeros((jcfg.d_model, jcfg.moe.n_experts), np.float32)}
+    x = np.ones((5, jcfg.d_model), np.float32)
+    _, jeids = jax.lax.top_k(jax.nn.softmax(jnp.asarray(x) @ jnp.asarray(p["router"])), 2)
+    _, _, gate, eids = tmoe.route({"router": _t(p["router"])}, _t(x), tcfg)
+    np.testing.assert_array_equal(eids.numpy(), np.asarray(jeids))
+    assert eids.tolist() == [[0, 1]] * 5 and bool((gate == 0.5).all())
+
+
+def test_moe_virtual_experts_equal_the_unsplit_experts():
+    """mixtral REDUCED (4 experts split 4 ways at TP = 16): the virtual-expert
+    path equals each token through its top-k full-width experts (no drops)."""
+    cfg = tconfigs.get_config("mixtral-8x22b", reduced=True)
+    recs = tmoe.moe_recs(cfg)
+    assert recs["w_gate"].shape[0] == 16
+    p = tcommon.materialize(torch.Generator().manual_seed(0), recs, "cpu")
+    x = torch.randn((2, 8, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    out, _ = tmoe.moe_apply(p, x, cfg)
+    e, f, split = cfg.moe.n_experts, cfg.moe.d_ff_expert, 16 // cfg.moe.n_experts
+
+    def unsplit(w):  # (e*split, d, f/split) -> (e, d, f)
+        return w.reshape(e, split, w.shape[1], -1).permute(0, 2, 1, 3).reshape(e, w.shape[1], f)
+
+    wg, wi = unsplit(p["w_gate"]), unsplit(p["w_in"])
+    wo = p["w_out"].reshape(e, f, -1)
+    xf = x.reshape(-1, cfg.d_model)
+    _, _, gate, eids = tmoe.route(p, xf, cfg)
+    want = torch.zeros_like(xf)
+    for t in range(xf.shape[0]):
+        for j in range(cfg.moe.top_k):
+            ei = int(eids[t, j])
+            hx = torch.nn.functional.silu(xf[t] @ wg[ei]) * (xf[t] @ wi[ei])
+            want[t] += gate[t, j] * (hx @ wo[ei])
+    _close(out.reshape(-1, cfg.d_model), want.numpy(), dict(rtol=2e-4, atol=2e-4))
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "moonshot-v1-16b-a3b"])
+def test_moe_aux_is_at_least_one(arch):
+    """The load-balance loss summed over the MoE layers through ``forward``:
+    each layer's is >= 1 by Cauchy-Schwarz (Switch), so their sum is at
+    least the MoE layer count."""
+    cfg = tconfigs.get_config(arch, reduced=True)
+    model = tregistry.get_model(cfg)
+    lm = model.init_params(torch.Generator().manual_seed(7), "cpu")
+    batch = tregistry.make_batch(cfg, 2, 32, torch.Generator().manual_seed(8), "cpu")
+    _, aux = model.forward(lm, batch)
+    assert float(aux) >= (cfg.n_layers - cfg.moe.first_k_dense) * (1.0 - 1e-3)
+
+
+def _mamba(rng):
+    jcfg, tcfg = _cfgs("zamba2-2.7b")
+    p = _random_tree(rng, jssm.mamba_recs(jcfg))
+    return jcfg, tcfg, p
+
+
+@pytest.mark.parametrize("s", [16, 21, 40])  # one chunk; front-padded; 3 chunks, padded
+def test_mamba_apply_matches_the_reference(rng, s):
+    jcfg, tcfg, p = _mamba(rng)
+    jp, tp = _pair(p)
+    x = rng.normal(size=(2, s, jcfg.d_model)).astype(np.float32)
+    jout, jcache = jax.jit(lambda p, x: jssm.mamba_apply(p, x, jcfg, return_cache=True))(
+        jp, jnp.asarray(x)
+    )
+    tout, tcache = tssm.mamba_apply(tp, _t(x), tcfg, return_cache=True)
+    _close(tout, jout, MOE_TOL)
+    for name in ("state", "conv"):
+        assert tuple(tcache[name].shape) == jcache[name].shape
+        _close(tcache[name], jcache[name], MOE_TOL)
+
+
+def test_mamba_decode_matches_the_reference(rng):
+    jcfg, tcfg, p = _mamba(rng)
+    jp, tp = _pair(p)
+    x = rng.normal(size=(3, 1, jcfg.d_model)).astype(np.float32)
+    shapes = jax.tree_util.tree_map(np.shape, jssm.mamba_cache_init(jcfg, 3))
+    cache = {k: rng.normal(size=v).astype(np.float32) for k, v in shapes.items()}
+    jcache = {k: jnp.asarray(v) for k, v in cache.items()}
+    jout, jc = jax.jit(lambda *a: jssm.mamba_decode(*a, jcfg))(jp, jnp.asarray(x), jcache)
+    tout, tc = tssm.mamba_decode(tp, _t(x), {k: _t(v) for k, v in cache.items()}, tcfg)
+    _close(tout, jout, MOE_TOL)
+    for name in ("state", "conv"):
+        _close(tc[name], jc[name], MOE_TOL)
+
+
+def test_ssm_prefill_state_matches_stepwise():
+    """Mamba2's chunked prefill (21 tokens: front-padded to 2 chunks of 16)
+    against 21 decode steps from a zero cache: outputs and the final state."""
+    cfg = tconfigs.get_config("zamba2-2.7b", reduced=True)
+    lm = tregistry.get_model(cfg).init_params(torch.Generator().manual_seed(9), "cpu")
+    lp = lm.layers[0].mamba
+    x = torch.randn((1, 21, cfg.d_model), generator=torch.Generator().manual_seed(10))
+    with torch.no_grad():
+        out_full, cache = tssm.mamba_apply(lp, x, cfg, return_cache=True)
+        state = tssm.mamba_cache_init(cfg, 1)
+        outs = []
+        for t in range(21):
+            o, state = tssm.mamba_decode(lp, x[:, t : t + 1], state, cfg)
+            outs.append(o)
+    tol = dict(rtol=5e-3, atol=5e-3)
+    _close(out_full, torch.cat(outs, dim=1).numpy(), tol)
+    _close(cache["state"], state["state"].numpy(), tol)
+    # the conv tail holds the last projections: another matmul shape a step
+    _close(cache["conv"], state["conv"].numpy(), MOE_TOL)
+
+
+def _wkv_inputs(rng, b, s, h, hd):
+    r, k, v = (rng.normal(size=(b, s, h, hd)).astype(np.float32) for _ in range(3))
+    lw = -np.exp(rng.normal(size=(b, s, h, hd)) * 0.5 - 1.0).astype(np.float32)
+    u = rng.normal(size=(h, hd)).astype(np.float32) * 0.3
+    state0 = rng.normal(size=(b, h, hd, hd)).astype(np.float32)
+    return r, k, v, lw, u, state0
+
+
+@pytest.mark.parametrize("s,chunk", [(32, 8), (24, 24)])
+def test_wkv_chunked_matches_the_scan_and_the_reference(rng, s, chunk):
+    """The chunked WKV (a carried state0, up to 4 chunks) against the port's
+    per-token scan and the reference's chunked form."""
+    r, k, v, lw, u, state0 = _wkv_inputs(rng, 2, s, 3, 8)
+    got, got_state = trwkv._wkv_chunked(*map(_t, (r, k, v, lw, u, state0)), chunk)
+    scan, scan_state = trwkv._wkv_scan(_t(r), _t(k), _t(v), torch.exp(_t(lw)), _t(u), _t(state0))
+    _close(got, scan.numpy(), dict(rtol=1e-4, atol=1e-4))
+    _close(got_state, scan_state.numpy(), dict(rtol=1e-4, atol=1e-4))
+    want, want_state = jax.jit(lambda *a: jrwkv._wkv_chunked(*a, chunk))(
+        *map(jnp.asarray, (r, k, v, lw, u, state0))
+    )
+    _close(got, want, MOE_TOL)
+    _close(got_state, want_state, MOE_TOL)
+
+
+@pytest.mark.parametrize("s,cached", [(12, False), (40, False), (40, True), (1, True)])
+def test_rwkv_mix_matches_the_reference(rng, s, cached):
+    """timemix_apply and channelmix_apply: one chunk, 40 tokens front-padded
+    to 2 chunks of 32, the same from a carried cache, and one decode token;
+    outputs and new caches within MODEL_TOL (the WKV state is a sum over
+    every token, in another order than XLA's)."""
+    jcfg, tcfg = _cfgs("rwkv6-3b")
+    tm = _random_tree(rng, jrwkv.timemix_recs(jcfg))
+    # log-decays of order 1 (|dd| ~ 1, as trained RWKV-6 decays are): the
+    # chunked form's cumsum of far larger ones rounds alike in neither package
+    tm["decay_lora_b"] *= 0.1
+    cm = _random_tree(rng, jrwkv.channelmix_recs(jcfg))
+    x = rng.normal(size=(2, s, jcfg.d_model)).astype(np.float32)
+    shapes = jax.tree_util.tree_map(np.shape, jrwkv.rwkv_cache_init(jcfg, 2))
+    cache = {g: {k: rng.normal(size=v).astype(np.float32) for k, v in sub.items()}
+             for g, sub in shapes.items()} if cached else None
+    jc, tc = _pair(cache) if cached else ({"time": None, "chan": None},) * 2
+    for jfn, p, name in ((jrwkv.timemix_apply, tm, "time"), (jrwkv.channelmix_apply, cm, "chan")):
+        jp, tp = _pair(p)
+        jout, jnew = jax.jit(lambda p, x, c, f=jfn: f(p, x, jcfg, c))(jp, jnp.asarray(x), jc[name])
+        tfn = trwkv.timemix_apply if name == "time" else trwkv.channelmix_apply
+        tout, tnew = tfn(tp, _t(x), tcfg, tc[name])
+        _close(tout, jout, MODEL_TOL)
+        for key in jnew:
+            _close(tnew[key], jnew[key], MODEL_TOL)
+
+
+def test_rwkv_forward_matches_stepwise():
+    """The chunked time-mix over 40 tokens against 40 one-token steps (the
+    scan route) carrying the shift and the state."""
+    cfg = tconfigs.get_config("rwkv6-3b", reduced=True)
+    lm = tregistry.get_model(cfg).init_params(torch.Generator().manual_seed(11), "cpu")
+    lp = lm.layers[0].time
+    x = torch.randn((1, 40, cfg.d_model), generator=torch.Generator().manual_seed(12))
+    with torch.no_grad():
+        out_full, cache_full = trwkv.timemix_apply(lp, x, cfg)
+        cache = trwkv.rwkv_cache_init(cfg, 1)["time"]
+        outs = []
+        for t in range(40):
+            o, cache = trwkv.timemix_apply(lp, x[:, t : t + 1], cfg, cache)
+            outs.append(o)
+    tol = dict(rtol=5e-3, atol=5e-3)
+    _close(out_full, torch.cat(outs, dim=1).numpy(), tol)
+    _close(cache_full["state"], cache["state"].numpy(), tol)
