@@ -178,7 +178,17 @@ Phases, in order; any failure raises and exits non-zero:
      prefill and one step profiled; prefill(T) + decode against prefill(T +
      1) and greedy against teacher-forced within 2e-3 (MoE at a capacity
      factor that drops nothing); one 8-token prefill against the port on the
-     CPU at a shallower depth with the same weights.
+     CPU at a shallower depth with the same weights. Then the zoo's training
+     path (phase_lm_train): the ten configs' loss_fn and grads at REDUCED on
+     the card against the CPU (loss within 1e-5 relative, each gradient
+     leaf within 1e-4 of its max |g|); qwen2-1.5b at its published widths
+     cut to 2 layers: one train_step of 8 x 128 tokens (grad_accum 2) card
+     against CPU (params, m and v within 1e-5) and train() preempted at
+     step 3 and resumed from its step-2 checkpoint, torch.equal to an
+     uninterrupted run, with the checkpoint's bytes and write and read
+     seconds; qwen2-1.5b whole, train() for 6 steps of 8 x 128 (each loss
+     finite; step ms, tokens/s, peak memory, the bound, one step profiled);
+     launch/train.py at REDUCED for 3 steps.
   5. End-to-end oracles at the 20 Newsgroups shape: Buckshot (k = 20) and BKC
      (Table 1: k = 50, BigK = 250) on the card against the plain path on the
      CPU, on the same draws; BKC also on that collection with 5 % off-topic
@@ -3460,6 +3470,210 @@ def phase_lm_families(card: str, dev) -> None:
     log(f"phase 4 LM families took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------------------ LM training
+
+LM_TRAIN_B, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 128, 6  # the full-width run (d)
+LM_TRAIN_CUT = 2  # layers of the card-vs-CPU step (b) and the resume (c)
+LM_GRAD_REL = 1e-4  # of each gradient leaf's max |g|, card vs CPU
+LM_LOSS_RTOL = 1e-5
+LM_STEP_ATOL = 1e-5  # params, m, v after one step (the reference's own grad-accum bound)
+
+
+def lm_train_grads(cfg, lm, batch):
+    """(loss, [stacked gradient leaves]) of loss_fn on lm's device."""
+    from repro_torch.models import transformer
+    from repro_torch.models.common import leaves
+
+    bufs = transformer.grad_buffers(lm)
+    for _, g in leaves(bufs):
+        g.zero_()
+    loss, _ = transformer.loss_fn(lm, cfg, batch)
+    loss.backward()
+    return float(loss.detach()), [g for _, g in leaves(bufs)]
+
+
+def leaves_max_abs(a, b) -> float:
+    """Largest |a - b| over two lists of tensors (b on the CPU)."""
+    return max(float((x.cpu() - y).abs().max()) for x, y in zip(a, b, strict=True))
+
+
+def phase_lm_train(card: str, dev) -> None:
+    """The LM zoo's training path (repro_torch.train, loss_fn, chunked_ce,
+    launch/train.py) on the card, f32, no TF32; any failure raises.
+    (a) loss_fn and its grads for each of the ten configs at REDUCED, card
+    against the CPU on the same weights and batch: the loss within
+    LM_LOSS_RTOL, each gradient leaf within LM_GRAD_REL of its max |g|.
+    (b) qwen2-1.5b at its published widths cut to LM_TRAIN_CUT layers: one
+    train_step (grad_accum=2, 8 x 128) on the card against the CPU from the
+    same weights: the loss within LM_LOSS_RTOL, params, m and v within
+    LM_STEP_ATOL. (c) train() on that model, 4 steps with ckpt_every=2 and
+    preempt_at=3, resumed: params and moments torch.equal to an
+    uninterrupted run's; the checkpoint's size and its write and read
+    seconds. (d) qwen2-1.5b whole: train() for LM_TRAIN_STEPS steps of 8 x
+    128 (remat full, AdamW, grad_accum=2): each loss (finite), the median
+    step of steps 2-6, tokens/s, peak device memory, one step profiled, and
+    the bound (model_flops at this shape over PEAK_FP32_FLOPS). Then
+    launch/train.py at REDUCED for 3 steps through main(argv)."""
+    import math
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.configs.flops import model_flops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.common import leaves
+    from repro_torch.models.registry import get_model, make_batch
+    from repro_torch.train import checkpoint as ckpt_mod
+    from repro_torch.train import data as data_mod
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.loop import batch_at, train
+    from repro_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    # (a) loss and grads at REDUCED, card against CPU
+    rows = []
+    for arch in list_archs():
+        cfg = get_config(arch, reduced=True)
+        model = get_model(cfg)
+        on_card = model.init_params(torch.Generator(device=dev).manual_seed(SEED), dev)
+        on_cpu = model.init_params(torch.Generator(device=dev).manual_seed(SEED), "cpu")
+        batch = make_batch(cfg, 2, 24, torch.Generator().manual_seed(SEED), "cpu")
+        loss_c, g_c = lm_train_grads(cfg, on_cpu, batch)
+        loss_g, g_g = lm_train_grads(cfg, on_card, {k: v.to(dev) for k, v in batch.items()})
+        worst = max(float((g.cpu() - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                    for g, w in zip(g_g, g_c, strict=True))
+        rel = abs(loss_g - loss_c) / abs(loss_c)
+        if worst > LM_GRAD_REL or rel > LM_LOSS_RTOL:
+            raise AssertionError(f"LM train {arch}: grads {worst:.3g} of max |g| (limit "
+                                 f"{LM_GRAD_REL}), loss {rel:.3g} relative (limit {LM_LOSS_RTOL})")
+        rows.append(f"{arch} {worst:.3g}/{rel:.3g}")
+    log(f"phase 4 LM train (a) loss_fn grads card vs CPU at REDUCED, 2 x 24 tokens (largest "
+        f"error over max |g| of a leaf / loss relative error; limits {LM_GRAD_REL} / "
+        f"{LM_LOSS_RTOL}): {'; '.join(rows)}")
+
+    # (b) one step at full width, LM_TRAIN_CUT layers, card against CPU
+    full = get_config(LM_ARCH)
+    cut = full.replace(n_layers=LM_TRAIN_CUT)
+    model = get_model(cut)
+    gen = lambda: torch.Generator(device=dev).manual_seed(SEED)  # noqa: E731
+    lm = model.init_params(gen(), dev)
+    cpu = model.init_params(gen(), "cpu")
+    n_cut = model.param_count()
+    dcfg = data_mod.DataConfig(vocab=cut.vocab, batch=LM_TRAIN_B, seq=LM_TRAIN_SEQ, seed=SEED)
+    # the default schedule: lr 3e-6 at step 1, so a gradient entry near 0 whose
+    # sign differs between card and CPU moves its param by at most 6e-6
+    fn = make_train_step(cut, opt_mod.AdamWConfig())
+    st_g, st_c = opt_mod.init(lm.stacked), opt_mod.init(cpu.stacked)
+    (_, _, m_g), t_g = sync_time(fn, lm, st_g, batch_at(cut, dcfg, 0, dev))
+    t = time.perf_counter()
+    _, _, m_c = fn(cpu, st_c, batch_at(cut, dcfg, 0, "cpu"))
+    t_c = time.perf_counter() - t
+    rel = abs(float(m_g["loss"]) - float(m_c["loss"])) / abs(float(m_c["loss"]))
+    errs = {name: leaves_max_abs([x for _, x in leaves(a)], [y for _, y in leaves(b)])
+            for name, a, b in (("params", lm.stacked, cpu.stacked), ("m", st_g["m"], st_c["m"]),
+                               ("v", st_g["v"], st_c["v"]))}
+    if rel > LM_LOSS_RTOL or max(errs.values()) > LM_STEP_ATOL:
+        raise AssertionError(f"LM train (b): loss {rel:.3g} relative, {errs} (limits "
+                             f"{LM_LOSS_RTOL}, {LM_STEP_ATOL})")
+    log(f"phase 4 LM train (b) {cut.name} at its published widths, {LM_TRAIN_CUT} of "
+        f"{full.n_layers} layers ({n_cut:,} f32 params), one train_step of {LM_TRAIN_B} x "
+        f"{LM_TRAIN_SEQ} (grad_accum={cut.grad_accum}) card vs CPU from the same weights: loss "
+        f"{float(m_g['loss']):.6f} vs {float(m_c['loss']):.6f} ({rel:.3g} relative, limit "
+        f"{LM_LOSS_RTOL}); max abs error params {errs['params']:.3g}, m {errs['m']:.3g}, "
+        f"v {errs['v']:.3g} (limit {LM_STEP_ATOL}); grad_norm {float(m_g['grad_norm']):.6f} vs "
+        f"{float(m_c['grad_norm']):.6f}; the step took {t_g:.2f} s on the card (first call), "
+        f"{t_c:.1f} s on the CPU")
+    del lm, cpu, st_g, st_c, fn
+    torch.cuda.empty_cache()
+
+    # (c) resume on the card: 4 steps, checkpoints every 2, preempted at 3
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    ck = tempfile.mkdtemp(prefix="lm_train_ckpt_", dir=build)
+    try:
+        kw = dict(steps=4, batch=LM_TRAIN_B, seq=LM_TRAIN_SEQ, seed=SEED, log_every=0, device=dev)
+        whole = train(cut, **kw)
+        try:
+            train(cut, ckpt_dir=ck, ckpt_every=2, preempt_at=3, **kw)
+            raise AssertionError("LM train (c): the preemption did not happen")
+        except KeyboardInterrupt:
+            pass
+        torch.cuda.empty_cache()
+        resumed = train(cut, ckpt_dir=ck, ckpt_every=2, **kw)
+        if resumed.resumed_from != 2 or resumed.losses != whole.losses[2:]:
+            raise AssertionError(f"LM train (c): resumed from {resumed.resumed_from}, losses "
+                                 f"{resumed.losses} vs {whole.losses[2:]}")
+        for name, a, b in (("params", whole.params.stacked, resumed.params.stacked),
+                           ("m", whole.opt_state["m"], resumed.opt_state["m"]),
+                           ("v", whole.opt_state["v"], resumed.opt_state["v"])):
+            for (path, x), (_, y) in zip(leaves(a), leaves(b), strict=True):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"LM train (c): resumed {name} {path} differs")
+        state = {"params": resumed.params.stacked, "opt": resumed.opt_state}
+        t = time.perf_counter()
+        path = ckpt_mod.save(ck, 99, state)
+        t_w = time.perf_counter() - t
+        size = sum(f.stat().st_size for f in Path(path).iterdir())
+        t = time.perf_counter()
+        back = ckpt_mod.restore(ck, 99, state, "cpu")
+        t_r = time.perf_counter() - t
+        del back
+        log(f"phase 4 LM train (c) resume on the card ({LM_TRAIN_CUT} layers): 4 steps with "
+            f"ckpt_every=2, preempted at step 3, resumed from step {resumed.resumed_from}: params, "
+            f"m and v torch.equal to the uninterrupted run's, losses "
+            f"{', '.join(f'{v:.6f}' for v in whole.losses)}; one checkpoint (params + m + v + "
+            f"step) {size:,} bytes, written in {t_w:.2f} s, read back to the host in {t_r:.2f} s")
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    del whole, resumed, state
+    torch.cuda.empty_cache()
+
+    # (d) the slice at full width: qwen2-1.5b whole
+    torch.cuda.reset_peak_memory_stats()
+    n_full = get_model(full).param_count()
+    res = train(full, steps=LM_TRAIN_STEPS, batch=LM_TRAIN_B, seq=LM_TRAIN_SEQ, seed=SEED,
+                log_every=0, device=dev)
+    if len(res.losses) != LM_TRAIN_STEPS or not all(math.isfinite(v) for v in res.losses):
+        raise AssertionError(f"LM train (d): losses {res.losses}")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = 1e3 * statistics.median(res.step_s[1:])
+    tokens = LM_TRAIN_B * LM_TRAIN_SEQ
+    mf = model_flops(full, ShapeCell("train", "train", LM_TRAIN_SEQ, LM_TRAIN_B))["model_flops"]
+    bound = 1e3 * mf / PEAK_FP32_FLOPS
+    head = 6.0 * full.vocab * full.d_model * tokens  # the tied LM head, not in model_flops
+    bound_head = 1e3 * (mf + head) / PEAK_FP32_FLOPS
+    log(f"phase 4 LM train (d) {full.name} whole ({full.n_layers} layers, {n_full:,} f32 params), "
+        f"train() {LM_TRAIN_STEPS} steps of {LM_TRAIN_B} x {LM_TRAIN_SEQ} tokens (remat "
+        f"{full.remat}, grad_accum={full.grad_accum}, AdamW), no TF32: losses "
+        f"{', '.join(f'{v:.6f}' for v in res.losses)}; step ms "
+        f"{', '.join(f'{1e3 * s:.1f}' for s in res.step_s)} (host clock, each ending in a host "
+        f"read of the loss); median of steps 2-{LM_TRAIN_STEPS} {step_ms:.1f} ms -> "
+        f"{tokens / step_ms * 1e3:.1f} tokens/s; bound {bound:.1f} ms (model_flops {mf:.4g} over "
+        f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s f32), {bound / step_ms:.1%} of it; with the tied "
+        f"head's 6 V d a token {bound_head:.1f} ms, {bound_head / step_ms:.1%}; peak device "
+        f"memory {peak:,} bytes ({peak / 2**30:.1f} GiB); {card}")
+    fn = make_train_step(full, opt_mod.AdamWConfig(total_steps=LM_TRAIN_STEPS, warmup_steps=5))
+    batch = batch_at(full, data_mod.DataConfig(vocab=full.vocab, batch=LM_TRAIN_B,
+                                               seq=LM_TRAIN_SEQ, seed=SEED), LM_TRAIN_STEPS, dev)
+    profile_run(f"LM train step {full.name} {LM_TRAIN_B} x {LM_TRAIN_SEQ}", fn, res.params,
+                res.opt_state, batch)
+    del res, fn, batch
+    torch.cuda.empty_cache()
+
+    # the launcher at REDUCED, on the card, through main(argv)
+    t = time.perf_counter()
+    rc = launch_train.main(["--arch", LM_ARCH, "--steps", "3", "--log-every", "1"])
+    if rc != 0:
+        raise AssertionError(f"launch/train.py exited {rc}")
+    log(f"phase 4 LM train: launch/train.py --arch {LM_ARCH} --steps 3 (REDUCED, mesh 1x1) on the "
+        f"card exited 0 in {time.perf_counter() - t:.1f} s; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s ({os.cpu_count()} host cores)")
+
+
 def lm_decode_long(lm, cfg, p_bytes: int, dev) -> None:
     """Decode at a long context: LM_REQUESTS rows one step at the end of an
     LM_LONG_CTX-slot f32 cache per layer (decode_32k's context at the batch
@@ -3826,6 +4040,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 4 LM serve took {time.perf_counter() - t:.1f} s")
     phase_lm_families(card, dev)
+    torch.cuda.empty_cache()
+    phase_lm_train(card, dev)
+    torch.cuda.empty_cache()
     t = time.perf_counter()
     phase_oracle(dev)
     phase_oracle_bkc(dev)

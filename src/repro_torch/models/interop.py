@@ -1,4 +1,4 @@
-"""Carry a model's weights from the JAX package to the port.
+"""Carry a model's weights between the JAX package and the port.
 
 The reference's param tree (nested dicts, layer weights stacked on axis 0)
 maps onto ``transformer.LM`` by name: ``params["layers"]["attn"]["wq"][i]``
@@ -31,3 +31,9 @@ def params_from_jax(
         raise ValueError(f"{cfg.name}: param tree does not match the config's recs")
     tensors = common.tree_map(lambda a: torch.from_numpy(np.array(a)).to(dev), tree)
     return transformer.LM(cfg, tensors).eval()
+
+
+def params_to_tree(params: transformer.LM) -> dict:
+    """The inverse of ``params_from_jax``: the model's stacked tree as numpy
+    arrays (copies), in the reference's layout and names."""
+    return common.tree_map(lambda t: t.detach().cpu().numpy().copy(), params.stacked)

@@ -12,6 +12,7 @@ from typing import Mapping
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import Rec
@@ -92,6 +93,38 @@ def lm_logits(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return h32 @ p["table"].float().T
     return h32 @ p["head"].float()
+
+
+def _ce_sum(p: Params, h: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Summed CE of one chunk: h (B,C,D), labels (B,C)."""
+    logits = lm_logits(p, h, cfg)  # (B,C,V) f32
+    lse = torch.logsumexp(logits, dim=-1)
+    true = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.sum(lse - true)
+
+
+def chunked_ce(
+    p: Params, h: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig, chunk: int = 512
+) -> torch.Tensor:
+    """Mean next-token CE without ever building the (B,S,V) logits.
+
+    Sums over sequence chunks; when a graph is built each chunk is
+    checkpointed, so backward recomputes its logits tile and live memory is
+    O(B * chunk * V). h (B,T,D), labels (B,T). The reference pads T to a
+    multiple of the chunk with weight-0 rows, which add exactly 0; the port
+    runs the last chunk short instead."""
+    b, t, _ = h.shape
+    grad = torch.is_grad_enabled() and (h.requires_grad or any(w.requires_grad for w in p.values()))
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for s in range(0, t, chunk):
+        args = (p, h[:, s : s + chunk], labels[:, s : s + chunk], cfg)
+        if grad:
+            total = total + checkpoint(_ce_sum, *args, use_reentrant=False,
+                                       preserve_rng_state=False)
+        else:
+            total = total + _ce_sum(*args)
+    # a 0-d divisor on the device: a Python one is a reciprocal product on CUDA
+    return total / torch.full((), float(b * t), device=h.device)
 
 
 # ------------------------------------------------------------------ attention block

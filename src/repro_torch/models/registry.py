@@ -40,6 +40,9 @@ class Model:
         h, aux, _ = transformer.forward(params, self.cfg, batch)
         return h, aux
 
+    def loss(self, params: transformer.LM, batch: dict):
+        return transformer.loss_fn(params, self.cfg, batch)
+
     def prefill(self, params: transformer.LM, batch: dict, cache_dtype=torch.bfloat16):
         return transformer.prefill(params, self.cfg, batch, cache_dtype)
 

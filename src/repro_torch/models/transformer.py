@@ -8,7 +8,19 @@ are the reference's (``layers.3.attn.wq`` is ``params["layers"]["attn"]["wq"][3]
 ``layers.3.time.w_r`` is ``params["layers"]["time"]["w_r"][3]``) and
 ``models.interop.params_from_jax`` is a rename plus an unstack. Layers run in
 a Python loop; every function takes ``cfg`` as the reference's do, and the
-modules hold only weights.
+modules hold only weights. ``LM.stacked`` keeps the stacked tree itself (the
+reference's layout, what the optimizer and checkpoints see): an in-place
+update of a stacked tensor is an update of every layer's parameter.
+
+Training: parameters are built with ``requires_grad=False`` (serving never
+builds a graph); ``grad_buffers`` turns them on and points each one's
+``.grad`` at its slice of a stacked buffer, so backward accumulates into the
+reference's layout in place. With grad enabled, ``forward`` checkpoints each
+layer call as ``cfg.remat`` says (the reference's ``_remat`` around its scan
+body): ``"full"`` recomputes the layer in backward, ``"dots"`` saves the
+plain matmuls' outputs (``aten.mm``/``addmm``: no batch dims, as
+``dots_with_no_batch_dims_saveable``) and recomputes the rest, ``"none"``
+saves everything. ``loss_fn`` is next-token CE through ``chunked_ce``.
 
 Families: a moe model runs its ``dense_layers`` (``first_k_dense``) and then
 its MoE ``layers`` as ``Block``s, summing the router's aux losses; hybrid
@@ -28,21 +40,24 @@ the SSM and RWKV states come back as new tensors in the returned caches.
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import apply_rope, cache_attention, flash_attention, rope_tables
-from repro_torch.models.common import Rec, stack
+from repro_torch.models.common import Rec, leaves, stack
 from repro_torch.models.layers import (
     attn_out,
     attn_recs,
+    chunked_ce,
     embed_lookup,
     embed_recs,
     layer_norm,
@@ -231,6 +246,7 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, tree: dict):
         super().__init__()
         self.cfg = cfg
+        self.stacked = tree  # the tensors every parameter is a view of
         fam = cfg.family
         self.embed = _group(tree["embed"])
         self.out_norm = _group(tree["out_norm"])
@@ -262,6 +278,64 @@ class LM(nn.Module):
     def blocks(self) -> list:
         """The attention layers in order (a moe model's dense ones first)."""
         return [*getattr(self, "dense_layers", []), *self.layers]
+
+    def views(self) -> dict:
+        """Leaf path of ``stacked`` -> [(layer index or None, parameter)]:
+        ``layers.3.attn.wq`` is ``(3, ...)`` under ``("layers", "attn", "wq")``."""
+        out: dict = {}
+        for name, p in self.named_parameters():
+            parts = name.split(".")
+            idx = int(parts.pop(1)) if len(parts) > 1 and parts[1].isdigit() else None
+            out.setdefault(tuple(parts), []).append((idx, p))
+        return out
+
+
+def grad_buffers(params: LM) -> dict:
+    """The stacked gradient tree (zeros at first, shaped and typed as
+    ``params.stacked``) that backward accumulates into: every parameter
+    takes gradients and its ``.grad`` is its slice of the buffer. Built once
+    a model; each call points the ``.grad``s at it again (a caller may have
+    reset them)."""
+    bufs = getattr(params, "_grad_bufs", None)
+    if bufs is None:
+        bufs = {}
+        for path, t in leaves(params.stacked):
+            node = bufs
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = torch.zeros_like(t)
+        params._grad_bufs = bufs
+    for path, views in params.views().items():
+        buf = bufs
+        for key in path:
+            buf = buf[key]
+        for idx, p in views:
+            p.requires_grad_(True)
+            p.grad = buf if idx is None else buf[idx]
+    return bufs
+
+
+# ================================================================== remat
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig, grad: bool):
+    """``fn`` checkpointed as ``cfg.remat`` says, when a graph is built."""
+    if not grad or cfg.remat == "none":
+        return fn
+    kw: dict = {"use_reentrant": False, "preserve_rng_state": False}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    elif cfg.remat != "full":
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    return functools.partial(ckpt.checkpoint, fn, **kw)
 
 
 # ================================================================== forward
@@ -302,19 +376,19 @@ def forward(params: LM, cfg: ModelConfig, batch: dict, collect: bool = False):
     rot = _rot(cfg, torch.arange(s, device=h.device)[None, :].expand(b, s))
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     raw: Any = None
+    grad = torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters())
+
+    def remat(fn):
+        return _remat(fn, cfg, grad)
 
     if fam == "hybrid":
         mcs, kvs = [], []
         for i, layer in enumerate(params.layers):
-            out = ssm_mod.mamba_apply(
-                layer.mamba, norm_apply(layer.ln, h), cfg, return_cache=collect
-            )
+            h, mc = remat(_mamba_layer)(layer, h, cfg, collect)
             if collect:
-                out, mc = out
                 mcs.append(mc)
-            h = h + out
             if (i + 1) % cfg.attn_every == 0:
-                h, kv, _ = params.shared(h, cfg, window=0, rot=rot)
+                h, kv, _ = remat(params.shared)(h, cfg, window=0, rot=rot)
                 if collect:
                     kvs.append(kv)
         raw = {"mamba": mcs, "kv": kvs}
@@ -322,12 +396,9 @@ def forward(params: LM, cfg: ModelConfig, batch: dict, collect: bool = False):
         h = norm_apply(params.ln_in, h)
         raw = []
         for layer in params.layers:
-            t, tc = rwkv_mod.timemix_apply(layer.time, norm_apply(layer.ln1, h), cfg)
-            h = h + t
-            c, cc = rwkv_mod.channelmix_apply(layer.chan, norm_apply(layer.ln2, h), cfg)
-            h = h + c
+            h, cache = remat(_rwkv_layer)(layer, h, cfg)
             if collect:
-                raw.append({"time": tc, "chan": cc})
+                raw.append(cache)
     else:  # dense, vlm, moe, encdec: attention blocks
         cross = None
         if fam == "encdec":
@@ -339,12 +410,12 @@ def forward(params: LM, cfg: ModelConfig, batch: dict, collect: bool = False):
             enc_rot = rope_tables(torch.arange(f, device=h.device)[None, :].expand(b, f),
                                   cfg.head_dim, cfg.rope_theta)
             for block in params.enc_layers:
-                enc_h, _, _ = block(enc_h, cfg, window=0, rot=enc_rot, causal=False)
+                enc_h, _, _ = remat(block)(enc_h, cfg, window=0, rot=enc_rot, causal=False)
             cross = norm_apply(params.enc_norm, enc_h)
             h = h + params.dec_pos[:s][None].to(h.dtype)
         kvs = []
         for block, window in zip(params.blocks(), cfg.layer_windows()):
-            h, kv, a = block(h, cfg, window=window, rot=rot, cross_ctx=cross)
+            h, kv, a = remat(block)(h, cfg, window=window, rot=rot, cross_ctx=cross)
             if a is not None:
                 aux = aux + a
             if collect:
@@ -352,6 +423,36 @@ def forward(params: LM, cfg: ModelConfig, batch: dict, collect: bool = False):
         raw = {"self": kvs, "enc_out": cross} if fam == "encdec" else kvs
 
     return norm_apply(params.out_norm, h), aux, (raw if collect else None)
+
+
+def _mamba_layer(layer: Groups, h: torch.Tensor, cfg: ModelConfig, collect: bool):
+    """One hybrid layer's residual Mamba2 step -> (h, its SSM cache or None)."""
+    out = ssm_mod.mamba_apply(layer.mamba, norm_apply(layer.ln, h), cfg, return_cache=collect)
+    if collect:
+        return h + out[0], out[1]
+    return h + out, None
+
+
+def _rwkv_layer(layer: Groups, h: torch.Tensor, cfg: ModelConfig):
+    """One RWKV layer (time mix, then channel mix) -> (h, its cache)."""
+    t, tc = rwkv_mod.timemix_apply(layer.time, norm_apply(layer.ln1, h), cfg)
+    h = h + t
+    c, cc = rwkv_mod.channelmix_apply(layer.chan, norm_apply(layer.ln2, h), cfg)
+    return h + c, {"time": tc, "chan": cc}
+
+
+# ================================================================== loss
+
+
+def loss_fn(params: LM, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, dict]:
+    """Next-token CE (+ 0.01 x the MoE aux) -> (loss, {"ce", "aux"}). VLM:
+    the loss covers the text positions only."""
+    h, aux, _ = forward(params, cfg, batch)
+    tokens = batch["tokens"]
+    if cfg.family == "vlm":
+        h = h[:, cfg.n_frontend_tokens :]
+    ce = chunked_ce(params.embed, h[:, :-1], tokens[:, 1:], cfg)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 # ================================================================== caches

@@ -1,0 +1,121 @@
+"""AdamW from scratch, with a warmup + cosine schedule.
+
+The port of the JAX package's ``train/optimizer.py`` (``AdamWConfig``,
+``schedule``, ``init``, ``global_norm``, ``update``), step for step:
+global-norm clipping (the reported norm is the pre-clip one), bias
+correction, decoupled weight decay. Moments are f32 whatever the param
+dtype. Trees are nested dicts of tensors in the reference's layout (a
+model's ``LM.stacked``), or lists of their leaves in its flatten order
+(sorted keys); ``update`` writes params and moments in place, under
+``torch.no_grad``, and returns them.
+
+The step counter is a 0-d int32 tensor kept on the CPU, and the schedule
+and bias corrections are computed there in f32 from it: no device sync a
+step, and the card and the CPU use the same scalars. They reach the device
+as 0-d tensors, so every division is a true division (CUDA divides by a
+host scalar as a product with its reciprocal).
+
+The reference's ZeRO-1 placement (``zero_rec``, ``opt_state_recs``,
+``abstract_opt_state``) serves XLA's partitioner and is not ported: the
+port places no shards.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.common import resolve_device
+from repro_torch.models.common import leaves, tree_map
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_frac: float = 0.1
+
+
+def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup then cosine decay to min_lr_frac * lr (f32, on the
+    step's device)."""
+    step = step.to(torch.float32)
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    prog = torch.clamp(
+        (step - cfg.warmup_steps) / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0
+    )
+    cos = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * 0.5 * (1 + torch.cos(math.pi * prog))
+    return cfg.lr * warm * cos
+
+
+def init(params: Any) -> dict:
+    """{"m", "v"}: f32 zeros shaped as ``params``; "step": 0 (int32, CPU)."""
+    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return {
+        "m": tree_map(zeros, params),
+        "v": tree_map(zeros, params),
+        "step": torch.zeros((), dtype=torch.int32),
+    }
+
+
+def _flat(tree: Any) -> list:
+    return list(tree) if isinstance(tree, (list, tuple)) else [x for _, x in leaves(tree)]
+
+
+def global_norm(tree: Any) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in _flat(tree)))
+
+
+@torch.no_grad()
+def update(cfg: AdamWConfig, params: Any, grads: Any, state: dict) -> tuple[Any, dict, dict]:
+    """One AdamW step, in place. Returns (params, state, {"lr", "grad_norm"})."""
+    step = state["step"].cpu() + 1
+    lr = schedule(cfg, step)
+    b1, b2 = cfg.b1, cfg.b2
+    bc1 = 1.0 - b1 ** step.to(torch.float32)
+    bc2 = 1.0 - b2 ** step.to(torch.float32)
+
+    flat_p, flat_g = _flat(params), _flat(grads)
+    flat_m, flat_v = _flat(state["m"]), _flat(state["v"])
+    if not (len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v)):
+        raise ValueError("params, grads and moments differ in structure")
+    gnorm = global_norm(grads)
+    dev = gnorm.device
+    clip = torch.full((), cfg.grad_clip, device=dev)
+    scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+    lr_d, bc1_d, bc2_d = lr.to(dev), bc1.to(dev), bc2.to(dev)
+    for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
+        g32 = g.float() * scale
+        m.mul_(b1).add_(g32 * (1 - b1))
+        t = g32 * (1 - b2)
+        v.mul_(b2).add_(t.mul_(g32))
+        denom = torch.sqrt(v / bc2_d) + cfg.eps
+        delta = (m / bc1_d) / denom + cfg.weight_decay * p.float()
+        p.copy_((p.float() - lr_d * delta).to(p.dtype))
+    state["step"] = step
+    return params, state, {"lr": lr, "grad_norm": gnorm}
+
+
+def opt_state_to_tree(state: dict) -> dict:
+    """The state as numpy arrays (copies), the reference's layout."""
+    return tree_map(lambda t: t.detach().cpu().numpy().copy(), state)
+
+
+def opt_state_from_jax(tree: dict, device: str | torch.device | None = None) -> dict:
+    """The reference's optimizer state (numpy or JAX arrays) as the port's:
+    moments on ``device`` (``None`` means the CUDA device), the step on the
+    CPU."""
+    dev = resolve_device(device)
+    out = tree_map(lambda a: torch.from_numpy(np.array(a)).to(dev), {"m": tree["m"], "v": tree["v"]})
+    out["step"] = torch.from_numpy(np.array(tree["step"], dtype=np.int32))
+    return out

@@ -1189,3 +1189,83 @@ def test_moe_prefill_on_card_is_deterministic(card, arch):
     assert torch.equal(a[0], b[0])
     for x, y in zip(_flat(a[1]), _flat(b[1]), strict=True):
         assert torch.equal(x, y)
+
+
+# ------------------------------------------------------------------ LM training
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_loss_grads_on_card_match_the_cpu(card, arch):
+    """loss_fn and its grads at REDUCED, the same weights and batch on the
+    card and the CPU: the loss within rtol 1e-5, every stacked gradient leaf
+    within 1e-4 of its max |g| (f32, no TF32)."""
+    from repro_torch.models import transformer
+    from repro_torch.models.common import leaves
+    from repro_torch.models.registry import make_batch
+
+    cfg, cpu = _lm(arch, "cpu", seed=8)
+    _, gpu = _lm(arch, card, seed=8)
+    batch = make_batch(cfg, 2, 24, torch.Generator().manual_seed(9), "cpu")
+    out = []
+    for lm, b in ((cpu, batch), (gpu, {k: v.to(card) for k, v in batch.items()})):
+        bufs = transformer.grad_buffers(lm)
+        loss, _ = transformer.loss_fn(lm, cfg, b)
+        loss.backward()
+        out.append((float(loss.detach()), [g.cpu() for _, g in leaves(bufs)]))
+    np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-5)
+    for g, w in zip(out[1][1], out[0][1], strict=True):
+        assert float((g - w).abs().max()) <= 1e-4 * max(float(w.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("grad_compress", [False, True])
+def test_lm_train_step_on_card_matches_the_cpu(card, grad_compress):
+    """Two train steps of qwen2 at REDUCED with grad_accum=2, on the card
+    and the CPU from the same weights on the same batches, the default
+    schedule (lr 3e-6 and 6e-6): losses within rtol 1e-5 and params within
+    1e-5 absolute (the reference's own grad-accumulation bound; a gradient
+    entry near 0 whose sign differs moves its param by at most 2 lr), m and
+    v too without compression. With grad_compress an entry at a rounding
+    boundary of the int8 grid may land one step of max|g| / 127 apart, so
+    the moments are not compared there."""
+    from repro_torch.models.common import leaves
+    from repro_torch.train import data, optimizer
+    from repro_torch.train.step import make_train_step
+
+    cfg, cpu = _lm("qwen2-1.5b", "cpu", seed=10)
+    cfg = cfg.replace(grad_accum=2)
+    _, gpu = _lm("qwen2-1.5b", card, seed=10)
+    dcfg = data.DataConfig(vocab=cfg.vocab, batch=4, seq=32, seed=3)
+    fn = make_train_step(cfg, optimizer.AdamWConfig(), grad_compress=grad_compress)
+    states = [optimizer.init(cpu.stacked), optimizer.init(gpu.stacked)]
+    for step in range(2):
+        m_c = fn(cpu, states[0], data.lm_batch(dcfg, step, "cpu"))[2]
+        m_g = fn(gpu, states[1], data.lm_batch(dcfg, step, card))[2]
+        np.testing.assert_allclose(float(m_g["loss"]), float(m_c["loss"]), rtol=1e-5)
+    trees = [(gpu.stacked, cpu.stacked)]
+    if not grad_compress:
+        trees += [(states[1]["m"], states[0]["m"]), (states[1]["v"], states[0]["v"])]
+    for tree_g, tree_c in trees:
+        for (_, g), (_, w) in zip(leaves(tree_g), leaves(tree_c), strict=True):
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-5)
+    assert int(states[1]["step"]) == 2
+
+
+def test_lm_train_resumes_bitwise_on_card(card, tmp_path):
+    """train() on the card, preempted after a checkpoint and resumed: params
+    and moments equal to an uninterrupted run's (torch.equal)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import leaves
+    from repro_torch.train.loop import train
+
+    cfg = get_config("qwen2-1.5b", reduced=True)
+    kw = dict(steps=6, batch=4, seq=32, log_every=0, seed=2, device=card)
+    full = train(cfg, **kw)
+    with pytest.raises(KeyboardInterrupt):
+        train(cfg, ckpt_dir=str(tmp_path), ckpt_every=2, preempt_at=5, **kw)
+    resumed = train(cfg, ckpt_dir=str(tmp_path), ckpt_every=2, **kw)
+    assert resumed.resumed_from == 4 and resumed.losses == full.losses[4:]
+    for a, b in ((full.params.stacked, resumed.params.stacked),
+                 (full.opt_state["m"], resumed.opt_state["m"]),
+                 (full.opt_state["v"], resumed.opt_state["v"])):
+        for (_, x), (_, y) in zip(leaves(a), leaves(b), strict=True):
+            assert torch.equal(x, y)

@@ -473,7 +473,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "new = ['text.stream', 'resilience.policy', 'testing.faults', 'text.hashing',\n"
         "       'kernels.best_edge', 'kernels.flash_decode', 'configs.flops',\n"
         "       'configs.qwen2_1_5b', 'models.transformer', 'models.interop',\n"
-        "       'serve.engine', 'launch.serve']\n"
+        "       'serve.engine', 'launch.serve', 'train.step', 'train.loop',\n"
+        "       'train.checkpoint', 'distrib.compression', 'launch.train']\n"
         "assert all('repro_torch.' + m in sys.modules for m in new)\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
     )
