@@ -188,7 +188,25 @@ Phases, in order; any failure raises and exits non-zero:
      uninterrupted run, with the checkpoint's bytes and write and read
      seconds; qwen2-1.5b whole, train() for 6 steps of 8 x 128 (each loss
      finite; step ms, tokens/s, peak memory, the bound, one step profiled);
-     launch/train.py at REDUCED for 3 steps.
+     launch/train.py at REDUCED for 3 steps. Then the sharded layouts
+     (phase_lm_sharded): launch/train.py's mesh-policy path on a 1 x 1 NCCL
+     mesh (DTensor params, ZeRO-1 moments, the batch placed): qwen2-1.5b at
+     its published widths cut to 2 layers, two steps torch.equal (losses,
+     params, m, v) to the plain step's; the whole model's step ms through
+     the policy beside the plain step's (DTensor's overhead); the
+     launcher's own loop placed on a 1 x 1 x 1 mesh at REDUCED; --mesh 2x2
+     against 1x1 only with four cards.
+     Then the dry-run (phase_dryrun), whose CPU-only child (one host thread,
+     meta tensors on a "fake" process group) starts after the LM phases
+     and runs beside the quickstart and the oracles (phase 5):
+     qwen2-1.5b train_4k and decode_32k at pod_16x16 and the five cluster
+     cells, one line a cell; and the memory model checked on the card: the
+     dry-run at mesh 1 x 1 of phase_lm_train's own whole-model step (8 x
+     128, grad_accum 2, remat full, f32) predicts its peak within 20 % of
+     torch.cuda.max_memory_allocated(), and its flops beside the profiler's
+     count of the same step; its lines print after phase 5. Then
+     examples/torch_quickstart.py at its default size on the card (its
+     table of time, RSS, purity and NMI).
   5. End-to-end oracles at the 20 Newsgroups shape: Buckshot (k = 20) and BKC
      (Table 1: k = 50, BigK = 250) on the card against the plain path on the
      CPU, on the same draws; BKC also on that collection with 5 % off-topic
@@ -215,6 +233,7 @@ reason.
 
 from __future__ import annotations
 
+import atexit
 import collections
 import json
 import statistics
@@ -3310,8 +3329,8 @@ def moe_drops(fn, *args, **kwargs) -> tuple[int, int]:
     seen = []
     dispatch = moe._dispatch_group
 
-    def counting(xf, gate, eids, e, k, cap):
-        out = dispatch(xf, gate, eids, e, k, cap)
+    def counting(xf, gate, eids, e, k, cap, **kw):
+        out = dispatch(xf, gate, eids, e, k, cap, **kw)
         seen.append((int((out[1] == e * cap).sum()), out[1].numel()))
         return out
 
@@ -3661,6 +3680,7 @@ def phase_lm_train(card: str, dev) -> None:
                                                seq=LM_TRAIN_SEQ, seed=SEED), LM_TRAIN_STEPS, dev)
     profile_run(f"LM train step {full.name} {LM_TRAIN_B} x {LM_TRAIN_SEQ}", fn, res.params,
                 res.opt_state, batch)
+    flops = profiled_flops(fn, res.params, res.opt_state, batch)
     del res, fn, batch
     torch.cuda.empty_cache()
 
@@ -3672,6 +3692,268 @@ def phase_lm_train(card: str, dev) -> None:
     log(f"phase 4 LM train: launch/train.py --arch {LM_ARCH} --steps 3 (REDUCED, mesh 1x1) on the "
         f"card exited 0 in {time.perf_counter() - t:.1f} s; the phase took "
         f"{time.perf_counter() - t_phase:.1f} s ({os.cpu_count()} host cores)")
+    return peak, flops
+
+
+def profiled_flops(fn, *args) -> float:
+    """One call under torch.profiler with its FLOP estimate (the ATen
+    matmuls and convolutions it knows): the sum over ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU], with_flops=True) as prof:
+        sync_time(lambda: fn(*args))
+    return float(sum(e.flops for e in prof.key_averages() if e.flops))
+
+
+LM_SHARDED_STEPS = 3  # whole-model steps timed each way
+
+
+def phase_lm_sharded(card: str, dev) -> None:
+    """The sharded layouts on the card: launch/train.py's mesh-policy path
+    (placed_setup, place_batch, make_train_step(policy=)) on a 1 x 1 NCCL
+    mesh from a FileStore. (a) qwen2-1.5b at its published widths cut to
+    LM_TRAIN_CUT layers, two train steps of LM_TRAIN_B x LM_TRAIN_SEQ
+    (grad_accum 2) through the policy and through the plain step from the
+    same weights on the same batches: losses, params, m and v torch.equal.
+    (b) qwen2-1.5b whole, LM_SHARDED_STEPS steps each way, plain first:
+    the median step ms beside each other, timed in this call (DTensor's
+    overhead), and whether the losses are equal. (c) the launcher's own
+    loop (run_rank, placed) on a 1 x 1 x 1 mesh (the pod axis too) at
+    REDUCED for 3 steps. (d) --mesh 2x2 against --mesh 1x1 through
+    main(argv), checkpoints within 1e-5, only where four cards are seen."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_debug_mesh, policy_for
+    from repro_torch.models.common import leaves
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import data as data_mod
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.loop import batch_at
+    from repro_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    full = get_config(LM_ARCH)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        nccl_world_1(tmp)
+        try:
+            policy = policy_for(make_debug_mesh((1, 1)))
+
+            def run(cfg, placed: bool, steps: int):
+                dcfg = data_mod.DataConfig(vocab=cfg.vocab, batch=LM_TRAIN_B, seq=LM_TRAIN_SEQ,
+                                           seed=SEED)
+                if placed:
+                    lm, st = launch_train.placed_setup(cfg, policy, dev, SEED)
+                    fn = make_train_step(cfg, opt_mod.AdamWConfig(), policy)
+                else:
+                    lm = get_model(cfg).init_params(torch.Generator(device=dev).manual_seed(SEED),
+                                                    dev)
+                    st = opt_mod.init(lm.stacked)
+                    fn = make_train_step(cfg, opt_mod.AdamWConfig())
+                losses, secs = [], []
+                for step in range(steps):
+                    b = batch_at(cfg, dcfg, step, dev)
+                    if placed:
+                        b = launch_train.place_batch(b, policy)
+                    (_, _, m), sec = sync_time(fn, lm, st, b)
+                    losses.append(m["loss"].clone())
+                    secs.append(sec)
+                return lm, st, losses, secs
+
+            # (a) two steps at LM_TRAIN_CUT layers, torch.equal
+            cut = full.replace(n_layers=LM_TRAIN_CUT)
+            p_lm, p_st, p_loss, _ = run(cut, False, 2)
+            s_lm, s_st, s_loss, s_secs = run(cut, True, 2)
+            got = launch_train.full_tree({"params": s_lm.stacked, "m": s_st["m"], "v": s_st["v"]})
+            want = {"params": p_lm.stacked, "m": p_st["m"], "v": p_st["v"]}
+            bad = [path for (path, a), (_, b) in zip(leaves(want), leaves(got), strict=True)
+                   if not torch.equal(a, b)]
+            if bad or not all(torch.equal(a, b) for a, b in zip(p_loss, s_loss)):
+                raise AssertionError(f"LM sharded (a): the policy step differs from the plain "
+                                     f"step: losses {p_loss} vs {s_loss}, leaves {bad[:5]}")
+            log(f"phase 4 LM sharded (a) {cut.name} at its published widths, {LM_TRAIN_CUT} of "
+                f"{full.n_layers} layers, two steps of {LM_TRAIN_B} x {LM_TRAIN_SEQ} (grad_accum "
+                f"{cut.grad_accum}) through launch/train.py's policy path on a 1 x 1 NCCL mesh: "
+                f"losses {', '.join(f'{float(v):.6f}' for v in s_loss)}, params, m and v "
+                f"torch.equal to the plain step's ({len(got['params'])} top-level groups); the "
+                f"policy steps took {', '.join(f'{v:.2f}' for v in s_secs)} s (the first builds "
+                f"DTensor's sharding rules)")
+            del p_lm, p_st, s_lm, s_st, got, want
+            torch.cuda.empty_cache()
+
+            # (b) the whole model, plain then placed, in this call
+            p_lm, p_st, p_loss, p_secs = run(full, False, LM_SHARDED_STEPS)
+            del p_lm, p_st
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            s_lm, s_st, s_loss, s_secs = run(full, True, LM_SHARDED_STEPS)
+            s_peak = torch.cuda.max_memory_allocated()
+            del s_lm, s_st
+            torch.cuda.empty_cache()
+            p_ms = 1e3 * statistics.median(p_secs[1:])
+            s_ms = 1e3 * statistics.median(s_secs[1:])
+            same_loss = all(torch.equal(a, b) for a, b in zip(p_loss, s_loss))
+            log(f"phase 4 LM sharded (b) {full.name} whole ({full.n_layers} layers), "
+                f"{LM_SHARDED_STEPS} steps of {LM_TRAIN_B} x {LM_TRAIN_SEQ} each way: plain step ms "
+                f"{', '.join(f'{1e3 * v:.1f}' for v in p_secs)}, policy (1 x 1 mesh) step ms "
+                f"{', '.join(f'{1e3 * v:.1f}' for v in s_secs)}; medians of steps 2-"
+                f"{LM_SHARDED_STEPS} {p_ms:.1f} vs {s_ms:.1f} ms (DTensor's overhead "
+                f"{s_ms - p_ms:+.1f} ms, {s_ms / p_ms:.2f}x); losses equal: {same_loss}; the "
+                f"policy run's peak memory {s_peak:,} bytes; {card}")
+
+            # (c) the launcher's entry point through the policy at REDUCED
+        finally:
+            dist.destroy_process_group()
+    t = time.perf_counter()
+    argv = ["--arch", LM_ARCH, "--steps", "3", "--mesh", "1x1x1", "--log-every", "1"]
+    rc = launch_train.run_rank(launch_train.parse_args(argv), 0, (1, 1, 1), placed=True)
+    if rc != 0:
+        raise AssertionError(f"launch/train.py's run_rank on a 1 x 1 x 1 mesh exited {rc}")
+    log(f"phase 4 LM sharded (c) launch/train.py's step loop and checkpoint writer "
+        f"(run_rank, placed) on a (pod, data, model) = 1 x 1 x 1 NCCL mesh, {LM_ARCH} REDUCED, "
+        f"3 steps: exited 0 in {time.perf_counter() - t:.1f} s (main takes whole replicas there: "
+        f"that mesh shards nothing)")
+
+    # (d) a 2 x 2 mesh needs four cards
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 4:
+        import numpy as np
+
+        runs = {}
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            for mesh in ("1x1", "2x2"):
+                argv = ["--arch", LM_ARCH, "--steps", "3", "--mesh", mesh, "--ckpt-dir",
+                        os.path.join(tmp, mesh), "--log-every", "1"]
+                out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *argv],
+                                     capture_output=True, text=True, timeout=600,
+                                     env=dict(os.environ, PYTHONPATH=str(Path(__file__).resolve()
+                                                                         .parent / "src")))
+                if out.returncode:
+                    raise AssertionError(f"--mesh {mesh} exited {out.returncode}: "
+                                         f"{out.stderr[-2000:]}")
+                runs[mesh] = np.load(next(Path(tmp, mesh).glob("step_*")) / "arrays.npz")
+            err = max(float(np.abs(runs["1x1"][k] - runs["2x2"][k]).max())
+                      for k in runs["1x1"].files)
+            if err > 1e-5:
+                raise AssertionError(f"LM sharded (d): --mesh 2x2 vs 1x1 max abs {err:.3g}")
+        log(f"phase 4 LM sharded (d) {json.dumps({'sharded_2x2': f'max abs {err:.3g} vs 1x1'})}")
+    else:
+        log(f"phase 4 LM sharded (d) {json.dumps({'sharded_2x2': f'not run: {n_cards} card(s)'})}")
+    log(f"phase 4 LM sharded took {time.perf_counter() - t_phase:.1f} s")
+
+
+DRYRUN_CHILD = """
+import json, sys, time
+import torch
+torch.set_num_threads(1)
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeCell
+from repro_torch.launch import dryrun
+out, b, seq = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+t = time.perf_counter()
+rc = dryrun.main(["--arch", "qwen2-1.5b", "--shape", "train_4k", "--out", out])
+rc |= dryrun.main(["--arch", "qwen2-1.5b", "--shape", "decode_32k", "--out", out])
+rc |= dryrun.main(["--cluster", "--out", out])
+r = dryrun.run_cell("qwen2-1.5b", "lm_train", mesh_shape=(1, 1), cfg=get_config("qwen2-1.5b"),
+                    cell=ShapeCell("lm_train", "train", seq, b), dtype=torch.float32)
+print("MEMCELL " + json.dumps(r))
+print(f"the dry-run child took {time.perf_counter() - t:.1f} s", flush=True)
+sys.exit(rc)
+"""
+
+
+def start_dryrun() -> tuple:
+    """The dry-run's CPU-only child on one host thread, started after the
+    LM phases so that it takes no host time from their timed steps (it
+    runs beside the quickstart and the oracles); its output goes to files
+    under build/."""
+    import os
+    import tempfile
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="dryrun_", dir=build)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    out, err = open(os.path.join(tmp, "out.txt"), "w"), open(os.path.join(tmp, "err.txt"), "w")
+    proc = subprocess.Popen([sys.executable, "-c", DRYRUN_CHILD, os.path.join(tmp, "reports"),
+                             str(LM_TRAIN_B), str(LM_TRAIN_SEQ)], stdout=out, stderr=err, env=env)
+
+    def stop():  # a phase that raises before phase_dryrun leaves no child behind
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc, tmp, time.perf_counter()
+
+
+def phase_dryrun(child, lm_peak: int, lm_flops: float) -> None:
+    """Wait for the dry-run child; print its line for each cell, and hold
+    its memory model to the card: the 1 x 1 dry-run of phase_lm_train's
+    whole-model step predicts its peak (hbm_per_device) within 20 % of
+    the max_memory_allocated() phase_lm_train measured; its flops beside
+    the profiler's estimate for the same step."""
+    import shutil
+
+    proc, tmp, t0 = child
+    try:
+        rc = proc.wait(timeout=900)
+        text = Path(tmp, "out.txt").read_text()
+        if rc != 0:
+            raise AssertionError(f"the dry-run child exited {rc}: {text[-2000:]} "
+                                 f"{Path(tmp, 'err.txt').read_text()[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    mem = None
+    for line in text.splitlines():
+        if line.startswith("MEMCELL "):
+            mem = json.loads(line[len("MEMCELL "):])
+        elif line.strip():
+            log(f"phase 4 dry-run: {line}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    pred = mem["memory"]["hbm_per_device"]
+    ratio = pred / lm_peak
+    log(f"phase 4 dry-run memory model: the 1 x 1 dry-run of phase_lm_train's step ({LM_ARCH} "
+        f"whole, {LM_TRAIN_B} x {LM_TRAIN_SEQ}, grad_accum 2, remat full, f32) predicts "
+        f"hbm_per_device {pred:,} bytes (arguments {mem['memory']['argument_bytes']:,}, temp "
+        f"{mem['memory']['temp_bytes']:,}) against max_memory_allocated {lm_peak:,} bytes on the "
+        f"card: {ratio:.3f} of it (gate 0.8-1.2); flops/device {mem['cost']['flops_per_device']:.4g} "
+        f"(op_costs, every op) beside the profiler's {lm_flops:.4g} (its FLOP-counted ATen ops) "
+        f"for the same step; the child ran {time.perf_counter() - t0:.1f} s (beside the quickstart "
+        f"and the oracles)")
+    if not 0.8 <= ratio <= 1.2:
+        raise AssertionError(f"dry-run memory model: {pred:,} predicted vs {lm_peak:,} measured "
+                             f"({ratio:.3f}); the tracker is wrong")
+
+
+def phase_quickstart(card: str) -> None:
+    """examples/torch_quickstart.py at its default size on the card, in this
+    process, its table printed."""
+    import runpy
+
+    argv = sys.argv
+    sys.argv = ["torch_quickstart.py"]
+    t = time.perf_counter()
+    try:
+        runpy.run_path(str(Path(__file__).resolve().parent / "examples" / "torch_quickstart.py"),
+                       run_name="__main__")
+    except SystemExit as e:
+        if e.code not in (0, None):
+            raise AssertionError(f"torch_quickstart.py exited {e.code}") from e
+    finally:
+        sys.argv = argv
+    log(f"phase 4 quickstart (examples/torch_quickstart.py, default size) took "
+        f"{time.perf_counter() - t:.1f} s; {card}")
 
 
 def lm_decode_long(lm, cfg, p_bytes: int, dev) -> None:
@@ -4041,12 +4323,19 @@ def main() -> int:
     log(f"phase 4 LM serve took {time.perf_counter() - t:.1f} s")
     phase_lm_families(card, dev)
     torch.cuda.empty_cache()
-    phase_lm_train(card, dev)
+    lm_peak, lm_flops = phase_lm_train(card, dev)
+    torch.cuda.empty_cache()
+    phase_lm_sharded(card, dev)
+    torch.cuda.empty_cache()
+    # CPU only, after the LM phases (whose steps are timed on the host clock)
+    dryrun_child = start_dryrun()
+    phase_quickstart(card)
     torch.cuda.empty_cache()
     t = time.perf_counter()
     phase_oracle(dev)
     phase_oracle_bkc(dev)
     log(f"phase 5 oracles took {time.perf_counter() - t:.1f} s")
+    phase_dryrun(dryrun_child, lm_peak, lm_flops)
 
     replaces = {
         "sim_best_edge": ("src/repro_torch/kernels/csrc/sim_best_edge.cu",

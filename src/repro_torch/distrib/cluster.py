@@ -64,10 +64,14 @@ class DistClusterResult(NamedTuple):
 # ----------------------------------------------------------------- common jobs
 
 
-def _assign_stats_map():
+def _assign_stats_map(*, unit_norm: bool = False):
     """map+combine for one K-Means iteration (also BKC job 3): ONE fused
     ``assign_stats`` pass per shard gives assignment, weighted sums, counts
-    and squared norms from a single read of the shard."""
+    and squared norms from a single read of the shard.
+
+    unit_norm=True asserts real rows are L2-normalized (the tf-idf pipeline
+    guarantees it): each cluster's sum of squared norms is then its weighted
+    count, so the kernel's sumsq term is not read."""
 
     def map_combine(data, bcast):
         x, w = data["x"], data["w"]
@@ -75,7 +79,7 @@ def _assign_stats_map():
         return {
             "sums": st.sums,
             "counts": st.counts,
-            "sumsq": st.sumsq,
+            "sumsq": st.counts if unit_norm else st.sumsq,
             "obj": torch.sum(w * (1.0 - st.best_sim)),
             "idx": st.idx,
             "sim": st.best_sim,

@@ -57,9 +57,11 @@ def reset_launch_counts() -> None:
 
 
 def _on_card(t: torch.Tensor) -> bool:
+    """CUDA: the kernel. CPU, and meta (the dry-run's shapes): the plain
+    version."""
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"unsupported device {t.device}: expected cpu or cuda")
 

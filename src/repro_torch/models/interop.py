@@ -19,10 +19,13 @@ from repro_torch.models import common, transformer
 
 
 def params_from_jax(
-    cfg: ModelConfig, tree: Any, device: str | torch.device | None = None
+    cfg: ModelConfig, tree: Any, device: str | torch.device | None = None, policy=None
 ) -> transformer.LM:
     """The port's model holding the reference's weights, on ``device``
-    (``None`` means the CUDA device). Each leaf keeps its dtype."""
+    (``None`` means the CUDA device). Each leaf keeps its dtype. With a
+    ``MeshPolicy`` the leaves are placed on its mesh as DTensors
+    (``Model.place_params``: the reference's shardings, FSDP where the
+    config says so); every rank must pass the same tree."""
     dev = resolve_device(device)
     recs = transformer.model_recs(cfg)
     want = {path: rec.shape for path, rec in common.leaves(recs)}
@@ -30,7 +33,12 @@ def params_from_jax(
     if want != got:
         raise ValueError(f"{cfg.name}: param tree does not match the config's recs")
     tensors = common.tree_map(lambda a: torch.from_numpy(np.array(a)).to(dev), tree)
-    return transformer.LM(cfg, tensors).eval()
+    lm = transformer.LM(cfg, tensors).eval()
+    if policy is None:
+        return lm
+    from repro_torch.models.registry import get_model
+
+    return get_model(cfg).place_params(lm, policy)
 
 
 def params_to_tree(params: transformer.LM) -> dict:

@@ -12,10 +12,11 @@ from typing import Mapping
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import Rec
+from repro_torch.models.common import Rec, contiguous_grad, current_policy, hint
 
 Params = Mapping[str, torch.Tensor]
 
@@ -84,23 +85,92 @@ def embed_recs(cfg: ModelConfig) -> dict:
 
 def embed_lookup(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """tokens: int64 ids (the model's entry converts the reference's int32)."""
-    return F.embedding(tokens, p["table"])
+    return hint(F.embedding(tokens, p["table"]), "dp", None, None)
 
 
 def lm_logits(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """(B,S,D) -> (B,S,V) logits, f32."""
+    """(B,S,D) -> (B,S,V) vocab-sharded logits, f32."""
     h32 = h.float()
     if cfg.tie_embeddings:
-        return h32 @ p["table"].float().T
-    return h32 @ p["head"].float()
+        out = h32 @ p["table"].float().T
+    else:
+        out = h32 @ p["head"].float()
+    if isinstance(out, DTensor):  # the hint's backward may hand the product a sliced grad
+        out = contiguous_grad(out)
+    return hint(out, "dp", None, "tp")
 
 
 def _ce_sum(p: Params, h: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Summed CE of one chunk: h (B,C,D), labels (B,C)."""
     logits = lm_logits(p, h, cfg)  # (B,C,V) f32
-    lse = torch.logsumexp(logits, dim=-1)
-    true = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return torch.sum(lse - true)
+    return torch.sum(_logsumexp(logits) - _pick(logits, labels))
+
+
+def _pick(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., label]``, (B,C). On vocab-sharded DTensor logits each
+    rank picks from its own vocab slice (zero where the label lies in
+    another's) and the (B, C) partial sums are reduced: Megatron's
+    vocab-parallel pick. DTensor's own gather would, in backward, build a
+    zero grad of the global (B, C, V) shape on every rank."""
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    from torch.distributed.tensor import Partial
+
+    mesh, places = logits.device_mesh, logits.placements
+    # logits come hinted ("dp", None, "tp"): the labels' rows are the same shards
+    lab = hint(labels, "dp", None)
+    local = logits.to_local()
+    coord, offset, chunk = mesh.get_coordinate(), 0, logits.shape[-1]
+    for i, q in enumerate(places):  # the vocab's shards in the mesh's major order
+        if isinstance(q, Shard) and q.dim == 2:
+            chunk //= mesh.size(i)
+            offset += coord[i] * chunk
+    idx = lab.to_local().long() - offset
+    inside = (idx >= 0) & (idx < local.shape[-1])
+    picked = torch.gather(local, -1, torch.where(inside, idx, 0)[..., None])[..., 0]
+    picked = torch.where(inside, picked, 0.0)
+    out = [Partial() if isinstance(q, Shard) and q.dim == 2 else q for q in places]
+    return hint(DTensor.from_local(picked, mesh, out, run_check=False), "dp", None)
+
+
+def _logsumexp(x: torch.Tensor) -> torch.Tensor:
+    """``torch.logsumexp(x, -1)``. A DTensor's ranks call it on their local
+    logits where the vocab is whole there (off a model axis, or on a 1 x 1
+    mesh) and wrap the (B, C) result; where mesh dims of size > 1 split
+    the vocab, only the (B, C) max and sum are reduced across the slices
+    (Megatron's vocab-parallel CE): DTensor would gather each chunk's
+    logits whole for the max."""
+    if not isinstance(x, DTensor):
+        return torch.logsumexp(x, dim=-1)
+    mesh = x.device_mesh
+    vocab = [isinstance(q, Shard) and q.dim == x.ndim - 1 for q in x.placements]
+    rows = [Replicate() if v else q for v, q in zip(vocab, x.placements)]  # (B, C) placements
+    if not any(v and mesh.size(i) > 1 for i, v in enumerate(vocab)):
+        return DTensor.from_local(torch.logsumexp(x.to_local(), dim=-1), mesh, rows,
+                                  run_check=False)
+    return _logsumexp_sharded(x, vocab, rows)
+
+
+def _logsumexp_sharded(x: DTensor, vocab: list[bool], rows: list) -> DTensor:
+    """The max is a constant shift (it cancels in the value and the grad),
+    so it is taken without a graph."""
+    from torch.distributed.tensor import Partial
+
+    from repro_torch.models.common import _ReducePartial
+
+    mesh = x.device_mesh
+
+    def across(t: torch.Tensor, op: str) -> DTensor:
+        part = [Partial(op) if v else q for v, q in zip(vocab, x.placements)]
+        return DTensor.from_local(t, mesh, part, run_check=False)
+
+    local = x.to_local()
+    with torch.no_grad():
+        m = across(torch.amax(local, dim=-1, keepdim=True), "max").redistribute(mesh, rows)
+        m = m.to_local()
+        m = torch.where(torch.abs(m) == float("inf"), 0.0, m)
+    s = _ReducePartial.apply(across(torch.sum(torch.exp(local - m), dim=-1), "sum")).to_local()
+    return DTensor.from_local(torch.log(s) + m[..., 0], mesh, rows, run_check=False)
 
 
 def chunked_ce(
@@ -160,6 +230,11 @@ def qkv_project(
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    policy = current_policy()
+    if policy is not None and hk % policy.axes_size("tp"):
+        # kv heads that do not divide the model axis cannot keep a
+        # tensor-parallel cut of (heads * dh) through the split into heads
+        q, k, v = (hint(t, "dp", None, None) for t in (q, k, v))
     q = q.reshape(b, s, hk, g, dh)
     k = k.reshape(b, s, hk, dh)
     v = v.reshape(b, s, hk, dh)
@@ -172,4 +247,6 @@ def qkv_project(
 def attn_out(p: Params, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """o (B,S,Hk,G,dh) -> (B,S,D)."""
     b, s = o.shape[:2]
-    return o.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    # the hint pins the grad of the merged heads to a layout the reshape's
+    # backward can split back into heads (wo's backward shards it over tp)
+    return hint(o.reshape(b, s, cfg.n_heads * cfg.head_dim), "dp", None, "tp") @ p["wo"]

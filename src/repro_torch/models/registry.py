@@ -1,8 +1,11 @@
-"""Registry: config -> bound model functions.
+"""Registry: config -> bound model functions + abstract (dry-run) params.
 
 The port of the JAX package's ``models/registry.py``. ``init_params`` returns
 the model itself (``transformer.LM``, an ``nn.Module``), and the bound
-functions take it where the reference takes its param tree.
+functions take it where the reference takes its param tree. Under a mesh
+policy, ``place_params`` puts a model's weights on the mesh as DTensors
+(FSDP-sharded too when ``cfg.fsdp``), and ``abstract_params`` makes them
+empty (on the ``meta`` device in the dry-run).
 """
 
 from __future__ import annotations
@@ -11,10 +14,12 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.common import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common, transformer
+from repro_torch.models.common import MeshPolicy
 
 
 @dataclass(frozen=True)
@@ -32,6 +37,23 @@ class Model:
         ``device`` (``None`` means the CUDA device)."""
         tree = common.materialize(generator, self.recs, device, dtype)
         return transformer.LM(self.cfg, tree).eval()
+
+    def _placed_recs(self):
+        return common.fsdp_recs(self.recs) if self.cfg.fsdp else self.recs
+
+    def abstract_params(self, policy: MeshPolicy, dtype=torch.bfloat16) -> transformer.LM:
+        """The model on empty DTensors placed under ``policy`` (no values;
+        in a ``meta`` device context, no allocation)."""
+        return transformer.LM(self.cfg, common.abstract(self._placed_recs(), policy, dtype)).eval()
+
+    def param_shardings(self, policy: MeshPolicy):
+        return common.sharding_tree(self._placed_recs(), policy)
+
+    def place_params(self, params: transformer.LM, policy: MeshPolicy) -> transformer.LM:
+        """``params`` (the same full weights on every rank) as a model whose
+        parameters are DTensors placed as ``param_shardings`` says."""
+        tree = common.place_tree(params.stacked, self._placed_recs(), policy)
+        return transformer.LM(self.cfg, tree).train(params.training)
 
     def param_count(self) -> int:
         return common.param_count(self.recs)
@@ -80,4 +102,25 @@ def make_batch(
             (batch, cfg.n_frontend_tokens, cfg.frontend_dim), generator=generator,
             device=generator.device,
         ).to(dev)
+    return out
+
+
+def batch_specs(cfg: ModelConfig, batch: int, seq: int, policy: MeshPolicy | None):
+    """Empty inputs for every model input (the dry-run: in a ``meta``
+    device context, no allocation), placed under ``policy`` when given."""
+    def sds(shape, dtype, sym):
+        if policy is None:
+            return torch.empty(shape, dtype=dtype)
+        local = torch.empty(policy.shard_shape(shape, sym), dtype=dtype,
+                            device=common.local_device(policy))
+        return DTensor.from_local(local, policy.mesh, policy.sharding_for(shape, sym),
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=common._contiguous_stride(shape))
+
+    text_len = seq - cfg.n_frontend_tokens if cfg.family == "vlm" else seq
+    out = {"tokens": sds((batch, text_len), torch.int32, ("dp", None))}
+    if cfg.family in ("vlm", "encdec"):
+        out["frontend"] = sds(
+            (batch, cfg.n_frontend_tokens, cfg.frontend_dim), torch.float32, ("dp", None, None)
+        )
     return out

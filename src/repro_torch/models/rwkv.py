@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import Rec
+from repro_torch.models.common import Rec, current_policy, hint
 from repro_torch.models.layers import Params
 
 LORA = 64
@@ -167,6 +167,11 @@ def timemix_apply(
         xw.float() @ p["decay_lora_a"].float()
     ) @ p["decay_lora_b"].float()
     lw = -torch.exp(dd)  # log-decay (B,S,D), <= 0: exact, no log(w) round trip
+    policy = current_policy()
+    if policy is not None and h % policy.axes_size("tp"):
+        # heads that do not divide the model axis cannot keep a tensor-
+        # parallel cut of D through the split into heads
+        r, k, v, lw = (hint(t, "dp", None, None) for t in (r, k, v, lw))
 
     rh = r.reshape(b, s, h, hd).float()
     kh = k.reshape(b, s, h, hd).float()
@@ -197,6 +202,8 @@ def timemix_apply(
     yh = y.reshape(b, s, h, hd).float()
     yh = yh * torch.rsqrt(torch.mean(yh * yh, dim=-1, keepdim=True) + 1e-6)
     y = (yh.reshape(b, s, d) * p["ln_x"].float()).to(x.dtype)
+    if policy is not None and h % policy.axes_size("tp"):
+        y = hint(y, "dp", None, None)  # pins y's grad whole for the head split's backward
     out = (y * g) @ p["w_o"]
     return out, {"shift": x[:, -1:].clone(), "state": state}
 

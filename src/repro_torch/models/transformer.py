@@ -46,6 +46,7 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.distributed.tensor import DTensor
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
@@ -53,7 +54,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import apply_rope, cache_attention, flash_attention, rope_tables
-from repro_torch.models.common import Rec, leaves, stack
+from repro_torch.models.common import Rec, contiguous_grad, hint, leaves, stack
 from repro_torch.models.layers import (
     attn_out,
     attn_recs,
@@ -174,6 +175,40 @@ class Groups(nn.Module):
             setattr(self, name, _group(sub))
 
 
+def _attention(q, k, v, rot, **kw) -> tuple[torch.Tensor, torch.Tensor]:
+    """RoPE (``rot``, batch dim 1) and chunked attention -> (o, roped k).
+
+    Under a policy q, k and v are hinted batch-sharded over dp and
+    kv-head-sharded over tp (replicated where the heads do not divide), and
+    both run on each rank's local rows and heads: attention is independent
+    across them, so none of its ops needs DTensor's sharding rules (whose
+    search over the chunk loops' 5-d einsums is the dry-run's largest
+    cost, and which some torch releases refuse); the results are wrapped
+    back with q's and k's placements."""
+    q, k, v = hint(q, "dp", None, "tp", None, None), hint(k, "dp", None, "tp", None), \
+        hint(v, "dp", None, "tp", None)
+    # the grads come out of the local einsums permuted; the DTensor reshape
+    # before (qkv_project) takes its grad's shard as a view
+    ql, kl, vl = (contiguous_grad(t.to_local()) if isinstance(t, DTensor) else t
+                  for t in (q, k, v))
+    kl = apply_rope(kl, rot)
+    o = flash_attention(apply_rope(ql, rot), kl, vl, **kw)
+    if isinstance(q, DTensor):
+        o = DTensor.from_local(o, q.device_mesh, q.placements, run_check=False)
+        kl = DTensor.from_local(kl, k.device_mesh, k.placements, run_check=False)
+    return o, kl
+
+
+def _residual(h: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``h + out``, the residual stream hinted batch-sharded and replicated
+    over the model axis: a row-parallel matmul's partial sums are reduced
+    here, once a sublayer (Megatron's all-reduce). Without the hint DTensor
+    carries the partial sums on and, to avoid reducing them, gathers the
+    next column-parallel weight whole: every model rank would compute the
+    whole MLP."""
+    return hint(h + out, "dp", None, None)
+
+
 class Block(Groups):
     """Pre-norm transformer block: ln1 -> attn, [lnx -> xattn], ln2 -> mlp
     (dense, or MoE where the group holds a ``router``)."""
@@ -193,14 +228,12 @@ class Block(Groups):
         ``rope_tables``."""
         x = norm_apply(self.ln1, h)
         q, k, v = qkv_project(self.attn, x, cfg)
-        q = apply_rope(q, rot)
-        k = apply_rope(k, rot)
-        o = flash_attention(q, k, v, window=window, causal=causal, chunk=cfg.attn_chunk)
-        h = h + attn_out(self.attn, o, cfg)
+        o, k = _attention(q, k, v, rot, window=window, causal=causal, chunk=cfg.attn_chunk)
+        h = _residual(h, attn_out(self.attn, o, cfg))
         if cross_ctx is not None:
-            h = h + self._cross(h, cross_ctx, cfg)
+            h = _residual(h, self._cross(h, cross_ctx, cfg))
         out, aux = self._ffn(norm_apply(self.ln2, h), cfg)
-        return h + out, (k, v), aux
+        return _residual(h, out), (k, v), aux
 
     def _ffn(self, x: torch.Tensor, cfg: ModelConfig):
         if "router" in self.mlp:
@@ -210,7 +243,7 @@ class Block(Groups):
     def _cross(self, h: torch.Tensor, ctx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         cq, _, _ = qkv_project(self.xattn, norm_apply(self.lnx, h), cfg)
         _, ck, cv = qkv_project(self.xattn, ctx, cfg)
-        co = flash_attention(cq, ck, cv, window=0, causal=False, chunk=cfg.attn_chunk)
+        co, _ = _attention(cq, ck, cv, None, window=0, causal=False, chunk=cfg.attn_chunk)
         return attn_out(self.xattn, co, cfg)
 
     def decode(
@@ -228,8 +261,10 @@ class Block(Groups):
         q = apply_rope(q, rot)
         k = apply_rope(k, rot)
         _cache_write(cache, k, v, pos)
-        n_valid = min(pos + 1, cache["k"].shape[1])
-        o = cache_attention(q[:, 0], cache["k"], cache["v"], n_valid=n_valid)
+        sym = _cache_sym(cache)
+        ck, cv = hint(cache["k"], *sym), hint(cache["v"], *sym)
+        n_valid = min(pos + 1, ck.shape[1])
+        o = cache_attention(q[:, 0], ck, cv, n_valid=n_valid)
         h = h + attn_out(self.attn, o[:, None], cfg)
         if enc_out is not None:
             xq, _, _ = qkv_project(self.xattn, norm_apply(self.lnx, h), cfg)
@@ -367,13 +402,13 @@ def forward(params: LM, cfg: ModelConfig, batch: dict, collect: bool = False):
     """
     fam = cfg.family
     tokens = batch["tokens"]
-    b = tokens.shape[0]
     h = _embed(params, cfg, tokens)
     if fam == "vlm":
         prefix = batch["frontend"].to(h.dtype) @ params.connector.to(h.dtype)
         h = torch.cat([prefix, h], dim=1)
     s = h.shape[1]
-    rot = _rot(cfg, torch.arange(s, device=h.device)[None, :].expand(b, s))
+    rot = _rot(cfg, torch.arange(s, device=h.device)[None, :])  # batch 1: broadcast over rows
+    h = hint(h, "dp", None, None)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     raw: Any = None
     grad = torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters())
@@ -407,8 +442,8 @@ def forward(params: LM, cfg: ModelConfig, batch: dict, collect: bool = False):
                 enc_h = enc_h @ params.frontend_proj.to(enc_h.dtype)
             enc_h = enc_h + params.enc_pos[None].to(enc_h.dtype)
             f = enc_h.shape[1]
-            enc_rot = rope_tables(torch.arange(f, device=h.device)[None, :].expand(b, f),
-                                  cfg.head_dim, cfg.rope_theta)
+            enc_rot = rope_tables(torch.arange(f, device=h.device)[None, :], cfg.head_dim,
+                                  cfg.rope_theta)
             for block in params.enc_layers:
                 enc_h, _, _ = remat(block)(enc_h, cfg, window=0, rot=enc_rot, causal=False)
             cross = norm_apply(params.enc_norm, enc_h)
@@ -429,16 +464,16 @@ def _mamba_layer(layer: Groups, h: torch.Tensor, cfg: ModelConfig, collect: bool
     """One hybrid layer's residual Mamba2 step -> (h, its SSM cache or None)."""
     out = ssm_mod.mamba_apply(layer.mamba, norm_apply(layer.ln, h), cfg, return_cache=collect)
     if collect:
-        return h + out[0], out[1]
-    return h + out, None
+        return _residual(h, out[0]), out[1]
+    return _residual(h, out), None
 
 
 def _rwkv_layer(layer: Groups, h: torch.Tensor, cfg: ModelConfig):
     """One RWKV layer (time mix, then channel mix) -> (h, its cache)."""
     t, tc = rwkv_mod.timemix_apply(layer.time, norm_apply(layer.ln1, h), cfg)
-    h = h + t
+    h = _residual(h, t)
     c, cc = rwkv_mod.channelmix_apply(layer.chan, norm_apply(layer.ln2, h), cfg)
-    return h + c, {"time": tc, "chan": cc}
+    return _residual(h, c), {"time": tc, "chan": cc}
 
 
 # ================================================================== loss
@@ -577,6 +612,12 @@ def prefill(
 
 
 # ================================================================== decode
+
+
+def _cache_sym(cache: dict) -> tuple:
+    """Batch-sharded (+ kv-head tp) for batched decode; seq-sharded for b==1."""
+    b = cache["k"].shape[0]
+    return ("dp", None, "tp", None) if b >= 8 else (None, "tp", None, None)
 
 
 def _cache_write(cache: dict, k: torch.Tensor, v: torch.Tensor, pos: int) -> None:

@@ -15,9 +15,13 @@ step, and the card and the CPU use the same scalars. They reach the device
 as 0-d tensors, so every division is a true division (CUDA divides by a
 host scalar as a product with its reciprocal).
 
-The reference's ZeRO-1 placement (``zero_rec``, ``opt_state_recs``,
-``abstract_opt_state``) serves XLA's partitioner and is not ported: the
-port places no shards.
+ZeRO-1: under a mesh policy the moments additionally shard their first
+replicated-and-divisible dim over the data axes (``zero_rec``); for
+mixtral-8x22b that is the difference between 70 GB and 4.4 GB of optimizer
+state per device. ``init_placed`` makes them as DTensors; ``update`` then
+takes the grad's and the param's slices of each moment shard, steps them
+on the local tensors (the same arithmetic), and gathers the new shards
+back to the param's own placement.
 """
 
 from __future__ import annotations
@@ -28,9 +32,10 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.common import resolve_device
-from repro_torch.models.common import leaves, tree_map
+from repro_torch.models.common import MeshPolicy, Rec, abstract, leaves, tree_map
 
 
 @dataclass(frozen=True)
@@ -90,20 +95,36 @@ def update(cfg: AdamWConfig, params: Any, grads: Any, state: dict) -> tuple[Any,
     if not (len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v)):
         raise ValueError("params, grads and moments differ in structure")
     gnorm = global_norm(grads)
+    if isinstance(gnorm, DTensor):
+        gnorm = gnorm.full_tensor()
     dev = gnorm.device
     clip = torch.full((), cfg.grad_clip, device=dev)
     scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr_d, bc1_d, bc2_d = lr.to(dev), bc1.to(dev), bc2.to(dev)
     for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
-        g32 = g.float() * scale
-        m.mul_(b1).add_(g32 * (1 - b1))
-        t = g32 * (1 - b2)
-        v.mul_(b2).add_(t.mul_(g32))
-        denom = torch.sqrt(v / bc2_d) + cfg.eps
-        delta = (m / bc1_d) / denom + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr_d * delta).to(p.dtype))
+        if isinstance(m, DTensor):  # ZeRO-1: each rank updates its own moment shard
+            zp, mesh = m.placements, m.device_mesh
+            pl = p.redistribute(mesh, zp).to_local()
+            new = _adamw(cfg, pl, g.redistribute(mesh, zp).to_local(), m.to_local(),
+                         v.to_local(), scale, lr_d, bc1_d, bc2_d)
+            p.copy_(DTensor.from_local(new, mesh, zp, run_check=False).redistribute(
+                mesh, p.placements))
+        else:
+            p.copy_(_adamw(cfg, p, g, m, v, scale, lr_d, bc1_d, bc2_d))
     state["step"] = step
     return params, state, {"lr": lr, "grad_norm": gnorm}
+
+
+def _adamw(cfg, p, g, m, v, scale, lr, bc1, bc2) -> torch.Tensor:
+    """One leaf's step: m and v in place; returns the new param."""
+    b1, b2 = cfg.b1, cfg.b2
+    g32 = g.float() * scale
+    m.mul_(b1).add_(g32 * (1 - b1))
+    t = g32 * (1 - b2)
+    v.mul_(b2).add_(t.mul_(g32))
+    denom = torch.sqrt(v / bc2) + cfg.eps
+    delta = (m / bc1) / denom + cfg.weight_decay * p.float()
+    return (p.float() - lr * delta).to(p.dtype)
 
 
 def opt_state_to_tree(state: dict) -> dict:
@@ -119,3 +140,45 @@ def opt_state_from_jax(tree: dict, device: str | torch.device | None = None) -> 
     out = tree_map(lambda a: torch.from_numpy(np.array(a)).to(dev), {"m": tree["m"], "v": tree["v"]})
     out["step"] = torch.from_numpy(np.array(tree["step"], dtype=np.int32))
     return out
+
+
+# ------------------------------------------------------------------ ZeRO
+
+
+def zero_rec(rec: Rec, policy: MeshPolicy) -> Rec:
+    """Moment Rec for a param Rec: shard the first replicated dim that divides
+    the dp axes (ZeRO-1). Falls back to the param's own sharding."""
+    dp_size = policy.axes_size("dp")
+    sym = list(rec.sym) + [None] * (len(rec.shape) - len(rec.sym))
+    if "dp" in sym:  # params already dp-sharded (FSDP): moments inherit it
+        return Rec(rec.shape, tuple(sym), "zeros")
+    for dim, e in enumerate(sym):
+        if e is None and rec.shape[dim] % dp_size == 0 and rec.shape[dim] >= dp_size:
+            sym[dim] = "dp"
+            break
+    return Rec(rec.shape, tuple(sym), "zeros")
+
+
+def opt_state_recs(param_recs: Any, policy: MeshPolicy) -> dict:
+    mo = tree_map(lambda r: zero_rec(r, policy), param_recs)
+    return {"m": mo, "v": mo, "step": Rec((), (), "zeros")}
+
+
+def abstract_opt_state(param_recs: Any, policy: MeshPolicy) -> dict:
+    """The moments as empty DTensors (on the ``meta`` device in the
+    dry-run); the step stays the 0-d int32 CPU tensor ``init`` makes."""
+    recs = opt_state_recs(param_recs, policy)
+    return {
+        "m": abstract(recs["m"], policy, torch.float32),
+        "v": abstract(recs["v"], policy, torch.float32),
+        "step": torch.zeros((), dtype=torch.int32, device="cpu"),
+    }
+
+
+def init_placed(param_recs: Any, policy: MeshPolicy) -> dict:
+    """``init``'s state under ``policy``: zero moments placed by
+    ``opt_state_recs``."""
+    recs = opt_state_recs(param_recs, policy)
+    zeros = lambda tree: abstract(tree, policy, torch.float32, torch.zeros)
+    return {"m": zeros(recs["m"]), "v": zeros(recs["v"]),
+            "step": torch.zeros((), dtype=torch.int32, device="cpu")}

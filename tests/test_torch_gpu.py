@@ -1250,6 +1250,46 @@ def test_lm_train_step_on_card_matches_the_cpu(card, grad_compress):
     assert int(states[1]["step"]) == 2
 
 
+def test_lm_policy_step_on_a_1x1_mesh_equals_the_plain_step(card, tmp_path):
+    """Two qwen2 REDUCED steps (grad_accum 2) through the mesh policy on a
+    1 x 1 NCCL mesh (DTensor params, ZeRO-1 moments, the batch placed, the
+    step under ``policy_for``) and through the plain step, from the same
+    weights on the same batches: losses, params, m and v torch.equal."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh, policy_for
+    from repro_torch.launch.train import full_tree
+    from repro_torch.models.common import leaves, place
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import data, optimizer
+    from repro_torch.train.step import make_train_step
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        policy = policy_for(make_debug_mesh((1, 1)))
+        cfg, plain = _lm("qwen2-1.5b", card, seed=10)
+        cfg = cfg.replace(grad_accum=2)
+        model = get_model(cfg)
+        placed = model.place_params(_lm("qwen2-1.5b", card, seed=10)[1], policy)
+        dcfg = data.DataConfig(vocab=cfg.vocab, batch=4, seq=32, seed=3)
+        f1 = make_train_step(cfg, optimizer.AdamWConfig())
+        f2 = make_train_step(cfg, optimizer.AdamWConfig(), policy)
+        s1, s2 = optimizer.init(plain.stacked), optimizer.init_placed(model._placed_recs(), policy)
+        for step in range(2):
+            b = data.lm_batch(dcfg, step, card)
+            m1 = f1(plain, s1, b)[2]
+            m2 = f2(placed, s2, {k: place(v, policy, ("dp", None)) for k, v in b.items()})[2]
+            assert torch.equal(m1["loss"], m2["loss"])
+        full = full_tree({"p": placed.stacked, "m": s2["m"], "v": s2["v"]})
+        want = {"p": plain.stacked, "m": s1["m"], "v": s1["v"]}
+        for (_, a), (_, b) in zip(leaves(want), leaves(full), strict=True):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
+
+
 def test_lm_train_resumes_bitwise_on_card(card, tmp_path):
     """train() on the card, preempted after a checkpoint and resumed: params
     and moments equal to an uninterrupted run's (torch.equal)."""

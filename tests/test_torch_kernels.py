@@ -474,7 +474,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "       'kernels.best_edge', 'kernels.flash_decode', 'configs.flops',\n"
         "       'configs.qwen2_1_5b', 'models.transformer', 'models.interop',\n"
         "       'serve.engine', 'launch.serve', 'train.step', 'train.loop',\n"
-        "       'train.checkpoint', 'distrib.compression', 'launch.train']\n"
+        "       'train.checkpoint', 'distrib.compression', 'launch.train',\n"
+        "       'launch.mesh', 'launch.specs', 'launch.op_costs', 'launch.dryrun']\n"
         "assert all('repro_torch.' + m in sys.modules for m in new)\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
     )

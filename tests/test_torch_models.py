@@ -469,6 +469,10 @@ def test_moe_apply_matches_the_reference(rng, arch, cf, skew):
     np.testing.assert_array_equal(tdest.numpy(), np.asarray(jdest))
     np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
     np.testing.assert_array_equal(tbuf.numpy(), np.asarray(jbuf)[: e * cap])
+    # the static-shape form the mesh policy's path runs gives the same
+    for got, want in zip(tmoe._dispatch_group(_t(xf), tgate, teids, e, k, cap, static=True),
+                         (tbuf, tdest, ttok)):
+        assert torch.equal(got, want)
     dropped = int((tdest == e * cap).sum())
     assert (dropped > 0) == skew, dropped
 

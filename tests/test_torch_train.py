@@ -2,8 +2,10 @@
 loop, int8 compression, launcher) against the JAX package's, on the CPU.
 
 Mirrors every test of ``tests/test_train.py`` on the port except the
-sharding-metadata ones (``zero_rec``, ``fsdp_recs``: not ported), and holds
-the port to the reference on equal inputs:
+sharding-metadata ones (``zero_rec``, ``fsdp_recs``: held to the reference
+in ``tests/test_torch_launch.py``, the sharded step in
+``tests/test_torch_train_sharded.py``), and holds the port to the
+reference on equal inputs:
 
   * ``update`` on identical numpy params, grads and moments: ``lr`` and
     ``grad_norm`` within rtol 2e-6, params, m and v within 8 f32 ulps of
@@ -698,11 +700,6 @@ def test_launcher_data_parallel_matches_one_rank(tmp_path, capsys):
     assert runs["1x1"][0] == runs["2x1"][0] and len(runs["1x1"][0]) == 3
     for (_, a), (_, b) in zip(leaves(runs["1x1"][1]), leaves(runs["2x1"][1]), strict=True):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6, rtol=0)
-
-
-def test_launcher_refuses_a_model_axis(capsys):
-    assert launch_train.main(["--cpu", "--mesh", "2x2"]) == 2
-    assert "12d" in capsys.readouterr().err
 
 
 def test_launcher_grad_compress_runs(capsys):
