@@ -1,6 +1,9 @@
-"""Shared small utilities: device choice, normalization, segment reductions."""
+"""Shared small utilities: device choice, normalization, tree sizes,
+segment reductions."""
 
 from __future__ import annotations
+
+from typing import Any, Iterator
 
 import torch
 
@@ -21,6 +24,42 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = EPS) -> torch.Tens
     """L2-normalize along ``dim``; zero vectors stay zero."""
     norm = torch.sqrt(torch.sum(x * x, dim=dim, keepdim=True))
     return x / torch.clamp(norm, min=eps)
+
+
+def cosine_sim_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(n, d) x (m, d) -> (n, m) cosine similarity (inputs need not be
+    normalized)."""
+    return l2_normalize(a) @ l2_normalize(b).T
+
+
+def _tensors(tree: Any) -> Iterator[torch.Tensor]:
+    """The tensors of a tree of dicts, lists and tuples (None: no leaf)."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    elif tree is not None:
+        yield tree
+
+
+def count_params(tree: Any) -> int:
+    """Elements over every tensor of the tree."""
+    return sum(t.numel() for t in _tensors(tree))
+
+
+def tree_bytes(tree: Any) -> int:
+    """Bytes over every tensor of the tree."""
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))
+
+
+def pretty_bytes(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if abs(n) < 1024.0:
+            return f"{n:.2f}{unit}"
+        n /= 1024.0
+    return f"{n:.2f}PiB"
 
 
 def _in_range(ids: torch.Tensor, k: int) -> torch.Tensor:

@@ -41,10 +41,14 @@ read of the flag after which the loop goes on, it snapshots the comp state
 the live count and the compact edge lists, all replicated, so rank 0 alone
 writes the snapshot (``resilience.RankCheckpointer`` with ``shared=True``).
 
+``pre_reduce=False`` keeps the legacy per-row gather: every shard's
+(j, w) pair for every row is gathered to every rank each round, O(s·P)
+bytes, and merged at point level (``core.hac._merge_round``). It exists to
+measure what the pre-reduce saves. ``synthetic_merge_rounds`` runs the
+merge rounds alone on synthetic pair-merge candidates, without the sweep.
+
 Counterpart of the JAX package's ``distrib/hac_parallel.py``. Left out:
-the AOT pre-warm (``prewarm``, ``impl``: PyTorch runs eagerly) and the
-benchmark paths ``pre_reduce=False`` (row gather) and
-``synthetic_merge_rounds``.
+the AOT pre-warm (``prewarm``, ``impl``: PyTorch runs eagerly).
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from __future__ import annotations
 import math
 from typing import Callable
 
+import numpy as np
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
@@ -59,6 +64,7 @@ from repro_torch.common import l2_normalize
 from repro_torch.core.hac import (
     MSTEdges,
     _expand_round_edges,
+    _merge_round,
     _merge_round_comp,
     _merge_round_pre,
     _round_prep,
@@ -70,6 +76,7 @@ from repro_torch.distrib.engine import _gather, make_job, ring_sweep
 from repro_torch.distrib.sharding import (
     axis_groups,
     mesh_axis_size,
+    mesh_device,
     ring_block_rows,
     shard_rows,
     tier_sizes,
@@ -182,10 +189,17 @@ def sharded_candidates(
     return {"w": w, "row": row, "col": col, "tcomp": tcomp}
 
 
+def _cand_map_rowgather(data, bcast):
+    """The legacy per-row gather: each local row's best edge, not reduced."""
+    bj, bw = ops.sim_best_edge(data["rows"], bcast["xs"], data["labels"], bcast["all_labels"])
+    return {"j": bj, "w": bw}
+
+
 def _cand_job(mesh: DeviceMesh, axes: tuple[str, ...], mode: str, overlap: bool):
     """The per-round candidate job. Modes: 'comp_sharded' (ring-sharded
     sweep), 'comp' (replicated sweep, dense component ids), 'pre' (point
-    labels + per-component pre-reduce)."""
+    labels + per-component pre-reduce), 'rowgather' (legacy per-row gather:
+    every rank gets every row's candidate, in row-block order)."""
     if mode == "comp_sharded":
         groups = axis_groups(mesh, axes)
 
@@ -203,6 +217,9 @@ def _cand_job(mesh: DeviceMesh, axes: tuple[str, ...], mode: str, overlap: bool)
     if mode == "pre":
         return make_job(mesh, axes, _cand_map_pre, {"best": "component"},
                         name="boruvka_cand_comp")
+    if mode == "rowgather":
+        return make_job(mesh, axes, _cand_map_rowgather, {"j": "gather", "w": "gather"},
+                        name="boruvka_cand")
     raise ValueError(f"unknown candidate-job mode {mode!r}")
 
 
@@ -222,11 +239,19 @@ def _relabel_job(mesh: DeviceMesh, axes: tuple[str, ...]):
 # ------------------------------------------------------- analytic accounting
 
 
-def shuffle_bytes_per_round(s: int, n_shards: int, rounds: int) -> list[int]:
-    """Per-round shuffle footprint of the pre-reduced candidate exchange:
-    one (w f32, row i32, col i32) triple per component per shard, capped by
-    the halving bound: O(c·P) bytes, shrinking geometrically."""
-    return [n_shards * round_cap(s, r) * 12 for r in range(rounds)]
+def shuffle_bytes_per_round(
+    s: int, n_shards: int, rounds: int, *, pre_reduce: bool = True
+) -> list[int]:
+    """Per-round shuffle footprint of the candidate exchange.
+
+    pre_reduce: one (w f32, row i32, col i32) triple per component per
+    shard, capped by the halving bound: O(c·P) bytes, shrinking
+    geometrically. The legacy per-row gather: every shard's (j i32, w f32)
+    pair for every row, O(s·P) bytes, constant.
+    """
+    if pre_reduce:
+        return [n_shards * round_cap(s, r) * 12 for r in range(rounds)]
+    return [n_shards * s * 8 for _ in range(rounds)]
 
 
 def shuffle_bytes_per_tier(
@@ -303,6 +328,7 @@ def boruvka_mst_distributed(
     axes: tuple[str, ...],
     xs: torch.Tensor,
     *,
+    pre_reduce: bool = True,
     merge: str = "comp",
     sweep: str = "auto",
     overlap: bool = True,
@@ -330,6 +356,11 @@ def boruvka_mst_distributed(
     ``boruvka_mst`` for the rounds run. 'point': the replicated point-level
     alignment.
 
+    pre_reduce=False: the legacy per-row gather. Every rank gathers every
+    row's (j, w) candidate, O(s·P) bytes a round, and merges at point level;
+    ``merge`` is then 'point' whatever was asked, and 'auto' resolves to
+    the replicated sweep.
+
     checkpoint (merge='comp' only): a ``resilience.Checkpointer``; the round
     loop snapshots its carry at every ``CHECK_EVERY`` host read after which
     it continues, so a resume replays the uninterrupted run's rounds and
@@ -341,11 +372,13 @@ def boruvka_mst_distributed(
         raise ValueError(f"merge must be 'comp' or 'point', got {merge!r}")
     if sweep not in ("auto", "sharded", "bcast"):
         raise ValueError(f"sweep must be 'auto', 'sharded' or 'bcast', got {sweep!r}")
-    mode = "comp" if merge == "comp" else "pre"
+    if not pre_reduce:
+        merge = "point"  # row-gather candidates exist only at point level
+    mode = ("comp" if merge == "comp" else "pre") if pre_reduce else "rowgather"
     if sweep == "sharded" and mode != "comp":
         raise ValueError(
-            "sweep='sharded' requires merge='comp' (the ring sweep carries "
-            "component ids, not point labels)"
+            "sweep='sharded' requires pre_reduce=True and merge='comp' (the ring "
+            "sweep carries component ids, not point labels)"
         )
     if mode == "comp" and sweep != "bcast":
         mode = "comp_sharded"
@@ -460,7 +493,7 @@ def _boruvka_rounds(
                 comp_l = relabel_job({"comp": comp_l}, {"relabel": relabel})["comp"]
             comp_to_root = new_root
             done = n_real == 1
-        else:  # 'pre'
+        elif mode == "pre":
             comp, comp_to_root_r = _round_prep(labels, cap)
             data = {"rows": rows_l, "labels": sharded(padded(labels, -1)),
                     "rowid": rowid_l, "comp": sharded(padded(comp, cap))}
@@ -470,6 +503,13 @@ def _boruvka_rounds(
                 labels, best["w"], best["row"], best["col"], comp_to_root_r
             )
             done = torch.all(labels == 0)  # single component: forest complete
+        else:  # 'rowgather'
+            out = job({"rows": rows_l, "labels": sharded(padded(labels, -1))},
+                      {"xs": xs, "all_labels": labels})
+            # the gather is in row-block order: the pad rows' (empty)
+            # candidates are the last ones
+            labels, eu, ev, ew, evalid = _merge_round(labels, out["w"][:s], out["j"][:s])
+            done = torch.all(labels == 0)
         eus.append(eu)
         evs.append(ev)
         ews.append(ew)
@@ -497,10 +537,115 @@ def _boruvka_rounds(
     return edges, rounds_run
 
 
+# ------------------------------------------------------- merge-only driver
+
+
+def _synth_candidates(comp_to_root: torch.Tensor, n_real: torch.Tensor, cap: int):
+    """Deterministic per-component best edges for the merge-only driver:
+    live component c proposes to its pair partner c^1 (the last odd one
+    pairs downward), with a weight that is a function of the unordered pair,
+    so mutual proposals agree. That halves the component count every round,
+    Borůvka's worst case for merge work. Dead and phantom slots carry the
+    empty sentinel of the real reduce, (NEG, BIG_I, -1).
+
+    The weight is 1 - (min(c, t) + 1) / (2 (cap + 1)) as the JAX package's
+    XLA computes it, bit for bit: the numerator in f32, the division by the
+    constant turned into a product with its f32 reciprocal, and 1 - product
+    fused into one rounding (an FMA). The port forms the reciprocal on the
+    host and takes 1 - num * rcp in f64, where it is exact for cap below
+    2^28 (two 24-bit factors; a difference below 2^53 units of rcp's last
+    place), so the one rounding is the cast to f32, on any device."""
+    dev = comp_to_root.device
+    c = torch.arange(cap, dtype=torch.int32, device=dev)
+    t = torch.bitwise_xor(c, 1)
+    t = torch.where(t >= n_real, c - 1, t)
+    propose = (c < n_real) & (n_real > 1)
+    t = torch.where(propose, torch.clamp(t, min=0), c)
+    rcp = float(np.float32(1.0) / np.float32(2.0 * (cap + 1.0)))
+    wval = (1.0 - (torch.minimum(c, t).float() + 1.0).double() * rcp).float()
+    w = torch.where(propose, wval, NEG)
+    row = torch.where(propose, comp_to_root[c.long()], BIG_I)
+    col = torch.where(propose, comp_to_root[t.long()], -1)
+    return w, row, col, t
+
+
+def synthetic_merge_rounds(
+    mesh: DeviceMesh,
+    axes: tuple[str, ...],
+    s: int,
+    *,
+    merge: str = "comp",
+    check_every: int = CHECK_EVERY,
+) -> tuple[MSTEdges, int]:
+    """Borůvka MERGE rounds alone, on synthetic pair-merge candidates
+    (``_synth_candidates``, the reduce's output contract) in place of the
+    O(s²·d/P) sweep, at sample sizes where the two merges part ways:
+
+      merge='comp': the component-graph alignment. The one per-point state
+        is the sharded (s/P a rank) comp vector, updated through the (cap,)
+        relabel map (``_relabel_job``); the rest is O(cap), and the edge
+        history is compact, Σ cap_r ≈ 2s slots.
+      merge='point': the replicated ``_merge_round_pre``: (s,) labels, O(s)
+        work a round and an (s,)-slot edge history of 13·s bytes a round.
+
+    Both see the same candidates, so their valid edges are the same set.
+    The host reads the done flag every ``check_every`` rounds. Runs on the
+    mesh's device.
+
+    Returns (edges, rounds_run).
+    """
+    if merge not in ("comp", "point"):
+        raise ValueError(f"merge must be 'comp' or 'point', got {merge!r}")
+    dev = mesh_device(mesh)
+    rounds = _rounds_for(s)
+    eus, evs, ews, evalids = [], [], [], []
+    rounds_run = 0
+    ids = torch.arange(s, dtype=torch.int32, device=dev)
+    if merge == "comp":
+        relabel_job = _relabel_job(mesh, axes)
+        pad = (-s) % mesh_axis_size(mesh, axes)
+        comp_p = torch.cat([ids, torch.full((pad,), -1, dtype=torch.int32, device=dev)])
+        comp_l = shard_rows(mesh, axes, comp_p)
+        comp_to_root = ids
+        n_real = torch.tensor(s, dtype=torch.int32, device=dev)
+        for r in range(rounds):
+            rounds_run = r + 1
+            w, row, col, tcomp = _synth_candidates(comp_to_root, n_real, round_cap(s, r))
+            relabel, comp_to_root, eu, ev, ew, evalid, n_real = _merge_round_comp(
+                w, row, col, tcomp, comp_to_root, n_real, next_cap=round_cap(s, r + 1))
+            comp_l = relabel_job({"comp": comp_l}, {"relabel": relabel})["comp"]
+            eus.append(eu)
+            evs.append(ev)
+            ews.append(ew)
+            evalids.append(evalid)
+            if ((r + 1) % check_every == 0 or r == rounds - 1) and bool(n_real == 1):
+                break
+    else:
+        labels = ids
+        for r in range(rounds):
+            rounds_run = r + 1
+            cap = round_cap(s, r)
+            _, comp_to_root = _round_prep(labels, cap)
+            n_real = torch.sum(labels == ids).int()
+            w, row, col, _ = _synth_candidates(comp_to_root, n_real, cap)
+            labels, eu, ev, ew, evalid = _merge_round_pre(labels, w, row, col, comp_to_root)
+            eus.append(eu)
+            evs.append(ev)
+            ews.append(ew)
+            evalids.append(evalid)
+            if ((r + 1) % check_every == 0 or r == rounds - 1) and bool(torch.all(labels == 0)):
+                break
+    edges = MSTEdges(
+        u=torch.cat(eus), v=torch.cat(evs), w=torch.cat(ews), valid=torch.cat(evalids)
+    )
+    return edges, rounds_run
+
+
 def single_link_labels_distributed(
     mesh: DeviceMesh, axes: tuple[str, ...], xs: torch.Tensor, k: int, *,
-    sweep: str = "auto", overlap: bool = True,
+    pre_reduce: bool = True, sweep: str = "auto", overlap: bool = True,
 ) -> torch.Tensor:
     """(s,) single-link labels at k clusters of the sample ``xs``."""
-    edges = boruvka_mst_distributed(mesh, axes, xs, sweep=sweep, overlap=overlap)
+    edges = boruvka_mst_distributed(mesh, axes, xs, pre_reduce=pre_reduce, sweep=sweep,
+                                    overlap=overlap)
     return cut_mst_edges(edges, xs.shape[0], k)

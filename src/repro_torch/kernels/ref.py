@@ -52,6 +52,16 @@ def assign_argmax(
     return torch.argmax(sims, dim=1).int(), torch.amax(sims, dim=1)
 
 
+def cluster_stats(
+    x: torch.Tensor, idx: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The one-hot combiner, the oracle ``label_stats`` is held to: ((k, d)
+    f32 per-cluster sums, (k,) f32 counts) of the rows of ``x`` under the
+    labels ``idx`` in [0, k)."""
+    hot = _one_hot(idx, k, None)
+    return hot.T @ x.float(), hot.sum(dim=0)
+
+
 def assign_stats(
     x: torch.Tensor, centers: torch.Tensor, w: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, ...]:

@@ -1,4 +1,4 @@
-"""LM model zoo of the port: the dense, vlm and encdec families of the JAX
-package's ``models``, as ``nn.Module``s whose parameters keep the
-reference's names. The moe, hybrid and rwkv families are not ported yet.
+"""LM model zoo of the port: the dense, vlm, encdec, moe, hybrid (Mamba2) and
+rwkv (RWKV-6) families of the JAX package's ``models``, as ``nn.Module``s
+whose parameters keep the reference's names.
 """

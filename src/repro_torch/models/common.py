@@ -264,6 +264,25 @@ def materialize(
     return out
 
 
+def materialize_stacked(
+    generator: torch.Generator,
+    recs_one: Any,
+    n: int,
+    device: str | torch.device | None = None,
+    dtype: torch.dtype = torch.float32,
+) -> Any:
+    """n layers of ``recs_one``, drawn one after another from ``generator``
+    (each as ``materialize`` draws it), stacked leaf by leaf on dim 0."""
+    layers = [materialize(generator, recs_one, device, dtype) for _ in range(n)]
+
+    def stack(parts: list) -> Any:
+        if isinstance(parts[0], dict):
+            return {k: stack([p[k] for p in parts]) for k in parts[0]}
+        return torch.stack(parts)
+
+    return stack(layers)
+
+
 def abstract(
     recs: Any, policy: MeshPolicy, dtype: torch.dtype = torch.bfloat16, factory=torch.empty
 ) -> Any:

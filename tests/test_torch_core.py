@@ -250,3 +250,48 @@ def test_creators_default_to_the_card():
         sampling.sample_indices(10, 3, torch.Generator())
     x = l2_normalize(torch.ones(4, 3))
     assert tk.init_random_centers(x, 2, torch.Generator()).device.type == "cpu"
+
+
+# ------------------------------------------------------------------ common
+
+
+def test_cosine_sim_matrix_matches_jax(rng):
+    from repro import common as jcommon
+    from repro_torch import common
+
+    a = rng.normal(size=(30, 17)).astype(np.float32)
+    b = rng.normal(size=(12, 17)).astype(np.float32)
+    b[3] = 0.0  # a zero row stays zero
+    got = _np(common.cosine_sim_matrix(interop.data(a, "cpu"), interop.data(b, "cpu")))
+    want = np.asarray(jcommon.cosine_sim_matrix(jnp.asarray(a), jnp.asarray(b)))
+    assert got.shape == (30, 12) and not got[:, 3].any()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_tree_sizes_match_jax(rng):
+    """count_params and tree_bytes over dicts, lists, tuples and None, in
+    mixed dtypes, equal the JAX package's on the same arrays."""
+    from repro import common as jcommon
+    from repro_torch import common
+
+    arrays = {"w": rng.normal(size=(5, 7)).astype(np.float32),
+              "i": np.arange(11, dtype=np.int32),
+              "h": rng.normal(size=(3, 4, 2)).astype(np.float32)}
+
+    def tree(conv, half):
+        return {"a": [conv(arrays["w"]), (conv(arrays["i"]), None)],
+                "b": {"c": half(arrays["h"]), "d": ()}}
+
+    jt = tree(jnp.asarray, lambda a: jnp.asarray(a, jnp.bfloat16))
+    tt = tree(torch.from_numpy, lambda a: torch.from_numpy(a).bfloat16())
+    assert common.count_params(tt) == jcommon.count_params(jt) == 35 + 11 + 24
+    assert common.tree_bytes(tt) == jcommon.tree_bytes(jt) == 4 * 35 + 4 * 11 + 2 * 24
+    assert common.count_params({}) == common.tree_bytes([]) == 0
+
+
+@pytest.mark.parametrize("n", [0, 1, 1023.5, 1024, 5 * 2**20 + 1, -3 * 2**30, 7 * 2**40, 2**60])
+def test_pretty_bytes_matches_jax(n):
+    from repro import common as jcommon
+    from repro_torch import common
+
+    assert common.pretty_bytes(n) == jcommon.pretty_bytes(n)

@@ -9,9 +9,12 @@ the JAX package's on a one-device mesh.
 
 Several ranks: gloo ranks in subprocesses (P = 4 flat, a (2, 2) pod mesh,
 P = 3 with a padded sample) against one JAX subprocess with four forced host
-devices: Borůvka edges and labels, the engine's reducers, and, on the flat
-meshes with padded rows, distributed K-Means (bounded and not), BKC and
-Buckshot from the same rows and inits. Then ``python -m
+devices: Borůvka edges and labels (also through the legacy per-row gather,
+``pre_reduce=False``, at s = 320, 322 and 9 on P = 4), the merge-only driver
+``synthetic_merge_rounds`` (both merges, s = 321 and 1,000, flat and pod),
+the engine's reducers, and, on the flat meshes with padded rows,
+distributed K-Means (bounded and not), BKC and Buckshot from the same rows
+and inits. Then ``python -m
 repro_torch.distrib.selftest``. Every subprocess has its own timeout, so a
 hung collective fails its test.
 
@@ -221,6 +224,8 @@ def test_analytic_bytes_match_jax(s, tiers):
 
     p, d, rounds = int(np.prod(tiers)), 2048, 8
     assert thp.shuffle_bytes_per_round(s, p, rounds) == jhp.shuffle_bytes_per_round(s, p, rounds)
+    assert (thp.shuffle_bytes_per_round(s, p, rounds, pre_reduce=False)
+            == jhp.shuffle_bytes_per_round(s, p, rounds, pre_reduce=False))
     for merge in ("comp", "point"):
         assert (thp.shuffle_bytes_per_tier(s, tiers, rounds, merge=merge)
                 == jhp.shuffle_bytes_per_tier(s, tiers, rounds, merge=merge))
@@ -264,11 +269,12 @@ def gloo_world_1(tmp_path):
         dist.destroy_process_group()
 
 
-# the three candidate modes, then the sharded sweep's other settings
+# the four candidate modes, then the sharded sweep's other settings
 MODES = {
     "sharded": {},
     "bcast": {"sweep": "bcast"},
     "point": {"merge": "point"},
+    "rowgather": {"pre_reduce": False},
     "expanded": {"compact": False},
     "no-overlap": {"overlap": False},
 }
@@ -285,7 +291,7 @@ def test_boruvka_distributed_world_1_matches_jax(gloo_world_1, rng):
 
     xs = _exact_unit(rng, 40)
     jmesh = jflat(1)
-    for name in ("sharded", "bcast", "point"):
+    for name in ("sharded", "bcast", "point", "rowgather"):
         kw = MODES[name]
         want = jbmd(jmesh, ("data",), jnp.asarray(xs), prewarm=False, **kw)._asdict()
         got = boruvka_mst_distributed(gloo_world_1, ("data",), _t(xs), **kw)._asdict()
@@ -295,16 +301,46 @@ def test_boruvka_distributed_world_1_matches_jax(gloo_world_1, rng):
         _np(got), np.asarray(jh.single_link_labels_boruvka(jnp.asarray(xs), 5)))
 
 
+def test_row_gather_and_merge_only_refuse_what_the_jax_package_refuses(gloo_world_1, tmp_path):
+    """pre_reduce=False: merge='comp' is silently the point merge, sweep
+    'sharded' and a checkpoint raise; an unknown merge raises in the
+    merge-only driver too."""
+    from repro_torch.distrib.hac_parallel import (
+        boruvka_mst_distributed,
+        synthetic_merge_rounds,
+    )
+    from repro_torch.resilience import MemoryCheckpointer
+
+    xs = _t(_exact_unit(np.random.default_rng(5), 12))
+    axes = ("data",)
+    want = boruvka_mst_distributed(gloo_world_1, axes, xs, pre_reduce=False, merge="point")
+    got = boruvka_mst_distributed(gloo_world_1, axes, xs, pre_reduce=False, merge="comp")
+    _same_edges({k: _np(v) for k, v in got._asdict().items()},
+                {k: _np(v) for k, v in want._asdict().items()})
+    with pytest.raises(ValueError, match="sweep='sharded' requires pre_reduce=True"):
+        boruvka_mst_distributed(gloo_world_1, axes, xs, pre_reduce=False, sweep="sharded")
+    with pytest.raises(ValueError, match="checkpointed Borůvka requires merge='comp'"):
+        boruvka_mst_distributed(gloo_world_1, axes, xs, pre_reduce=False,
+                                checkpoint=MemoryCheckpointer())
+    with pytest.raises(ValueError, match="merge must be 'comp' or 'point'"):
+        synthetic_merge_rounds(gloo_world_1, axes, 10, merge="pairs")
+
+
 # ------------------------------------------------------ several ranks
 
 
 # (name, world, mesh, s, modes): s = 70 and 322 do not divide over the shards
 CONFIGS = [
     ("flat4", 4, "flat", 70, tuple(MODES)),
-    ("pod22", 4, "pod", 70, ("sharded", "bcast", "no-overlap")),  # tiered ring and reduce
-    ("flat3", 3, "flat", 322, ("sharded", "point")),
+    # tiered ring and reduce; the row gather in row-major shard order
+    ("pod22", 4, "pod", 70, ("sharded", "bcast", "rowgather", "no-overlap")),
+    ("flat3", 3, "flat", 322, ("sharded", "point", "rowgather")),
 ]
 SEED = 7
+# the legacy per-row gather on P = 4 at the JAX package's own sizes and cuts
+# (s, k): 322 and 9 do not divide over the shards
+ROWGATHER = ((320, 9), (322, 7), (9, 3))
+SYNTH_S = (321, 1000)  # the merge-only driver's sample sizes
 # the cluster jobs' sizes: n rows, k clusters, BigK micro-clusters, s sample rows
 CLUSTER = dict(cn=202, ck=5, cbk=16, cs=40)
 FITS = ("kmeans", "kmeans_bounded", "bkc", "buckshot")
@@ -320,6 +356,11 @@ def unit(s, d=16):
         rows.extend(k[(k * k).sum(1) == 64])
     return (np.asarray(rows[:s]) / 8).astype(np.float32)
 XS = {{name: unit(s) for name, _, _, s, _ in {configs}}}
+RG = {{s: unit(s) for s, _ in {rowgather}}}
+SYNTH_S = {synth_s}
+def triples(u, v, w, valid):
+    t = np.stack([u[valid], v[valid], w[valid].view(np.int32)])
+    return t[:, np.lexsort(t)]
 RC = np.random.default_rng(3)
 R, C = 64, 11
 CW = RC.normal(size=R).astype(np.float32)
@@ -354,7 +395,9 @@ _JAX = """
 import jax, jax.numpy as jnp
 from repro.distrib import cluster as dc
 from repro.distrib.engine import make_job
-from repro.distrib.hac_parallel import boruvka_mst_distributed, single_link_labels_distributed
+from repro.core.hac import cut_mst_edges, single_link_labels_boruvka
+from repro.distrib.hac_parallel import (boruvka_mst_distributed, single_link_labels_distributed,
+                                        synthetic_merge_rounds)
 from repro.distrib.sharding import make_flat_mesh, make_pod_mesh, pad_rows_to_multiple, shard_rows
 from repro.kernels import ops
 out = {{}}
@@ -371,6 +414,27 @@ for name, world, kind, s, modes in {configs}:
         for f, v in e._asdict().items():
             out[f"{{name}}/{{mode}}/{{f}}"] = np.asarray(v)
     out[f"{{name}}/labels"] = np.asarray(single_link_labels_distributed(mesh, axes, xs, 9))
+    if "rowgather" in modes:
+        out[f"{{name}}/labels_rg"] = np.asarray(
+            single_link_labels_distributed(mesh, axes, xs, 9, pre_reduce=False))
+        out[f"{{name}}/resident"] = np.asarray(single_link_labels_boruvka(xs, 9))
+    if name == "flat3":  # P = 4 flat on this process's four devices: the least loaded one
+        for s_, k_ in {rowgather}:
+            rx = jnp.asarray(RG[s_])
+            e = boruvka_mst_distributed(make_flat_mesh(4), ("data",), rx, prewarm=False,
+                                        pre_reduce=False)
+            out[f"rg{{s_}}/rounds"] = np.asarray(e.u.shape[0] // s_)
+            out[f"rg{{s_}}/labels"] = np.asarray(cut_mst_edges(e, s_, k_))
+            out[f"rg{{s_}}/resident"] = np.asarray(single_link_labels_boruvka(rx, k_))
+    if world == 4:
+        # the point merge never reads the mesh: it runs once, in the pod process
+        for s_ in SYNTH_S:
+            for merge in ("comp", "point") if kind == "pod" else ("comp",):
+                e, rounds = synthetic_merge_rounds(mesh, axes, s_, merge=merge)
+                key = f"{{name}}/synth{{s_}}/comp" if merge == "comp" else f"synth{{s_}}/point"
+                out[f"{{key}}/rounds"] = np.asarray(rounds)
+                out[f"{{key}}/triples"] = triples(*(np.asarray(v) for v in e))
+                out[f"{{key}}/cut"] = np.asarray(cut_mst_edges(e, s_, 3))
     sh = lambda v: shard_rows(mesh, axes, v)
     if kind == "flat":
         xp, w = pad_rows_to_multiple(jnp.asarray(KX), world)
@@ -407,8 +471,10 @@ _TORCH = """
 import torch, torch.distributed as dist
 from repro_torch.distrib import cluster as dc
 from repro_torch.distrib.engine import make_job
+from repro_torch.core.hac import cut_mst_edges, single_link_labels_boruvka
 from repro_torch.distrib.hac_parallel import (boruvka_mst_distributed,
-                                              single_link_labels_distributed)
+                                              single_link_labels_distributed,
+                                              synthetic_merge_rounds)
 from repro_torch.distrib.sharding import (make_flat_mesh, make_pod_mesh, pad_rows_to_multiple,
                                           shard_rows)
 from repro_torch.kernels import ops
@@ -427,6 +493,26 @@ for name, w_, kind, s, modes in {configs}:
         for f, v in e._asdict().items():
             out[f"{{name}}/{{mode}}/{{f}}"] = v.numpy()
     out[f"{{name}}/labels"] = single_link_labels_distributed(mesh, axes, xs, 9).numpy()
+    if "rowgather" in modes:
+        out[f"{{name}}/labels_rg"] = single_link_labels_distributed(
+            mesh, axes, xs, 9, pre_reduce=False).numpy()
+        out[f"{{name}}/resident"] = single_link_labels_boruvka(xs, 9).numpy()
+    if name == "flat4":
+        for s_, k_ in {rowgather}:
+            rx = torch.from_numpy(RG[s_])
+            e = boruvka_mst_distributed(mesh, axes, rx, pre_reduce=False)
+            out[f"rg{{s_}}/rounds"] = np.asarray(e.u.shape[0] // s_)
+            out[f"rg{{s_}}/labels"] = single_link_labels_distributed(
+                mesh, axes, rx, k_, pre_reduce=False).numpy()
+            out[f"rg{{s_}}/resident"] = single_link_labels_boruvka(rx, k_).numpy()
+    if world == 4:
+        for s_ in SYNTH_S:
+            for merge in ("comp", "point"):
+                e, rounds = synthetic_merge_rounds(mesh, axes, s_, merge=merge)
+                key = f"{{name}}/synth{{s_}}/{{merge}}"
+                out[f"{{key}}/rounds"] = np.asarray(rounds)
+                out[f"{{key}}/triples"] = triples(*(v.numpy() for v in e))
+                out[f"{{key}}/cut"] = cut_mst_edges(e, s_, 3).numpy()
     sh = lambda v: shard_rows(mesh, axes, v)
     if kind == "flat":
         xp, w = pad_rows_to_multiple(torch.from_numpy(KX), world)
@@ -464,7 +550,7 @@ np.savez(path, **out)
 
 def _script(body):
     fmt = dict(seed=SEED, configs=repr(CONFIGS), modes=repr(MODES), same_as=repr(SAME_AS),
-               **CLUSTER)
+               rowgather=repr(ROWGATHER), synth_s=repr(SYNTH_S), **CLUSTER)
     return textwrap.dedent(_COMMON.format(**fmt)) + textwrap.dedent(body.format(**fmt))
 
 
@@ -532,6 +618,47 @@ def test_boruvka_distributed_several_ranks_matches_jax(multirank, name, world, k
             _same_edges({f: got[f"{name}/{mode}/{f}"] for f in ("u", "v", "w", "valid")},
                         {f: want[f"{name}/{ref_mode}/{f}"] for f in ("u", "v", "w", "valid")})
         np.testing.assert_array_equal(got[f"{name}/labels"], want[f"{name}/labels"])
+        if "rowgather" in modes:  # the per-row gather: JAX's, the pre-reduce's, the resident's
+            np.testing.assert_array_equal(got[f"{name}/labels_rg"], want[f"{name}/labels_rg"])
+            np.testing.assert_array_equal(got[f"{name}/labels_rg"], got[f"{name}/labels"])
+            np.testing.assert_array_equal(got[f"{name}/resident"], want[f"{name}/resident"])
+            np.testing.assert_array_equal(got[f"{name}/labels_rg"], got[f"{name}/resident"])
+
+
+@pytest.mark.parametrize("s,k", ROWGATHER)
+def test_row_gather_labels_several_ranks_match_jax_and_resident(multirank, s, k):
+    """P = 4, flat: the per-row gather's labels equal the JAX package's
+    ``pre_reduce=False`` labels and the resident Borůvka's (both packages),
+    after as many rounds as the JAX package's early exit runs (on the card,
+    ``chip_smoke.py`` counts one ``sim_best_edge`` launch a round)."""
+    want = multirank["jax"]
+    np.testing.assert_array_equal(want[f"rg{s}/labels"], want[f"rg{s}/resident"])
+    for r in range(4):
+        got = multirank[f"w4r{r}"]
+        np.testing.assert_array_equal(got[f"rg{s}/labels"], want[f"rg{s}/labels"])
+        np.testing.assert_array_equal(got[f"rg{s}/resident"], want[f"rg{s}/resident"])
+        assert int(got[f"rg{s}/rounds"]) == int(want[f"rg{s}/rounds"]) >= 1
+
+
+@pytest.mark.parametrize("s", SYNTH_S)
+@pytest.mark.parametrize("name", ["flat4", "pod22"])
+def test_synthetic_merge_rounds_several_ranks_match_jax(multirank, name, s):
+    """The merge-only driver: comp against point against the JAX package's,
+    on every rank: rounds run, the s - 1 valid (u, v, w) triples (w as its
+    bits) and the cut at k = 3. The JAX package's point merge reads no mesh,
+    so one run of it (in the pod process) serves both meshes."""
+    want = multirank["jax"]
+    for merge in ("comp", "point"):
+        key = f"{name}/synth{s}/{merge}"
+        jkey = key if merge == "comp" else f"synth{s}/point"
+        assert want[f"{jkey}/triples"].shape == (3, s - 1)
+        for r in range(4):
+            got = multirank[f"w4r{r}"]
+            # the port's comp against its point, then each against JAX
+            for other, ref_ in ((f"{name}/synth{s}/comp", got), (jkey, want)):
+                assert int(got[f"{key}/rounds"]) == int(ref_[f"{other}/rounds"])
+                np.testing.assert_array_equal(got[f"{key}/triples"], ref_[f"{other}/triples"])
+                np.testing.assert_array_equal(got[f"{key}/cut"], ref_[f"{other}/cut"])
 
 
 @pytest.mark.parametrize("name", ["flat4", "pod22"])

@@ -127,6 +127,20 @@ def test_label_stats_integer_data_exact(rng, plain, weighted, n, k, d):
     _same(got, want, exact=True)
 
 
+@pytest.mark.parametrize("n,k,d", [(40, 4, 3), (600, 70, 130), (0, 3, 2)])
+def test_cluster_stats_matches_jax_and_label_stats(rng, n, k, d):
+    """The one-hot combiner, the JAX package's oracle for label_stats: equal
+    to it on integer rows, and to the port's plain label_stats (unweighted)
+    bit for bit; within RTOL on float rows."""
+    x, idx = _ints(rng, (n, d)), rng.integers(0, k, size=n).astype(np.int32)
+    got = ref.cluster_stats(_t(x), _t(idx), k)
+    _same(got, jref.cluster_stats(jnp.asarray(x), jnp.asarray(idx), k), exact=True)
+    _same(got, ref.label_stats(_t(x), _t(idx), k), exact=True)
+    xf = _floats(rng, (n, d))
+    _same(ref.cluster_stats(_t(xf), _t(idx), k),
+          jref.cluster_stats(jnp.asarray(xf), jnp.asarray(idx), k), exact=False)
+
+
 def test_label_stats_float_data(rng):
     x = _floats(rng, (300, 50))
     idx = rng.integers(-1, 6, size=300).astype(np.int32)

@@ -149,6 +149,37 @@ def test_init_params_follow_the_reference_rules():
     assert not any(p.requires_grad for p in a.parameters())
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_materialize_stacked_matches_the_reference_through_its_seam(dtype):
+    """jax.random streams cannot be drawn in torch: the stacked layers equal
+    n calls of ``materialize`` from the same generator state, stacked, and
+    their shapes and dtypes equal the reference's."""
+    from repro.models import common as jcommon
+
+    arch = "qwen2-1.5b"
+    jcfg, tcfg = _cfgs(arch)
+    trecs, jrecs = ttransformer.block_recs(tcfg), jtransformer.block_recs(jcfg)
+    n = 3
+    got = tcommon.materialize_stacked(torch.Generator().manual_seed(4), trecs, n, "cpu",
+                                      getattr(torch, dtype))
+    g = torch.Generator().manual_seed(4)
+    layers = [tcommon.materialize(g, trecs, "cpu", getattr(torch, dtype)) for _ in range(n)]
+    want = jcommon.materialize_stacked(jax.random.PRNGKey(4), jrecs, n, getattr(jnp, dtype))
+    paths = _paths(want)
+    assert paths == _paths(got) and paths
+    def at(tree, path):
+        for key in path:
+            tree = tree[key]
+        return tree
+
+    for path, leaf in _leaves(got):
+        assert torch.equal(leaf, torch.stack([at(layer, path) for layer in layers])), path
+        ref = at(want, path)
+        assert tuple(leaf.shape) == ref.shape and leaf.shape[0] == n, path
+        assert str(leaf.dtype).removeprefix("torch.") == str(ref.dtype), path
+    assert any(not torch.equal(leaf[0], leaf[1]) for _, leaf in _leaves(got))  # drawn anew
+
+
 @pytest.mark.parametrize("arch", PORTED)
 def test_init_cache_matches_the_reference(arch):
     """The same tree: slots per layer (gemma3's rings), encdec's enc_out,

@@ -412,7 +412,7 @@ def test_draw_generator_is_fixed_across_processes():
 # ---------------------------------------------------------------- against the JAX service
 
 
-def _jax_uniforms(rid: int):
+def _jax_uniforms(rid: int, chunk: int = CHUNK):
     """The draws of the JAX service's fit ``rid``: its reservoir's
     ``uniform(fold_in(key, ci))`` with key = KEY for the fit and
     ``fold_in(KEY, rid)`` for refit ``rid``."""
@@ -421,7 +421,7 @@ def _jax_uniforms(rid: int):
 
     def draw(ci):
         if ci not in cache:
-            cache[ci] = np.array(jax.random.uniform(jax.random.fold_in(key, ci), (CHUNK,)))
+            cache[ci] = np.array(jax.random.uniform(jax.random.fold_in(key, ci), (chunk,)))
         return cache[ci]
 
     return draw
@@ -499,6 +499,76 @@ def test_stats_have_the_jax_service_keys(jax_run, port_run):
     assert set(got) == set(want)
     for key in ("version", "accepted", "completed", "shed", "ingested", "refits"):
         assert got[key] == want[key], key
+
+
+# ------------------------------------------------- the refit's RSS gate at its default
+
+# chip_smoke.py's serve phase cut to the test budget: synth.paper_20ng_shape()
+# (20,000 docs, 20 topics, vocab 2,048, seed 20) at 1,200 docs, each count row a
+# text of tokens t{j}; the drift a second corpus at seed + 1 in tokens u{j}, a
+# quarter of the base as there (5,000 of 20,000); k = 20, dim 2,048, 3 K-Means
+# iterations, s = sqrt(kn). validate_slack is the default, 1e-4.
+GATE_SHAPE = dict(n_docs=1200, vocab=2048, n_topics=20, seed=20)
+GATE_DRIFT, GATE_CHUNK = 300, 256
+GATE_CFG = dict(k=20, dim=2048, chunk=GATE_CHUNK, max_batch=64, queue_cap=256, sample_size=None,
+                kmeans_iters=3, drift_mass=1e9, drift_obj=1e9)  # the refit is triggered
+
+
+def _counts_texts(counts, prefix: str) -> list[str]:
+    """chip_smoke.corpus_texts: the token f"{prefix}{j}" repeated by the
+    row's count of term j."""
+    return [" ".join(" ".join([f"{prefix}{j}"] * int(row[j])) for j in np.nonzero(row)[0])
+            for row in counts]
+
+
+@pytest.fixture(scope="module")
+def gate_texts():
+    from repro_torch.text import synth
+
+    base = _counts_texts(synth.make_corpus(**GATE_SHAPE).counts, "t")
+    drift = dict(GATE_SHAPE, n_docs=GATE_DRIFT, seed=GATE_SHAPE["seed"] + 1)
+    return base, _counts_texts(synth.make_corpus(**drift).counts, "u")
+
+
+def _gate_drive(svc, drifted):
+    """Ingest the drifted docs in batches, refit, and read the gate: both
+    RSS it compares (through the service's own ``_try_swap``) and what it
+    decided."""
+    seen = {}
+    try_swap = svc._try_swap
+
+    def spy(token, cand, old_rss, snap_m):
+        seen.update(cand_rss=float(cand.rss), old_rss=float(old_rss))
+        return try_swap(token, cand, old_rss, snap_m)
+
+    svc._try_swap = spy
+    for lo in range(0, len(drifted), 100):
+        svc.ingest(drifted[lo:lo + 100])
+    rid = svc.trigger_refit(wait=True, timeout=300.0)
+    refits = svc.stats()["refits"]
+    return dict(seen, rid=rid, version=svc.model.version, swapped=refits.get("swapped", 0),
+                rolled_back=refits.get("rolled_back", 0))
+
+
+def test_refit_gate_at_default_slack_decides_as_the_jax_service(gate_texts):
+    """At the default validate_slack both services take the same decision on
+    the same texts and draws (the port draws the JAX service's fold_in
+    uniforms), from the same two RSS within 1e-6 relative: the candidate's
+    and the old centers' on the refit's stream."""
+    base, drifted = gate_texts
+    assert JConfig(k=1).validate_slack == ServiceConfig(k=1).validate_slack == 1e-4
+    with JService.fit(base, KEY, config=JConfig(**GATE_CFG, impl="xla")) as svc:
+        want = _gate_drive(svc, drifted)
+    uniforms = lambda rid: _jax_uniforms(rid, GATE_CHUNK)  # noqa: E731
+    with ClusterService.fit(base, 0, config=ServiceConfig(**GATE_CFG), device="cpu",
+                            uniforms=uniforms) as svc:
+        got = _gate_drive(svc, drifted)
+    print(f"refit gate, JAX service: {want}; the port: {got}")
+    for key in ("rid", "version", "swapped", "rolled_back"):
+        assert got[key] == want[key], key
+    assert got["swapped"] + got["rolled_back"] == 1
+    assert got["cand_rss"] == pytest.approx(want["cand_rss"], rel=1e-6)
+    assert got["old_rss"] == pytest.approx(want["old_rss"], rel=1e-6)
 
 
 # ---------------------------------------------------------------- SIGKILL refit resume
