@@ -48,7 +48,15 @@ Phases, in order; any failure raises and exits non-zero:
      unbounded on each, carried bounds at d = 33 and 2,048; on the 1 GB rows
      assign_argmax equal to assign_stats at k = 400); each kernel runs twice
      and must repeat its bits. component_best_edge's main-path shapes are held in
-     phase 4.
+     phase 4. Then bf16 document rows (phase_parity_bf16): sim_best_edge,
+     label_stats and assign_stats (bf16 and f32 centers) equal, bit for bit,
+     to their f32 mode on the upcast inputs on edge cases (odd d, d off 8 and
+     32, bases off 16 bytes, n and k off the tiles, labels -1, weight-0 rows)
+     and at the main path's shapes (the 1 GB collection in bf16, Buckshot's
+     sample normalized in bf16), there also within the plain versions'
+     tolerances; one bf16 ops.assign_stats at the 1 GB shape must raise the
+     peak device memory by less than n * d * 2 bytes (an f32 copy of x would
+     add n * d * 4).
   3. Timing (CUDA events): kernel, plain version, one library call, and the
      card's lower bound for the same work (sim_best_edge's self-search
      against the half product, the full grid on a copy of the rows beside
@@ -62,11 +70,20 @@ Phases, in order; any failure raises and exits non-zero:
      cache, f32, and at llama3.2-3b's heads, bf16, length 20,000 of 32,768,
      with the kernel alone, profiled; label_stats at Buckshot's centers
      also with the L2 flushed and profiled, and the fold alone at
-     n = 250,000 for k = 50 and k = 800).
+     n = 250,000 for k = 50 and k = 800); the three kernels again on bf16
+     rows, each beside its f32 row (the library calls on bf16 operands run on
+     tensor cores, which the kernels' fmaf chains do not; the bounds count
+     bf16 bytes, and a product of two bf16 operands at the tensor cores'
+     bf16 rate, with the fmaf chains' figure beside it as a contract figure;
+     bf16 x by f32 centers counts f32 operations, and assign_stats is timed
+     with bf16 centers too).
   4. Paths at full size on the ~1 GB collection (n = 250,000, d = 2,048,
      50 topics), each with its launch counters set to 0 just before and read
      just after: tf-idf on the card, Buckshot with k = 50 (s = 3,536) and the
-     K-Means baseline; then BKC with k = 400, BigK = 800 through the
+     K-Means baseline; both again, twice each, on the collection in bf16
+     (wall time, peak memory, RSS, the launches on bf16 rows, the second run
+     repeating the first's bits, the bf16 fit's agreement with the main
+     path's f32 fit recorded); then BKC with k = 400, BigK = 800 through the
      bound-pruned pass, its fused and two-pass routes, bounded against
      unbounded K-Means at k = 400, bounded Buckshot, and assign_batch in
      64-row micro-batches; then distributed Buckshot (k = 50, s = 3,536)
@@ -217,13 +234,16 @@ Phases, in order; any failure raises and exits non-zero:
      count of the same step; its lines print after phase 5. Then
      examples/torch_quickstart.py at its default size on the card (its
      table of time, RSS, purity and NMI).
-  5. End-to-end oracles at the 20 Newsgroups shape: Buckshot (k = 20) and BKC
+  5. End-to-end oracles at the 20 Newsgroups shape: Buckshot (k = 20), on
+     f32 and on bf16 documents, and BKC
      (Table 1: k = 50, BigK = 250) on the card against the plain path on the
      CPU, on the same draws; BKC also on that collection with 5 % off-topic
      documents added, where joinToGroups bisects over real pair values
      (threshold above 1e-3, pair values on both sides of it; thresholds of
      card and CPU within 1e-5, groups equal but at a near-tie).
-  6. Summary: a {"kernels": [...]} line, then {"ok": true, "device": ...} last.
+  6. Summary: a {"kernels": [...]} line (the eight kernels, then the bf16
+     mode of sim_best_edge, label_stats and assign_stats as three entries of
+     their own), then {"ok": true, "device": ...} last.
 
 Tolerances. Integer-valued inputs make every product and sum exact in f32, so
 there the kernels must equal the plain versions bit for bit (the bounded
@@ -238,7 +258,9 @@ the deflated bounds clear the margin by less than 1e-5. Kernels that compute
 similarities by the same fmaf chain (assign_stats, assign_argmax,
 assign_stats_bounded) must agree with each other bit for bit. End to end:
 assignment agreement >= 99.9% and RSS within 1e-4 relative, for the same
-reason.
+reason. bf16 rows: a bf16 value converts to f32 exactly and the kernels keep
+their fmaf chains and fold orders, so every output must equal, bit for bit,
+the same kernel's f32 mode on x.float() (and centers.float()).
 """
 
 from __future__ import annotations
@@ -260,6 +282,7 @@ BATCH = 64  # the online service's max_batch
 SIM_TOL = 1e-5
 SUM_RTOL, SUM_ATOL = 1e-4, 1e-5
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 without tensor cores (data sheet)
+PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 on tensor cores, dense, f32 accumulation (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 (data sheet)
 LM_ARCH = "qwen2-1.5b"  # the LM serve phase's model, at full width
 LM_REQUESTS, LM_PROMPT, LM_NEW = 8, 32, 16
@@ -317,8 +340,12 @@ def event_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, bf16_flops: float = 0.0) -> tuple[float, str]:
+    """The least time for ``flops`` f32 operations on CUDA cores and
+    ``bf16_flops`` operations of bf16 products (f32 sums) on tensor cores,
+    the two units in parallel, against ``nbytes`` moved once."""
+    t_ops = max(flops / PEAK_FP32_FLOPS, bf16_flops / PEAK_BF16_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -703,9 +730,15 @@ def phase_main_path(corpus, dev):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     (x, truth), t_prep = sync_time(pipeline.prepare_local, corpus, dev)
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     res, t_buck = sync_time(buckshot, x, K, torch.Generator().manual_seed(SEED))
     counts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    fit_peak = torch.cuda.max_memory_allocated()
+    peak = max(peak, fit_peak)
+    # each f32 fit: (result, wall s, peak device memory above its start)
+    fits = {"buckshot": (res.kmeans, t_buck, fit_peak - base)}
     n, d = x.shape
     truth_t = torch.from_numpy(truth).to(dev)
     km = res.kmeans
@@ -732,16 +765,20 @@ def phase_main_path(corpus, dev):
     log(f"phase 4 buckshot phases (separate runs): phase 1 {t_p1:.3f} s, phase 2 {t_p2:.3f} s")
     profile_buckshot(x, res.sample_idx)
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
     ops.reset_launch_counts()
     base, t_km = sync_time(kmeans, x, K, torch.Generator().manual_seed(SEED))
     km_counts = ops.launch_counts()
+    fits["kmeans"] = (base, t_km, torch.cuda.max_memory_allocated() - start)
     check_result("kmeans", base, n, d)
     log(f"phase 4 kmeans baseline: {t_km:.3f} s, {base.iterations} iterations, "
         f"rss {base.rss.item()}, purity "
         f"{metrics.purity(base.assignment, truth_t, K, corpus.n_topics).item()}, launches {km_counts}")
     if km_counts["assign_stats"] != base.iterations + 1:
         raise AssertionError(f"kmeans did not go through assign_stats: {km_counts}")
-    return counts, km.assignment, x, truth
+    return counts, km.assignment, x, truth, fits
 
 
 def profile_buckshot(x, sample_idx):
@@ -796,6 +833,7 @@ def phase_oracle(dev):
 
     from repro_torch.core import sampling
     from repro_torch.core.buckshot import buckshot_fit
+    from repro_torch.kernels import ops
     from repro_torch.text import pipeline, synth
 
     shape = synth.paper_20ng_shape()
@@ -813,6 +851,310 @@ def phase_oracle(dev):
         f"RSS card {got.kmeans.rss.item()} vs CPU {want.kmeans.rss.item()} (rel {rel:.2e})")
     if agree < 0.999 or rel > 1e-4:
         raise AssertionError("the card's Buckshot disagrees with the plain CPU path")
+    # the same documents in bf16: the card's kernels on bf16 rows against
+    # the port's plain path on the CPU on the same bf16 rows
+    t0 = time.perf_counter()
+    xb = x_cpu.bfloat16()
+    want = buckshot_fit(xb, sidx, k)
+    ops.reset_launch_counts()
+    got = buckshot_fit(xb.to(dev), sidx.to(dev), k)
+    on_bf16 = ops.bf16_launch_counts()
+    agree = (got.kmeans.assignment.cpu() == want.kmeans.assignment).double().mean().item()
+    rel = abs(got.kmeans.rss.item() - want.kmeans.rss.item()) / abs(want.kmeans.rss.item())
+    log(f"phase 5 oracle bf16 at n={n} k={k} s={s}: assignment agreement {agree}, RSS card "
+        f"{got.kmeans.rss.item()} vs CPU {want.kmeans.rss.item()} (rel {rel:.2e}); launches on "
+        f"bf16 rows {on_bf16}; took {time.perf_counter() - t0:.1f} s")
+    if not all(on_bf16.values()):
+        raise AssertionError(f"the bf16 oracle did not launch every kernel on bf16 rows: {on_bf16}")
+    if agree < 0.999 or rel > 1e-4:
+        raise AssertionError("the card's bf16 Buckshot disagrees with the plain CPU path")
+
+
+# ------------------------------------------------------------ bf16 documents
+
+
+def gpu_tests():
+    """tests/test_torch_gpu.py as a module: the bf16 gates and their edge
+    cases live there once, and phase 2 runs them on this card."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tests" / "test_torch_gpu.py"
+    spec = importlib.util.spec_from_file_location("test_torch_gpu", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_f32_mode(name, got, want):
+    """The bf16 gate: every output equal, dtype and bits (torch.equal), to
+    the same kernel's f32 mode on the upcast inputs."""
+    import torch
+
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"{name}: output {i} differs from the f32 mode on the upcast inputs")
+
+
+def phase_parity_bf16(xb, xsb, dev):
+    """Phase 2 on bf16 rows: sim_best_edge, label_stats and assign_stats on
+    the edge cases of tests/test_torch_gpu.py's bf16 gates and at the main
+    path's shapes (xb: the 1 GB collection in
+    bf16, xsb: Buckshot's sample normalized in bf16, as phase 1 makes it),
+    each equal bit for bit to its f32 mode on the upcast inputs, repeating
+    its bits, and at the main shapes within the plain version's tolerances;
+    then the memory of one bf16 ops.assign_stats call at the 1 GB shape.
+    Returns each kernel's max abs error against its plain version."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.assign_stats import assign_stats_cuda, label_stats_cuda
+    from repro_torch.kernels.sim_best_edge import sim_best_edge_cuda
+
+    t0 = time.perf_counter()
+    gates = gpu_tests()
+    for case in gates.BF16_SIM_CASES:
+        try:
+            gates.test_bf16_sim_best_edge_equals_f32_mode(dev, *case)
+        except AssertionError as e:
+            raise AssertionError(f"sim_best_edge bf16 (r, c, d, offset) {case}") from e
+    for case in gates.BF16_STATS_CASES:
+        try:
+            gates.test_bf16_label_stats_equals_f32_mode(dev, *case)
+            for cdt in (torch.bfloat16, torch.float32):
+                gates.test_bf16_assign_stats_equals_f32_mode(dev, *case, cdt)
+        except AssertionError as e:
+            raise AssertionError(f"label_stats / assign_stats bf16 (n, k, d, offset) {case}") from e
+    log(f"phase 2 parity bf16: tests/test_torch_gpu.py's gates on "
+        f"{len(gates.BF16_SIM_CASES)} sim_best_edge cases (full grid, self-search, a copy) and "
+        f"{len(gates.BF16_STATS_CASES)} label_stats / assign_stats cases (bf16 and f32 centers; "
+        "odd d, d off 8 and 32, bases off 16 bytes, n and k off the tiles, labels -1, weight-0 "
+        "rows) equal to the f32 mode on the upcast inputs bit for bit, repeats bit-identical")
+
+    # the main path's shapes
+    g = torch.Generator().manual_seed(28)
+    s = xsb.shape[0]
+    errs, ties = {}, {}
+    comp = torch.randint(0, s // 7, (s,), generator=g, dtype=torch.int32)
+    comp[torch.randperm(s, generator=g)[:40]] = -1
+    xsf = xsb.float()
+    err, n_tie = 0.0, 0
+    for labels in (torch.arange(s, dtype=torch.int32), comp):
+        labels = labels.to(dev)
+        a = sim_best_edge_cuda(xsb, xsb, labels, labels)
+        check_repeat("sim_best_edge bf16", a, sim_best_edge_cuda(xsb, xsb, labels, labels))
+        check_f32_mode("sim_best_edge bf16 self-search (sample)", a,
+                       sim_best_edge_cuda(xsf, xsf, labels, labels))
+        check_f32_mode("sim_best_edge bf16 full grid (sample)", a,
+                       sim_best_edge_cuda(xsb.clone(), xsb, labels.clone(), labels))
+        want = ref.sim_best_edge(xsb, xsb, labels, labels)
+        n_tie += check_argmax("sim_best_edge bf16", a[0], a[1], want[0], want[1],
+                              lambda rows, cols: (xsf[rows] * xsf[cols]).sum(1))
+        err = max(err, check_close("sim_best_edge bf16 best_s", a[1], want[1], 0.0, SIM_TOL))
+    errs["sim_best_edge_bf16"], ties["sim_best_edge_bf16"] = err, n_tie
+
+    idx = torch.randint(-1, K + 1, (s,), generator=g, dtype=torch.int32).to(dev)
+    w = torch.randint(0, 2, (s,), generator=g).float().to(dev)
+    a = label_stats_cuda(xsb, idx, K, w)
+    check_repeat("label_stats bf16", a, label_stats_cuda(xsb, idx, K, w))
+    check_f32_mode("label_stats bf16 (sample)", a, label_stats_cuda(xsf, idx, K, w))
+    errs["label_stats_bf16"] = max(
+        check_close(f"label_stats bf16 {part}", got, want, SUM_RTOL, SUM_ATOL)
+        for part, got, want in zip(("sums", "counts"), a, ref.label_stats_scatter(xsb, idx, K, w))
+    )
+
+    n, d = xb.shape
+    w = torch.ones((n,), device=dev)
+    w[torch.randperm(n, generator=g)[:1000].to(dev)] = 0.0
+    xf = xb.float()
+    err = 0.0
+    for centers in (xsf[:K].contiguous(), xsb[:K].contiguous()):  # f32 (K-Means), bf16
+        a = assign_stats_cuda(xb, centers, w)
+        check_repeat("assign_stats bf16", a, assign_stats_cuda(xb, centers, w))
+        check_f32_mode(f"assign_stats bf16 (1 GB, centers {centers.dtype})", a,
+                       assign_stats_cuda(xf, centers.float(), w))
+        want = ref.assign_stats_scatter(xb, centers, w)
+        cf = centers.float()
+        ties[f"assign_stats_bf16 centers {centers.dtype}"] = check_argmax(
+            "assign_stats bf16", a[0], a[1], want[0], want[1],
+            lambda rows, cols: (xf[rows] * cf[cols]).sum(1),
+        )
+        err = max(err, check_close("assign_stats bf16 best_sim", a[1], want[1], 0.0, SIM_TOL),
+                  check_stats_fold("assign_stats bf16", xf, w, K, a))
+    errs["assign_stats_bf16"] = err
+    del xf, a, want
+    torch.cuda.empty_cache()
+
+    # memory: a hidden f32 copy of x would add n * d * 4 bytes
+    centers = xsf[:K].contiguous()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.assign_stats(xb, centers)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    log(f"phase 2 parity bf16: main-path shapes (sample {s}x{d}, collection {n}x{d}) equal to "
+        f"the f32 mode on the upcast inputs bit for bit; against the plain versions max abs err "
+        f"{errs}, near-tie index differences {ties}; one bf16 ops.assign_stats at {n}x{d}: peak "
+        f"device memory {rise} bytes above its start (limit n*d*2 = {n * d * 2}; an f32 copy of "
+        f"x is {n * d * 4})")
+    if rise >= n * d * 2:
+        raise AssertionError("a bf16 ops.assign_stats call allocated as much as a copy of x")
+    log(f"phase 2 parity bf16 took {time.perf_counter() - t0:.1f} s")
+    return errs
+
+
+def phase_timing_bf16(xb, xsb, f32_rows, dev):
+    """Phase 3 on bf16 rows at the main path's shapes, each beside its f32
+    row: kernel, plain version, one library call on the bf16 operands
+    (cuBLAS runs the products on tensor cores, index_add_ sums in bf16) and
+    the bound. A product of two bf16 operands is bounded at the tensor
+    cores' bf16 rate: the least time the card could take, whatever the
+    kernels' fmaf-chain contract; the fmaf chains' figure (the same products
+    on CUDA cores) is printed beside it as the contract figure. bf16 x with
+    f32 centers (the K-Means passes, the kernels line's assign_stats_bf16)
+    multiplies by f32 operands, which no tensor-core type takes exactly: f32
+    operations, as in the f32 rows. assign_stats is timed and bounded with
+    bf16 centers too."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.assign_stats import assign_stats_cuda, label_stats_cuda
+    from repro_torch.kernels.sim_best_edge import sim_best_edge_cuda
+
+    t0 = time.perf_counter()
+    s, d = xsb.shape
+    n = xb.shape[0]
+    g = torch.Generator().manual_seed(2)  # phase_timing's labels
+    ids = torch.arange(s, dtype=torch.int32, device=dev)
+    labels = torch.randint(0, K, (s,), generator=g, dtype=torch.int32).to(dev)
+    lib_idx = labels.long()
+    centers = xsb[:K].float()  # the f32 centers K-Means passes
+    centers_b = xsb[:K].contiguous()
+    sim_ops = 1.0 * s * (s + 1) * d  # the half product, as in the f32 row
+    sim_bytes = s * d * 2 + s * 4 + s * 8
+    as_ops, as_extra = 2.0 * n * K * d, 4.0 * n * d  # the products; norms and the fold
+    as_bytes = n * d * 2 + n * 4 + n * 8 + K * d * 4 + 3 * K * 4
+
+    def sim_call():
+        return sim_best_edge_cuda(xsb, xsb, ids, ids)
+
+    def ls_call():
+        return label_stats_cuda(xsb, labels, K)
+
+    rows = {
+        "sim_best_edge_bf16": dict(
+            ms=event_ms(sim_call, 20),
+            profiled_ms=profiled_kernel_ms(sim_call, 10, ("sim_best_edge",)),
+            plain_ms=event_ms(lambda: ref.sim_best_edge(xsb, xsb, ids, ids), 20),
+            library_ms=event_ms(lambda: xsb @ xsb.T, 20),
+            library="xs @ xs.T on tensor cores",
+            bound=bound_ms(0.0, sim_bytes, bf16_flops=sim_ops),
+            contract=bound_ms(sim_ops, sim_bytes),
+        ),
+        "label_stats_bf16": dict(
+            ms=event_ms(ls_call, 50),
+            cold_ms=event_ms_cold(ls_call, 30),
+            profiled_ms=profiled_kernel_ms(ls_call, 20, ("stats_fold", "stats_reduce")),
+            plain_ms=event_ms(lambda: ref.label_stats_scatter(xsb, labels, K), 50),
+            library_ms=event_ms(
+                lambda: torch.zeros((K, d), dtype=xsb.dtype, device=dev).index_add_(0, lib_idx, xsb), 50),
+            library="index_add_, summing in bf16",
+            bound=bound_ms(2.0 * s * d, s * d * 2 + s * 4 + K * d * 4 + K * 4),
+        ),
+        "assign_stats_bf16": dict(
+            ms=event_ms(lambda: assign_stats_cuda(xb, centers), 10),
+            plain_ms=event_ms(lambda: ref.assign_stats_scatter(xb, centers), 10),
+            library_ms=event_ms(lambda: xb @ centers_b.T, 10),
+            library="x @ centers.T, bf16 centers, on tensor cores",
+            bound=bound_ms(as_ops + as_extra, as_bytes + K * d * 4),
+        ),
+    }
+    # the same pass with bf16 centers (the JAX sweep's operands)
+    bc = dict(
+        ms=event_ms(lambda: assign_stats_cuda(xb, centers_b), 10),
+        plain_ms=event_ms(lambda: ref.assign_stats_scatter(xb, centers_b), 10),
+        bound=bound_ms(as_extra, as_bytes + K * d * 2, bf16_flops=as_ops),
+        contract=bound_ms(as_ops + as_extra, as_bytes + K * d * 2),
+    )
+    for name, r in rows.items():
+        f = f32_rows[name[:-5]]
+        extra = "".join(f", {key} {r[key]:.4f} ms" for key in ("profiled_ms", "cold_ms") if key in r)
+        contract = (f"; the fmaf chains' contract figure {r['contract'][0]:.4f} ms"
+                    if "contract" in r else "")
+        log(f"phase 3 timing {name}: kernel {r['ms']:.4f} ms (f32 {f['ms']:.4f}){extra}, plain "
+            f"{r['plain_ms']:.4f} ms (f32 {f['plain_ms']:.4f}), library {r['library_ms']:.4f} ms "
+            f"({r['library']}; f32 {f['library_ms']:.4f}), bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}{contract}; f32 {f['bound'][0]:.4f})")
+    log(f"phase 3 timing assign_stats_bf16 with bf16 centers: kernel {bc['ms']:.4f} ms, plain "
+        f"{bc['plain_ms']:.4f} ms, bound {bc['bound'][0]:.4f} ms ({bc['bound'][1]}; the fmaf "
+        f"chains' contract figure {bc['contract'][0]:.4f} ms)")
+    log(f"phase 3 timing bf16 took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def phase_bf16_path(x, truth, n_topics, f32_fits, dev):
+    """Phase 4 on bf16 documents: Buckshot (k = 50) and the K-Means baseline
+    on the 1 GB collection in bf16 through buckshot() and kmeans(), twice
+    each (the second must repeat the first's bits), each run with its launch
+    counters set to 0 just before and read just after: wall time, peak
+    device memory above what was allocated before the fit, RSS, purity,
+    beside phase_main_path's f32 fits (``f32_fits``: result, wall, peak);
+    the bf16 fits' labels against the f32 fits' (recorded only:
+    l2_normalize of a bf16 sample rounds to bf16, so the two are not one
+    computation). Returns the first bf16 Buckshot run's launches on bf16
+    rows."""
+    import torch
+
+    from repro_torch.core import metrics
+    from repro_torch.core.buckshot import buckshot
+    from repro_torch.core.kmeans import kmeans
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    n, d = x.shape
+    xb = x.bfloat16()
+    truth_t = torch.from_numpy(truth).to(dev)
+    out = {}
+
+    def quality(km):
+        return (f"rss {km.rss.item()!r}, purity "
+                f"{metrics.purity(km.assignment, truth_t, K, n_topics).item():.6f}, "
+                f"{km.iterations} iterations")
+
+    for fit, fn in (("buckshot", buckshot), ("kmeans", kmeans)):
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ops.reset_launch_counts()
+            res, t = sync_time(fn, xb, K, torch.Generator().manual_seed(SEED))
+            km = res.kmeans if fit == "buckshot" else res
+            runs.append((km, t, torch.cuda.max_memory_allocated() - base,
+                         ops.launch_counts(), ops.bf16_launch_counts()))
+        b16, _, _, counts, on_bf16 = runs[0]
+        check_result(f"{fit} bf16", b16, n, d)
+        check_repeat(f"{fit} bf16", (b16.assignment, b16.centers),
+                     (runs[1][0].assignment, runs[1][0].centers))
+        if counts["assign_stats"] != b16.iterations + 1 or (fit == "buckshot" and not (
+                counts["sim_best_edge"] >= 1 and counts["label_stats"] >= 1)):
+            raise AssertionError(f"{fit} bf16 did not go through every kernel: {counts}")
+        if on_bf16 != {name: counts[name] for name in on_bf16}:
+            raise AssertionError(f"{fit} bf16: launches on bf16 rows {on_bf16}, all {counts}")
+        f32, t32, peak32 = f32_fits[fit]
+        agree = (f32.assignment == b16.assignment).double().mean().item()
+        rel = abs(b16.rss.item() - f32.rss.item()) / abs(f32.rss.item())
+        log(f"phase 4 bf16 {fit} at n={n} d={d} k={K}: x {x.numel() * 4} bytes f32, "
+            f"{xb.numel() * 2} bf16; wall bf16 {runs[0][1]:.4f}, {runs[1][1]:.4f} s (f32 in "
+            f"phase 4's main path {t32:.4f} s); peak device memory above the fit's start bf16 "
+            f"{max(r[2] for r in runs)} bytes (f32 {peak32}); f32 {quality(f32)}; bf16 "
+            f"{quality(b16)}; bf16 against f32: assignment agreement {agree!r}, RSS rel "
+            f"{rel:.3e} (recorded); launches bf16 {counts}, on bf16 rows {on_bf16}")
+        out[fit] = on_bf16
+    del xb
+    torch.cuda.empty_cache()
+    log(f"phase 4 bf16 paths took {time.perf_counter() - t0:.1f} s")
+    return out["buckshot"]
 
 
 # ------------------------------------------------------------ the BKC slice
@@ -4466,10 +4808,13 @@ def main() -> int:
     s = sampling.buckshot_sample_size(n, K)
     sidx = sampling.sample_indices(n, s, torch.Generator().manual_seed(SEED), dev)
     xs = l2_normalize(x[sidx])
+    xb = x.bfloat16()  # the collection's bf16 documents, and their sample as phase 1 makes it
+    xsb = l2_normalize(xb[sidx])
 
     t = time.perf_counter()
     phase_parity_edges(dev)
     errs = phase_parity_main(x, xs, dev)
+    errs.update(phase_parity_bf16(xb, xsb, dev))
     phase_parity_edges_bkc(dev)
     phase_parity_pipe_edges(dev)
     errs_bkc, state = phase_parity_main_bkc(x, dev)
@@ -4480,15 +4825,18 @@ def main() -> int:
     log(f"phase 2 parity took {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     times = phase_timing(x, xs, dev)
+    times.update(phase_timing_bf16(xb, xsb, times, dev))
     times.update(phase_timing_bkc(x, state, dev))
     stream_rows = phase_timing_stream_kernels(xs, dev)
     times["best_edge"] = stream_rows[f"best_edge {s}x{s}"]
     times["flash_decode"] = stream_rows["flash_decode kernel_bench f32"]
     log(f"phase 3 timing took {time.perf_counter() - t:.1f} s")
-    del x, xs, state
+    del x, xs, xb, xsb, state
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    counts, buckshot_labels, x, truth = phase_main_path(corpus, dev)
+    counts, buckshot_labels, x, truth, f32_fits = phase_main_path(corpus, dev)
+    for name, c in phase_bf16_path(x, truth, corpus.n_topics, f32_fits, dev).items():
+        counts[f"{name}_bf16"] = c
     bkc_counts = phase_bkc_path(x, truth, corpus.n_topics, buckshot_labels, dev)
     for name in ("assign_argmax", "assign_stats_bounded"):  # the kernels BKC brings
         counts[name] = bkc_counts[name]
@@ -4552,6 +4900,10 @@ def main() -> int:
         "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                          "src/repro/kernels/flash_decode.py:124"),
     }
+    # the bf16 mode of the three kernels Buckshot and the K-Means baseline
+    # launch: the same sources and TPU kernels, on bf16 document rows
+    for name in ("sim_best_edge", "label_stats", "assign_stats"):
+        replaces[f"{name}_bf16"] = replaces[name]
     kernels = []
     for name, (source, tpu) in replaces.items():
         r = times[name]

@@ -209,7 +209,12 @@ def kmeans(
 ) -> KMeansResult:
     """Convenience entry point with the paper's random-document init.
 
-    ``bounded=None`` defers to REPRO_ASSIGN_BOUNDS (``ops.bounds_enabled``)."""
+    On bf16 x the random init draws bf16 centers, which the first pass
+    takes; the later passes take the f32 centers it computes. The reference
+    package's ``kmeans_fit`` raises on bf16 initial centers (it takes bf16 x
+    with f32 ones); the labels here equal those of a fit from their f32
+    upcast. ``bounded=None`` defers to REPRO_ASSIGN_BOUNDS
+    (``ops.bounds_enabled``)."""
     if init_centers is None:
         init_centers = init_random_centers(x, k, generator)
     return kmeans_fit(

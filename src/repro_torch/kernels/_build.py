@@ -152,19 +152,27 @@ def stream(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
-            device: torch.device) -> None:
-    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
-    ``device``: what the kernels take. The test that passes comes first and
-    in one expression (every wrapper makes it on every call); the messages
-    are made only for a tensor that fails it."""
-    if (t.dtype is dtype and t.shape == shape and t.is_cuda and t.device == device
-            and t.is_contiguous()):
+# The element types of the document rows that sim_best_edge, label_stats and
+# assign_stats take, and their codes in the C entries (csrc/tma.cuh).
+ROWS = (torch.float32, torch.bfloat16)
+ELEM = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype | tuple[torch.dtype, ...],
+            shape: tuple, device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` (or of one of
+    the dtypes of a tuple) and ``shape`` on ``device``: what the kernels
+    take. The test that passes comes first and in one expression (every
+    wrapper makes it on every call); the messages are made only for a tensor
+    that fails it."""
+    if ((t.dtype is dtype or (type(dtype) is tuple and t.dtype in dtype))
+            and t.shape == shape and t.is_cuda and t.device == device and t.is_contiguous()):
         return
     if t.device != device or t.device.type != "cuda":
         raise ValueError(f"{name} must lie on {device} (a CUDA device), not {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, not {t.dtype}")
+    allowed = dtype if type(dtype) is tuple else (dtype,)
+    if t.dtype not in allowed:
+        raise TypeError(f"{name} must be {' or '.join(map(str, allowed))}, not {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, not {tuple(t.shape)}")
     if not t.is_contiguous():

@@ -4,7 +4,13 @@ plus per-cluster statistics) and ``csrc/assign_stats_bounded.cu`` (the same
 pass pruned by carried bounds and by the slabs' cone bounds).
 
 Counterpart of the JAX package's ``kernels/assign_stats.py``. ``launches``
-counts, per kernel, the calls that launched it.
+counts, per kernel, the calls that launched it, ``bf16_launches`` those of
+them on bf16 rows of x.
+
+``label_stats_cuda`` and ``assign_stats_cuda`` take x in f32 or bf16 (and
+``assign_stats_cuda`` bf16 x with f32 or bf16 centers): bf16 rows are read
+as they are, with no f32 copy, and every output is f32 with the bits of the
+f32 call on the upcast inputs. ``assign_stats_bounded_cuda`` takes f32 only.
 
 The three kernels fold through one partials buffer per device. A call holds
 the device's lock (``_build.device_lock``) from taking the buffer to the
@@ -26,17 +32,18 @@ import torch
 from repro_torch.kernels import ref
 
 launches = {"label_stats": 0, "assign_stats": 0, "assign_stats_bounded": 0}
+bf16_launches = {"label_stats": 0, "assign_stats": 0}
 
 # C entries: pointers and the stream as c_void_p, sizes as c_int
 _SIGNATURES = {
     "label_stats": {
         "label_stats_chunks": [I, I, I],
-        "label_stats": [P, P, P, I, I, I, I, P, P, P, P, P],
+        "label_stats": [P, I, P, P, I, I, I, I, P, P, P, P, P],
     },
     "assign_stats": {
         "assign_stats_chunks": [I, I, I],
         "assign_stats_scratch": [I],
-        "assign_stats": [P, P, P, I, I, I, I] + [P] * 11,
+        "assign_stats": [P, P, I, I, P, I, I, I, I] + [P] * 11,
     },
     "assign_stats_bounded": {
         "assign_stats_bounded_slab": [],
@@ -47,11 +54,13 @@ _SIGNATURES = {
 }
 
 
-def _count(name: str) -> None:
+def _count(name: str, x: torch.Tensor) -> None:
     from repro_torch.kernels import _build
 
     with _build.COUNT_LOCK:
         launches[name] += 1
+        if x.dtype == torch.bfloat16:
+            bf16_launches[name] += 1
 
 
 def _lib(name: str):
@@ -111,14 +120,14 @@ def _check_k_d(k: int, d: int) -> None:
 def label_stats_cuda(
     x: torch.Tensor, idx: torch.Tensor, k: int, w: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(n, d) f32, (n,) int32[, (n,) f32] -> ((k, d) sums, (k,) weight
-    totals). Contract of ``ref.label_stats``."""
+    """(n, d) f32 or bf16, (n,) int32[, (n,) f32] -> ((k, d) f32 sums, (k,)
+    weight totals). Contract of ``ref.label_stats``."""
     from repro_torch.kernels import _build
 
     n, d = x.shape
     dev = x.device
     _check_k_d(k, d)
-    _build.require(x, "x", torch.float32, (n, d), dev)
+    _build.require(x, "x", _build.ROWS, (n, d), dev)
     _build.require(idx, "idx", torch.int32, (n,), dev)
     wp = _weights(w, n, dev)
     lib = _lib("label_stats")
@@ -128,27 +137,29 @@ def label_stats_cuda(
     with _build.device_lock(dev.index):
         chunks, buf, part, part_k = _scratch("label_stats", n, k, d, dev, stream)
         err = lib.label_stats(
-            x.data_ptr(), idx.data_ptr(), wp, n, d, k, chunks, part, part_k,
+            x.data_ptr(), _build.ELEM[x.dtype], idx.data_ptr(), wp, n, d, k, chunks, part, part_k,
             sums.data_ptr(), counts.data_ptr(), stream,
         )
     _build.check(err, "label_stats")
-    _count("label_stats")
+    _count("label_stats", x)
     return sums, counts
 
 
 def assign_stats_cuda(
     x: torch.Tensor, centers: torch.Tensor, w: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, ...]:
-    """(n, d), (k, d) f32[, (n,) f32] -> (idx, best_sim, sums, counts,
-    min_sim, sumsq). Contract of ``ref.assign_stats``."""
+    """(n, d) f32 and (k, d) f32, or (n, d) bf16 and (k, d) f32 or bf16[,
+    (n,) f32] -> (idx, best_sim, sums, counts, min_sim, sumsq), all f32 but
+    idx. Contract of ``ref.assign_stats``."""
     from repro_torch.kernels import _build
 
     n, d = x.shape
     k = centers.shape[0]
     dev = x.device
     _check_k_d(k, d)
-    _build.require(x, "x", torch.float32, (n, d), dev)
-    _build.require(centers, "centers", torch.float32, (k, d), dev)
+    _build.require(x, "x", _build.ROWS, (n, d), dev)
+    _build.require(centers, "centers",
+                   _build.ROWS if x.dtype == torch.bfloat16 else torch.float32, (k, d), dev)
     wp = _weights(w, n, dev)
     lib = _lib("assign_stats")
     stream = _build.stream(x)
@@ -164,13 +175,14 @@ def assign_stats_cuda(
     with _build.device_lock(dev.index):
         chunks, buf, part, part_k = _scratch("assign_stats", n, k, d, dev, stream)
         err = lib.assign_stats(
-            x.data_ptr(), centers.data_ptr(), wp, n, d, k, chunks,
+            x.data_ptr(), centers.data_ptr(), _build.ELEM[x.dtype], _build.ELEM[centers.dtype],
+            wp, n, d, k, chunks,
             idx.data_ptr(), best_sim.data_ptr(), rowsq.data_ptr(), part,
             part_k, tile.data_ptr() or None, sums.data_ptr(), counts.data_ptr(),
             min_sim.data_ptr(), sumsq.data_ptr(), stream,
         )
     _build.check(err, "assign_stats")
-    _count("assign_stats")
+    _count("assign_stats", x)
     return idx, best_sim, sums, counts, min_sim, sumsq
 
 
@@ -280,6 +292,6 @@ def assign_stats_bounded_cuda(
             sumsq.data_ptr(), stream,
         )
     _build.check(err, "assign_stats_bounded")
-    _count("assign_stats_bounded")
+    _count("assign_stats_bounded", x)
     hi_out = torch.where(pruned, hi_adj, sec)
     return idx, best_sim, sums, counts, min_sim, sumsq, idx, best_sim, hi_out, pruned

@@ -16,6 +16,11 @@
 //
 // With ROWSQ the blocks of center tile 0 also write each row's squared norm
 // (the same fmaf chain, summed while the row passes through the ring).
+//
+// x and the centers are each f32 or bf16 (TX, TC; assign_stats takes bf16
+// document rows with f32 or bf16 centers, assign_argmax f32 only): a bf16
+// element is converted to f32 in registers, so every output has the bits of
+// the f32 launch on the upcast matrices.
 #pragma once
 
 #include "assign_pipe.cuh"
@@ -34,7 +39,7 @@ inline int assign_tiles(int k) { return (k + kTileCols - 1) / kTileCols; }
 
 // A block's consumer work for a center tile of width > 8 * (JN / 2) (JN
 // column groups of 16).
-template <bool ROWSQ, int JN>
+template <bool ROWSQ, int JN, typename TX, typename TC>
 __device__ __forceinline__ void tile_consume(const PipeRing& ring, int nk, bool rowsq_here,
                                              int row0, int col0, int n, int k, int tiles,
                                              int ct, float* xv, int* xi,
@@ -53,9 +58,10 @@ __device__ __forceinline__ void tile_consume(const PipeRing& ring, int nk, bool 
   float rsq = 0.f, unused = 0.f;
   for (int i = 0; i < nk; ++i) {
     pipe_wait(ring, i);
-    const float* a = ring.block(i, 0);
+    const TX* a = reinterpret_cast<const TX*>(ring.block(i, 0));
     if (ROWSQ && rowsq_here && t < kTileRows) pipe_row<false>(a, nullptr, t, rsq, unused);
-    pipe_fma<kTileTy, kTileTx, JN>(a, ring.block(i, 1), th.ty, th.tx, acc);
+    pipe_fma<kTileTy, kTileTx, JN>(a, reinterpret_cast<const TC*>(ring.block(i, 1)), th.ty,
+                                   th.tx, acc);
     pipe_release(ring, i, lane);
   }
   // each row's tile winner: a thread's columns ascend with j, then the 8
@@ -100,11 +106,11 @@ __device__ __forceinline__ void tile_consume(const PipeRing& ring, int nk, bool 
   }
 }
 
-template <bool ROWSQ>
+template <bool ROWSQ, typename TX, typename TC>
 __global__ void __launch_bounds__((kTileWarps + 1) * 32, 1)
     assign_tile(const __grid_constant__ CUtensorMap xmap,
                 const __grid_constant__ CUtensorMap cmap, int xtma, int ctma,
-                const float* __restrict__ x, const float* __restrict__ centers, int n,
+                const TX* __restrict__ x, const TC* __restrict__ centers, int n,
                 int k, int d, int tiles, int* __restrict__ idx,
                 float* __restrict__ best_sim, float* __restrict__ rowsq,
                 float* __restrict__ part_v, int* __restrict__ part_i) {
@@ -120,14 +126,16 @@ __global__ void __launch_bounds__((kTileWarps + 1) * 32, 1)
   __syncthreads();
 
   if (warp == kTileWarps) {  // producer
-    const uint32_t tx = (xtma ? kPipeBlock : 0) + (ctma ? kPipeBlock : 0);
+    const uint32_t tx = (xtma ? pipe_block_bytes<TX>(kTileRows) : 0) +
+                        (ctma ? pipe_block_bytes<TC>(kTileCols) : 0);
+    const bool stored = pipe_stored<TX>(xtma) || pipe_stored<TC>(ctma);
     for (int i = 0; i < nk; ++i) {
       pipe_acquire(ring, i, tx, lane);
       pipe_load(ring.block(i, 0), xtma ? &xmap : nullptr, x, n, d, row0, i * kPipeK,
                 kTileRows, ring.full_of(i), lane);
       pipe_load(ring.block(i, 1), ctma ? &cmap : nullptr, centers, k, d, col0, i * kPipeK,
                 kTileCols, ring.full_of(i), lane);
-      pipe_commit(ring, i);
+      pipe_commit(ring, i, stored);
     }
     pipe_drain(ring, nk);
     return;
@@ -135,7 +143,7 @@ __global__ void __launch_bounds__((kTileWarps + 1) * 32, 1)
   const bool rowsq_here = ct == 0;
   const int jn = pipe_jn<kTileTx>(min(kTileCols, k - col0));
 #define REPRO_TILE_CONSUME(JN)                                                          \
-  tile_consume<ROWSQ, JN>(ring, nk, rowsq_here, row0, col0, n, k, tiles, ct, xv, xi, idx, \
+  tile_consume<ROWSQ, JN, TX, TC>(ring, nk, rowsq_here, row0, col0, n, k, tiles, ct, xv, xi, idx, \
                           best_sim, rowsq, part_v, part_i)
   if (jn == 8)
     REPRO_TILE_CONSUME(8);
@@ -174,16 +182,19 @@ inline int assign_tile_scratch(int k) {
   return tiles > 1 ? 2 * tiles : 0;
 }
 
-static unsigned tile_smem_set[2] = {0, 0};  // per library: devices whose limit is raised
+// per library, per kernel [ROWSQ][x bf16][centers bf16]: devices whose
+// limit is raised
+static unsigned tile_smem_set[2][2][2] = {};
 
 // Launch on `st`; n == 0 launches nothing. scratch: n * assign_tile_scratch(k)
 // floats (may be null when that is 0).
-template <bool ROWSQ>
-inline int launch_assign_tile(const float* x, const float* centers, int n, int k, int d,
-                              int* idx, float* best_sim, float* rowsq, float* scratch,
+template <bool ROWSQ, typename TX, typename TC>
+inline int launch_assign_tile(const TX* x, const TC* centers, int n, int k, int d, int* idx,
+                              float* best_sim, float* rowsq, float* scratch,
                               cudaStream_t st) {
   if (n == 0) return 0;
-  int err = allow_smem(assign_tile<ROWSQ>, kTileSmem, tile_smem_set[ROWSQ]);
+  int err = allow_smem(assign_tile<ROWSQ, TX, TC>, kTileSmem,
+                       tile_smem_set[ROWSQ][sizeof(TX) == 2][sizeof(TC) == 2]);
   if (err != 0) return err;
   CUtensorMap xmap{}, cmap{};
   const bool xtma = pipe_map(&xmap, x, n, d, kTileRows, &err);
@@ -195,7 +206,7 @@ inline int launch_assign_tile(const float* x, const float* centers, int n, int k
   int* part_i = tiles > 1 ? reinterpret_cast<int*>(scratch + (size_t)tiles * n) : nullptr;
   const long long blocks = (long long)((n + kTileRows - 1) / kTileRows) * tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  assign_tile<ROWSQ><<<(unsigned)blocks, (kTileWarps + 1) * 32, kTileSmem, st>>>(
+  assign_tile<ROWSQ, TX, TC><<<(unsigned)blocks, (kTileWarps + 1) * 32, kTileSmem, st>>>(
       xmap, cmap, xtma, ctma, x, centers, n, k, d, tiles, idx, best_sim, rowsq, part_v,
       part_i);
   cudaError_t e = cudaGetLastError();

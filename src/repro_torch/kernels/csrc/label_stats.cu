@@ -19,6 +19,10 @@
 // through a ring of shared-memory stages filled by the copy engine, so it
 // is read once whatever k (label_stats.cuh). A second launch adds the chunk
 // partials in chunk order. A null w is weight 1: no fill of ones per call.
+//
+// bf16 x (the JAX kernel upcasts x in its body): a stage holds half the
+// bytes, the floor halves (4.4 us at Buckshot's phase-1 shape), and the
+// sums and totals have the bits of the f32 launch on x.float().
 
 #include "label_stats.cuh"
 
@@ -26,12 +30,19 @@ extern "C" int label_stats_chunks(int n, int k, int d) {
   return repro::stats_chunks(n, k, d);
 }
 
-// Scratch: part holds chunks * k * d floats, part_k chunks * 3 * k.
-extern "C" int label_stats(const float* x, const int* idx, const float* w,
+// Scratch: part holds chunks * k * d floats, part_k chunks * 3 * k. elem:
+// x's element type (kElemF32 or kElemBf16, csrc/tma.cuh).
+extern "C" int label_stats(const void* x, int elem, const int* idx, const float* w,
                            int n, int d, int k, int chunks, float* part,
                            float* part_k, float* sums, float* counts,
                            void* stream) {
-  return repro::launch_stats<false>(x, idx, w, nullptr, nullptr, n, d, k,
-                                    chunks, part, part_k, sums, counts, nullptr,
-                                    nullptr, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (elem != repro::kElemF32 && elem != repro::kElemBf16) return (int)cudaErrorInvalidValue;
+  if (elem == repro::kElemBf16)
+    return repro::launch_stats<false>(static_cast<const __nv_bfloat16*>(x), idx, w,
+                                      nullptr, nullptr, n, d, k, chunks, part, part_k,
+                                      sums, counts, nullptr, nullptr, st);
+  return repro::launch_stats<false>(static_cast<const float*>(x), idx, w, nullptr,
+                                    nullptr, n, d, k, chunks, part, part_k, sums,
+                                    counts, nullptr, nullptr, st);
 }

@@ -34,11 +34,20 @@
 // give identical bits (checkpoint resume relies on this). The plan (label
 // tiles, stages, chunks) depends on (n, k, d) and the card only, so the
 // fused, two-pass and bounded routes fold in the same order.
+//
+// x may be bf16 (T; label_stats and assign_stats take bf16 document rows):
+// its tile (64-byte box rows) fills half of the f32-sized slot of a stage,
+// so one plan (stages, warps, chunks) serves both types; each element is
+// converted to f32 exactly as a consumer reads it, and the partials stay
+// f32, so a bf16 fold has the bits of the f32 fold of x.float(). Where the
+// copy engine cannot take bf16 rows (a row stride or base off 16 bytes: odd
+// d, say) the producer loads them with plain 2-byte loads and stores.
 #pragma once
 
 #include <cfloat>
 #include <cstddef>
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "tma.cuh"
@@ -48,7 +57,7 @@ namespace repro {
 constexpr int kStatsCols = 32;    // columns per block: one a lane
 constexpr int kStatsRows = 128;   // rows per stage: one copy-engine box
 constexpr int kStatsMaxWarps = 16;  // consumer warps (label classes), most
-constexpr int kStatsTile = kStatsRows * kStatsCols * 4;  // x rows of a stage
+constexpr int kStatsTile = kStatsRows * kStatsCols * 4;  // x rows of a stage (bf16: half)
 constexpr int kStatsMeta = 4 * kStatsRows * 4;  // label, w, rowsq, sim
 constexpr int kStatsLists = kStatsMaxWarps * kStatsRows * 4 + 128;  // + their lengths; keeps stages 128-byte aligned
 constexpr int kStatsStage = kStatsTile + kStatsMeta + kStatsLists;
@@ -108,9 +117,15 @@ inline int stats_chunks(int n, int k, int d) {
 // adds in row order, a row whose label an earlier one of the four had taking
 // that row's sum from a register; the sums go back in row order. SCAL: the
 // scalars' block, whose columns are (1, rowsq, sim), the third a minimum
-// over rows with w > 0. HAS_W: w given (else every weight is 1).
-template <bool EXTRA, bool SCAL, bool HAS_W>
-__device__ __forceinline__ void fold_list(const int* list, int len, const float* st,
+// over rows with w > 0. HAS_W: w given (else every weight is 1). st: the
+// stage's x tile, of T.
+__device__ __forceinline__ float stats_x(const float* st, int i) { return st[i]; }
+__device__ __forceinline__ float stats_x(const __nv_bfloat16* st, int i) {
+  return __bfloat162float(st[i]);
+}
+
+template <bool EXTRA, bool SCAL, bool HAS_W, typename T>
+__device__ __forceinline__ void fold_list(const int* list, int len, const T* st,
                                           const float* mw, float* acc, int lane) {
   for (int g0 = 0; g0 < len; g0 += 4) {
     int lu[4];
@@ -126,7 +141,7 @@ __device__ __forceinline__ void fold_list(const int* list, int len, const float*
                 : !EXTRA  ? 0.f
                 : lane == 1 ? mw[kStatsRows + r] : mw[2 * kStatsRows + r];
       else
-        xu[u] = st[r * kStatsCols + lane];
+        xu[u] = stats_x(st, r * kStatsCols + lane);
       cur[u] = acc[lu[u] * kStatsCols + lane];
     }
 #pragma unroll
@@ -152,14 +167,15 @@ __device__ __forceinline__ void fold_list(const int* list, int len, const float*
 // third kept as a minimum over rows with w > 0. The block is W consumer
 // warps (W = blockDim.x / 32 - 3, a power of two), two sorter warps (even
 // and odd slots of the ring) and a producer warp.
-template <bool EXTRA>
+template <bool EXTRA, typename T>
 __global__ void __launch_bounds__((kStatsMaxWarps + 3) * 32)
     stats_fold(const __grid_constant__ CUtensorMap xmap, int tma,
-               const float* __restrict__ x, const int* __restrict__ idx,
+               const T* __restrict__ x, const int* __restrict__ idx,
                const float* __restrict__ w, const float* __restrict__ rowsq,
                const float* __restrict__ sim, int n, int d, int k, int kt,
                int stages, int rows_per_chunk, float* __restrict__ part,
                float* __restrict__ part_k) {
+  constexpr int kTileBytes = kStatsRows * kStatsCols * sizeof(T);  // of the slot's kStatsTile
   extern __shared__ unsigned char raw[];
   // aligned by an offset from raw, not through an integer, so the compiler
   // keeps every access below a shared-memory one (LDS/STS, not generic)
@@ -210,21 +226,26 @@ __global__ void __launch_bounds__((kStatsMaxWarps + 3) * 32)
 #endif
       const int s = i % stages;
       mbar_wait(&empty[s], ((i / stages) & 1) ^ 1);
-      float* dst = reinterpret_cast<float*>(stage(s));
+      T* dst = reinterpret_cast<T*>(stage(s));
       int* mlab = reinterpret_cast<int*>(stage(s) + kStatsTile);
       float* mw = reinterpret_cast<float*>(mlab + kStatsRows);
       const int row0 = r0 + i * kStatsRows;
       if (tma && !scalars) {
         if (lane == 0) {
-          mbar_expect_tx(&full[s], kStatsTile);
+          mbar_expect_tx(&full[s], kTileBytes);
           tma_load_2d(dst, &xmap, c0, row0, &full[s]);
         }
-      } else if (!scalars) {  // 4-byte asynchronous copies, zeros outside x
+      } else if (!scalars) {  // one element a lane, zeros outside x
         const int col = c0 + lane;
         for (int r = 0; r < kStatsRows; ++r) {
           const int rr = row0 + r;
           const bool in = rr < r1 && col < d;
-          cp_async4(dst + r * kStatsCols + lane, x + (in ? (size_t)rr * d + col : 0), in ? 4 : 0);
+          if (sizeof(T) == 4)  // 4-byte asynchronous copies
+            cp_async4(dst + r * kStatsCols + lane, x + (in ? (size_t)rr * d + col : 0),
+                      in ? 4 : 0);
+          else  // bf16: plain 2-byte loads and stores
+            reinterpret_cast<unsigned short*>(dst)[r * kStatsCols + lane] =
+                in ? reinterpret_cast<const unsigned short*>(x)[(size_t)rr * d + col] : 0;
         }
       }
 #pragma unroll
@@ -239,7 +260,7 @@ __global__ void __launch_bounds__((kStatsMaxWarps + 3) * 32)
           cp_async4(mw + 2 * kStatsRows + b + lane, sim + at, bytes);
         }
       }
-      cp_async_arrive(&full[s]);
+      producer_arrive(&full[s], sizeof(T) == 2 && !tma && !scalars);
     }
   } else if (warp >= nw) {  // sorters: each class's rows of a stage, in row order
     // A sorter owns slots of the ring, not stages: it waits on every phase of
@@ -288,7 +309,7 @@ __global__ void __launch_bounds__((kStatsMaxWarps + 3) * 32)
       const int s = i % stages;
       mbar_wait(&full[s], (i / stages) & 1);
       mbar_wait(&sorted[s], (i / stages) & 1);
-      const float* st = reinterpret_cast<const float*>(stage(s));
+      const T* st = reinterpret_cast<const T*>(stage(s));
       const float* mw = reinterpret_cast<const float*>(stage(s) + kStatsTile) + kStatsRows;
       const int* lists = reinterpret_cast<const int*>(stage(s) + kStatsTile + kStatsMeta);
       const int* list = lists + warp * kStatsRows;            // this class's rows
@@ -348,36 +369,39 @@ __global__ void stats_reduce(const float* __restrict__ part,
 }
 
 // Both passes on `st`; min_sim and sumsq (with rowsq and sim) only for EXTRA.
-// x goes through the copy engine when its rows are 16-byte multiples from a
-// 16-byte-aligned base and it spans at least one box; otherwise the
-// producer warp loads it.
-static unsigned fold_smem_set[2] = {0, 0};  // per library: devices whose limit is raised
+// x (f32 or bf16) goes through the copy engine when its rows are 16-byte
+// multiples from a 16-byte-aligned base and it spans at least one box;
+// otherwise the producer warp loads it.
+// per library, per kernel [EXTRA][bf16]: devices whose limit is raised
+static unsigned fold_smem_set[2][2] = {};
 
-template <bool EXTRA>
-inline int launch_stats(const float* x, const int* idx, const float* w,
+template <bool EXTRA, typename T>
+inline int launch_stats(const T* x, const int* idx, const float* w,
                         const float* rowsq, const float* sim, int n, int d,
                         int k, int chunks, float* part, float* part_k,
                         float* sums, float* counts, float* min_sim,
                         float* sumsq, cudaStream_t st) {
+  constexpr bool kF32 = sizeof(T) == 4;
   const StatsPlan p = stats_plan(k);
-  int err = allow_smem(stats_fold<EXTRA>, kStatsMaxSmem, fold_smem_set[EXTRA]);
+  int err = allow_smem(stats_fold<EXTRA, T>, kStatsMaxSmem, fold_smem_set[EXTRA][!kF32]);
   if (err != 0) return err;
   int rows_per_chunk = (n + chunks - 1) / chunks;
   rows_per_chunk = (rows_per_chunk + kStatsRows - 1) / kStatsRows * kStatsRows;
   CUtensorMap map{};
-  const int tma = n >= kStatsRows && d >= kStatsCols && d % 4 == 0 &&
+  const int tma = n >= kStatsRows && d >= kStatsCols && d % (16 / (int)sizeof(T)) == 0 &&
                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
   if (tma) {
     const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)n};
-    const cuuint64_t strides[1] = {(cuuint64_t)d * 4};
+    const cuuint64_t strides[1] = {(cuuint64_t)d * sizeof(T)};
     const cuuint32_t box[2] = {kStatsCols, kStatsRows};
-    err = make_tensor_map(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, x, dims,
-                          strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+    err = make_tensor_map(&map,
+                          kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                          2, x, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
     if (err != 0) return err;
   }
   // the column tiles, then one column of blocks for the scalars
   const dim3 grid((d + kStatsCols - 1) / kStatsCols + 1, p.tiles, chunks);
-  stats_fold<EXTRA><<<grid, (p.warps + 3) * 32, p.smem, st>>>(
+  stats_fold<EXTRA, T><<<grid, (p.warps + 3) * 32, p.smem, st>>>(
       map, tma, x, idx, w, rowsq, sim, n, d, k, p.kt, p.stages, rows_per_chunk,
       part, part_k);
   cudaError_t e = cudaGetLastError();

@@ -33,6 +33,11 @@
 // sim(j, i) the bits of sim(i, j); it writes that into partial slot I of row
 // j. Every partial slot then holds what the full grid gave it, and the fold
 // returns the full grid's bits. At s = 3,536: 406 tiles instead of 784.
+//
+// bf16 rows (both matrices bf16: the sample of a bf16 collection, as the
+// JAX kernel takes it) are read at half the bytes and converted to f32 in
+// registers; the fmaf chains are those of the f32 launch on xs.float(), so
+// every output, and the symmetry the self-search relies on, keeps its bits.
 
 #include "assign_pipe.cuh"
 
@@ -65,7 +70,7 @@ __device__ __forceinline__ void upper_tile(int b, int tiles, int& rt, int& ct) {
 // The consumers of tile (rt, ct) with JN column groups of 16 (a narrow last
 // column tile computes fewer); with SELF, and off the diagonal, the column
 // side too.
-template <int JN, bool SELF>
+template <int JN, bool SELF, typename T>
 __device__ __forceinline__ void tile_consume(const PipeRing& ring, int nk, int rt, int ct,
                                              const int* __restrict__ lr,
                                              const int* __restrict__ lc, int r, int c,
@@ -82,7 +87,8 @@ __device__ __forceinline__ void tile_consume(const PipeRing& ring, int nk, int r
     for (int j = 0; j < JN; ++j) acc[i][j] = 0.f;
   for (int i = 0; i < nk; ++i) {
     pipe_wait(ring, i);
-    pipe_fma<kTy, kTx, JN>(ring.block(i, 0), ring.block(i, 1), th.ty, th.tx, acc);
+    pipe_fma<kTy, kTx, JN>(reinterpret_cast<const T*>(ring.block(i, 0)),
+                           reinterpret_cast<const T*>(ring.block(i, 1)), th.ty, th.tx, acc);
     pipe_release(ring, i, lane);
   }
 
@@ -171,11 +177,11 @@ __device__ __forceinline__ void tile_consume(const PipeRing& ring, int nk, int r
   }
 }
 
-template <bool SELF>
+template <bool SELF, typename T>
 __global__ void __launch_bounds__((kWarps + 1) * 32, 1)
     sim_best_edge_tile(const __grid_constant__ CUtensorMap rmap,
                        const __grid_constant__ CUtensorMap cmap, int rtma, int ctma,
-                       const float* __restrict__ xr, const float* __restrict__ xc,
+                       const T* __restrict__ xr, const T* __restrict__ xc,
                        const int* __restrict__ lr, const int* __restrict__ lc, int r, int c,
                        int d, int tiles, float* __restrict__ part_s,
                        int* __restrict__ part_j) {
@@ -198,21 +204,23 @@ __global__ void __launch_bounds__((kWarps + 1) * 32, 1)
   __syncthreads();
 
   if (warp == kWarps) {  // producer
-    const uint32_t tx = (rtma ? kPipeBlock : 0) + (ctma ? kPipeBlock : 0);
+    const uint32_t tx =
+        (rtma ? pipe_block_bytes<T>(kRows) : 0) + (ctma ? pipe_block_bytes<T>(kCols) : 0);
+    const bool stored = pipe_stored<T>(rtma) || pipe_stored<T>(ctma);
     for (int i = 0; i < nk; ++i) {
       pipe_acquire(ring, i, tx, lane);
       pipe_load(ring.block(i, 0), rtma ? &rmap : nullptr, xr, r, d, rt * kRows, i * kPipeK,
                 kRows, ring.full_of(i), lane);
       pipe_load(ring.block(i, 1), ctma ? &cmap : nullptr, xc, c, d, ct * kCols, i * kPipeK,
                 kCols, ring.full_of(i), lane);
-      pipe_commit(ring, i);
+      pipe_commit(ring, i, stored);
     }
     pipe_drain(ring, nk);
     return;
   }
   const int jn = pipe_jn<kTx>(min(kCols, c - ct * kCols));
 #define REPRO_SIM_CONSUME(JN) \
-  tile_consume<JN, SELF>(ring, nk, rt, ct, lr, lc, r, c, xv, xi, cv, ci, part_s, part_j)
+  tile_consume<JN, SELF, T>(ring, nk, rt, ct, lr, lc, r, c, xv, xi, cv, ci, part_s, part_j)
   if (jn == 8)
     REPRO_SIM_CONSUME(8);
   else if (jn == 4)
@@ -242,12 +250,12 @@ __global__ void sim_best_edge_merge(const float* __restrict__ part_s,
   best_j[row] = bj;
 }
 
-unsigned smem_set[2] = {0, 0};  // per kernel: devices whose limit is raised
+unsigned smem_set[2][2] = {};  // per kernel [SELF][bf16]: devices whose limit is raised
 
-template <bool SELF>
-int launch_tiles(const float* xr, const float* xc, const int* lr, const int* lc, int r, int c,
-                 int d, int tiles, float* part_s, int* part_j, cudaStream_t st) {
-  int err = allow_smem(sim_best_edge_tile<SELF>, kSmem, smem_set[SELF]);
+template <bool SELF, typename T>
+int launch_tiles(const T* xr, const T* xc, const int* lr, const int* lc, int r, int c, int d,
+                 int tiles, float* part_s, int* part_j, cudaStream_t st) {
+  int err = allow_smem(sim_best_edge_tile<SELF, T>, kSmem, smem_set[SELF][sizeof(T) == 2]);
   if (err != 0) return err;
   CUtensorMap rmap{}, cmap{};
   const bool rtma = pipe_map(&rmap, xr, r, d, kRows, &err);
@@ -258,28 +266,42 @@ int launch_tiles(const float* xr, const float* xc, const int* lr, const int* lc,
   const long long blocks = SELF ? (long long)tiles * (tiles + 1) / 2
                                 : (long long)tiles * ((r + kRows - 1) / kRows);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  sim_best_edge_tile<SELF><<<(unsigned)blocks, (kWarps + 1) * 32, kSmem, st>>>(
+  sim_best_edge_tile<SELF, T><<<(unsigned)blocks, (kWarps + 1) * 32, kSmem, st>>>(
       rmap, cmap, rtma, ctma, xr, xc, lr, lc, r, c, d, tiles, part_s, part_j);
   return (int)cudaGetLastError();
+}
+
+// The self-search or the full grid, on rows of T.
+template <typename T>
+int launch_grid(const void* xr, const void* xc, const int* lr, const int* lc, int r, int c,
+                int d, int tiles, float* part_s, int* part_j, cudaStream_t st) {
+  const T* a = static_cast<const T*>(xr);
+  const T* b = static_cast<const T*>(xc);
+  return xr == xc && lr == lc && r == c
+             ? launch_tiles<true>(a, b, lr, lc, r, c, d, tiles, part_s, part_j, st)
+             : launch_tiles<false>(a, b, lr, lc, r, c, d, tiles, part_s, part_j, st);
 }
 
 }  // namespace
 
 extern "C" int sim_best_edge_col_tile() { return kCols; }
 
-// Scratch: part_s, part_j hold ceil(c / 128) * r entries each. The inputs
-// are contiguous (the wrapper checks), so the same pointers and sizes mean
-// the same storage: that call is the self-search.
-extern "C" int sim_best_edge(const float* xr, const float* xc, const int* lr, const int* lc,
-                             int r, int c, int d, float* part_s, int* part_j, int* best_j,
-                             float* best_s, void* stream) {
+// Scratch: part_s, part_j hold ceil(c / 128) * r entries each. xr and xc
+// are both f32 or both bf16 (elem: kElemF32 or kElemBf16). The inputs are
+// contiguous (the wrapper checks), so the same pointers and sizes mean the
+// same storage: that call is the self-search.
+extern "C" int sim_best_edge(const void* xr, const void* xc, int elem, const int* lr,
+                             const int* lc, int r, int c, int d, float* part_s, int* part_j,
+                             int* best_j, float* best_s, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (elem != kElemF32 && elem != kElemBf16) return (int)cudaErrorInvalidValue;
   if (r == 0) return (int)cudaGetLastError();
   const int tiles = (c + kCols - 1) / kCols;
   if (tiles > 0) {
-    const bool self = xr == xc && lr == lc && r == c;
-    const int err = self ? launch_tiles<true>(xr, xc, lr, lc, r, c, d, tiles, part_s, part_j, st)
-                         : launch_tiles<false>(xr, xc, lr, lc, r, c, d, tiles, part_s, part_j, st);
+    const int err =
+        elem == kElemBf16
+            ? launch_grid<bf16>(xr, xc, lr, lc, r, c, d, tiles, part_s, part_j, st)
+            : launch_grid<float>(xr, xc, lr, lc, r, c, d, tiles, part_s, part_j, st);
     if (err != 0) return err;
   }
   sim_best_edge_merge<<<(r + 255) / 256, 256, 0, st>>>(part_s, part_j, r, tiles, best_j, best_s);

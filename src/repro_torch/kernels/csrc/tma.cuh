@@ -15,6 +15,9 @@
 
 namespace repro {
 
+// Element type codes of the C entries' matrices (document rows f32 or bf16).
+constexpr int kElemF32 = 0, kElemBf16 = 1;
+
 // ------------------------------------------------------------------ host
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -37,7 +40,8 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map of `rank` dims (innermost first): dims[i] elements, strides
+// A tensor map of `rank` dims (innermost first) of elements of `type`
+// (FLOAT32, or BFLOAT16 for bf16 document rows): dims[i] elements, strides
 // in bytes of dims 1.. (each a multiple of 16), box[i] elements a copy.
 // Positions outside the tensor arrive as zeros. Returns 0 or a CUDA error.
 inline int make_tensor_map(CUtensorMap* map, CUtensorMapDataType type,
@@ -135,6 +139,25 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
                : "memory");
+}
+
+// Wait until this thread's asynchronous copies have landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A producer lane's arrival on a stage's barrier: once its asynchronous
+// copies land (cp_async_arrive), or, where the lane also wrote the stage
+// with plain stores (rows of 2-byte bf16 elements that no asynchronous copy
+// takes), after waiting for those copies, by an arrival whose release
+// publishes the stores with them.
+__device__ __forceinline__ void producer_arrive(uint64_t* bar, bool stored) {
+  if (stored) {
+    cp_async_wait_all();
+    mbar_arrive(bar);
+  } else {
+    cp_async_arrive(bar);
+  }
 }
 
 // Spin until the barrier's phase of parity `parity` has completed.

@@ -5,9 +5,17 @@ CUDA device launches the hand-written kernel, and a failed build or launch
 raises. There is no fallback from the kernel to the plain version. Core
 code imports only this module, never the kernels directly.
 
-``launch_counts()`` reads each kernel wrapper's count of launches and
-``reset_launch_counts()`` sets them to 0, so a run can show that it went
-through the kernels; both hold the lock the wrappers count under.
+Document rows: on the card ``sim_best_edge``, ``label_stats`` and
+``assign_stats`` (and ``assign_stats_chunked``) take f32 or bf16 rows (bf16
+x of ``assign_stats`` with f32 or bf16 centers) as they are, and return f32
+statistics with the bits of the f32 call on the upcast rows; ``assign_argmax``
+and ``assign_stats_bounded`` take f32 rows only and raise ``TypeError`` on
+any other. The plain versions take any float rows and accumulate in f32.
+
+``launch_counts()`` reads each kernel wrapper's count of launches,
+``bf16_launch_counts()`` the launches on bf16 rows among them, and
+``reset_launch_counts()`` sets both to 0, so a run can show that it went
+through the kernels; all three hold the lock the wrappers count under.
 """
 
 from __future__ import annotations
@@ -43,17 +51,32 @@ def launch_counts() -> dict[str, int]:
         }
 
 
+def bf16_launch_counts() -> dict[str, int]:
+    """The launches on bf16 rows of the kernels that take them."""
+    from repro_torch.kernels import _build
+
+    with _build.COUNT_LOCK:
+        return {
+            "sim_best_edge": _sim_best_edge_k.bf16_launches,
+            "label_stats": _assign_stats_k.bf16_launches["label_stats"],
+            "assign_stats": _assign_stats_k.bf16_launches["assign_stats"],
+        }
+
+
 def reset_launch_counts() -> None:
     from repro_torch.kernels import _build
 
     with _build.COUNT_LOCK:
         _sim_best_edge_k.launches = 0
+        _sim_best_edge_k.bf16_launches = 0
         _assign_argmax_k.launches = 0
         _component_reduce_k.launches = 0
         _best_edge_k.launches = 0
         _flash_decode_k.launches = 0
         for name in _assign_stats_k.launches:
             _assign_stats_k.launches[name] = 0
+        for name in _assign_stats_k.bf16_launches:
+            _assign_stats_k.bf16_launches[name] = 0
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -73,7 +96,7 @@ def assign_argmax(
     x: torch.Tensor, centers: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(n,d),(k,d) -> ((n,) best center idx, ties -> lowest; (n,) best
-    similarity)."""
+    similarity). On the card: f32 rows only."""
     if _on_card(x):
         return _assign_argmax_k.assign_argmax_cuda(x.contiguous(), centers.contiguous())
     return ref.assign_argmax(x, centers)
@@ -96,6 +119,7 @@ def assign_stats(
     """Fused map+combine: nearest center AND cluster statistics.
 
     ``w`` optionally weights rows; weight-0 rows are excluded everywhere.
+    On the card x may be bf16, with f32 or bf16 centers.
     """
     if _on_card(x):
         return AssignStats(*_assign_stats_k.assign_stats_cuda(
@@ -168,7 +192,7 @@ def label_stats(
     """(n,d),(n,)[,(n,)] -> ((k,d) weighted sums, (k,) weight totals).
 
     Labels outside [0, k) (e.g. -1 padding) and weight-0 rows contribute
-    nothing.
+    nothing. On the card x may be f32 or bf16; the sums are f32.
     """
     if _on_card(x):
         return _assign_stats_k.label_stats_cuda(
@@ -206,7 +230,8 @@ def sim_best_edge(
     """Per-row best cross-component edge with the similarity build fused in.
 
     On the card the (r, c) similarity matrix never reaches device memory; on
-    the CPU the plain version builds it.
+    the CPU the plain version builds it. On the card both row matrices are
+    f32 or both bf16.
     """
     lr = labels_row.to(torch.int32)
     lc = labels_col.to(torch.int32)

@@ -375,6 +375,164 @@ def test_bounded_row_pass_ring_wraps(card, d, k):
     _equal(got[:6], assign_stats_cuda(x, moved, w))
 
 
+# ------------------------------------------------------------------ bf16 rows
+#
+# sim_best_edge, label_stats and assign_stats take bf16 document rows. The
+# gate: every output equals, bit for bit, the same kernel's f32 mode on the
+# upcast inputs (a bf16 value converts to f32 exactly and the fmaf chains
+# and fold orders are unchanged). The rows are unit rows rounded to bf16.
+
+
+def _bf16_rows(rng, shape, card, offset=0):
+    """Unit rows rounded to bf16 on the card; with ``offset`` the rows start
+    that many elements into their allocation (a base off 16 bytes)."""
+    a = rng.normal(size=shape).astype(np.float32)
+    a /= np.maximum(np.linalg.norm(a, axis=-1, keepdims=True), 1e-30)
+    t = torch.from_numpy(a).to(card).bfloat16()
+    if offset:
+        flat = torch.empty((t.numel() + offset,), dtype=torch.bfloat16, device=card)
+        t = flat[offset:].view(shape).copy_(t)
+    return t
+
+
+def _same_bits(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+# (r, c, d, offset): odd d, d off 8 and 32 (no copy engine: plain loads),
+# bases off 16 bytes, sizes off the 128-row and 128-column tiles
+BF16_SIM_CASES = [(300, 270, 70, 0), (257, 257, 257, 0), (129, 129, 2048, 1),
+                  (1, 129, 16, 0), (1000, 1000, 130, 0), (3536, 3536, 2048, 0)]
+
+
+@pytest.mark.parametrize("r,c,d,offset", BF16_SIM_CASES)
+def test_bf16_sim_best_edge_equals_f32_mode(card, r, c, d, offset):
+    rng = np.random.default_rng(r + c + d + offset)
+    xr = _bf16_rows(rng, (r, d), card, offset)
+    xc = _bf16_rows(rng, (c, d), card)
+    lr = interop.labels(rng.integers(-1, 5, size=r), card)  # -1 = pad
+    lc = interop.labels(rng.integers(-1, 5, size=c), card)
+    _same_bits(_twice(sim_best_edge_cuda, xr, xc, lr, lc),
+               sim_best_edge_cuda(xr.float(), xc.float(), lr, lc))
+    # the self-search (the resident round) and the full grid on a copy
+    for lab in (torch.arange(r, dtype=torch.int32, device=card),
+                interop.labels(rng.integers(-1, r // 7 + 2, size=r), card)):
+        got = _twice(sim_best_edge_cuda, xr, xr, lab, lab)
+        xf = xr.float()
+        _same_bits(got, sim_best_edge_cuda(xf, xf, lab, lab))
+        _same_bits(got, sim_best_edge_cuda(xr, xr.clone(), lab, lab.clone()))
+
+
+# (n, k, d, offset) for the fold and the fused pass
+BF16_STATS_CASES = [(1000, 70, 130, 0), (300, 129, 257, 0), (129, 1, 33, 1),
+                    (1000, 50, 2048, 1), (3000, 50, 2048, 0), (127, 64, 8, 0),
+                    (1, 5, 64, 0), (0, 3, 40, 0), (3000, 800, 96, 0), (2000, 1600, 130, 0)]
+
+
+@pytest.mark.parametrize("n,k,d,offset", BF16_STATS_CASES)
+def test_bf16_label_stats_equals_f32_mode(card, n, k, d, offset):
+    rng = np.random.default_rng(n + k + d + offset + 1)
+    x = _bf16_rows(rng, (n, d), card, offset)
+    idx = interop.labels(rng.integers(-2, k + 2, size=n), card)  # out of range too
+    w = _ints(rng, (n,), 0, 2, card)  # weight-0 rows
+    _same_bits(_twice(label_stats_cuda, x, idx, k, w), label_stats_cuda(x.float(), idx, k, w))
+    _same_bits(label_stats_cuda(x, idx, k), label_stats_cuda(x.float(), idx, k))
+
+
+@pytest.mark.parametrize("centers_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,k,d,offset", BF16_STATS_CASES)
+def test_bf16_assign_stats_equals_f32_mode(card, n, k, d, offset, centers_dtype):
+    """bf16 x with bf16 centers (the JAX sweep) or f32 centers (K-Means
+    after its first pass); equal centers across tiles, weight-0 rows."""
+    rng = np.random.default_rng(n + k + d + offset + 2)
+    x = _bf16_rows(rng, (n, d), card, offset)
+    centers = _bf16_rows(rng, (k, d), card).to(centers_dtype)
+    if k > 65:
+        centers[65] = centers[1]  # a tie across center tiles
+    w = _ints(rng, (n,), 0, 1, card)
+    got = _twice(assign_stats_cuda, x, centers, w)
+    _same_bits(got, assign_stats_cuda(x.float(), centers.float(), w))
+    _same_bits(assign_stats_cuda(x, centers), assign_stats_cuda(x.float(), centers.float()))
+
+
+def test_bf16_assign_stats_holds_no_f32_copy_of_x(card):
+    """At the 1 GB shape (n = 250,000, d = 2,048, k = 50) a bf16 pass through
+    ops.assign_stats allocates less than n * d * 2 bytes above what was
+    allocated before it: no f32 copy of x (n * d * 4) is made."""
+    n, d, k = 250_000, 2048, 50
+    g = torch.Generator(device=card).manual_seed(0)
+    x = torch.nn.functional.normalize(torch.rand((n, d), generator=g, device=card), dim=1)
+    x = x.bfloat16()
+    centers = x[:k].float()
+    ops.assign_stats(x, centers)  # the build and the fold's workspace
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    st = ops.assign_stats(x, centers)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["assign_stats"] == 1
+    assert torch.cuda.max_memory_allocated() - base < n * d * 2
+    assert st.sums.dtype == torch.float32 and int(st.counts.sum()) == n
+
+
+def test_bf16_rows_refused_where_not_ported(card):
+    """assign_argmax and assign_stats_bounded take f32 rows only; f16 and f64
+    rows, a bf16 row matrix beside an f32 one in sim_best_edge and f32 rows
+    with bf16 centers in assign_stats raise TypeError in all five
+    wrappers."""
+    rng = np.random.default_rng(5)
+    x = _bf16_rows(rng, (64, 40), card)
+    lab = interop.labels(rng.integers(0, 3, size=64), card)
+    b = ops.bounds_identity(64, card)
+    zero = torch.zeros((4,), device=card)
+    with pytest.raises(TypeError):
+        assign_argmax_cuda(x, x[:4].float())
+    with pytest.raises(TypeError):
+        assign_argmax_cuda(x.float(), x[:4].contiguous())
+    with pytest.raises(TypeError):
+        assign_stats_bounded_cuda(x, x[:4].float(), b.idx, b.lo, b.hi, zero)
+    with pytest.raises(TypeError):
+        sim_best_edge_cuda(x, x.float(), lab, lab)
+    with pytest.raises(TypeError):  # f32 rows take f32 centers only
+        assign_stats_cuda(x.float(), x[:4].contiguous())
+    for dtype in (torch.float16, torch.float64):
+        xd = x.to(dtype)
+        cd = xd[:4].contiguous()
+        for call in (lambda: sim_best_edge_cuda(xd, xd, lab, lab),
+                     lambda: label_stats_cuda(xd, lab, 3),
+                     lambda: assign_stats_cuda(xd, cd),
+                     lambda: assign_stats_cuda(x, cd),
+                     lambda: assign_argmax_cuda(xd, cd),
+                     lambda: assign_stats_bounded_cuda(xd, cd, b.idx, b.lo, b.hi, zero)):
+            with pytest.raises(TypeError):
+                call()
+
+
+def test_bf16_buckshot_card_matches_cpu(card):
+    """bf16 documents through buckshot_fit on the card (the three kernels
+    launch) against the port's plain path on the CPU on the same bf16 rows:
+    the smoke's end-to-end rule, agreement >= 99.9 % and RSS within 1e-4."""
+    from repro_torch.core.buckshot import buckshot_fit
+    from repro_torch.text import pipeline, synth
+
+    corpus = synth.make_corpus(1200, vocab=256, n_topics=6, seed=11)
+    x, _ = pipeline.prepare_local(corpus, device="cpu")
+    x = x.bfloat16()
+    sidx = interop.index(np.random.default_rng(0).choice(1200, 85, replace=False), "cpu")
+    want = buckshot_fit(x, sidx, 6)
+    ops.reset_launch_counts()
+    got = buckshot_fit(x.to(card), sidx.to(card), 6)
+    counts = ops.launch_counts()
+    assert counts["sim_best_edge"] >= 1 and counts["label_stats"] == 1
+    assert counts["assign_stats"] == got.kmeans.iterations + 1
+    assert ops.bf16_launch_counts() == {name: counts[name] for name in ops.bf16_launch_counts()}
+    agree = (got.kmeans.assignment.cpu() == want.kmeans.assignment).float().mean()
+    assert agree >= 0.999
+    torch.testing.assert_close(got.kmeans.rss.cpu(), want.kmeans.rss, rtol=1e-4, atol=0)
+
+
 def test_buckshot_card_matches_cpu(card):
     from repro_torch.core.buckshot import buckshot_fit
     from repro_torch.text import pipeline, synth
@@ -992,7 +1150,8 @@ def _label_stats_delayed(x, idx, k, w):
     sums = torch.empty((k, d), dtype=torch.float32, device=x.device)
     counts = torch.empty((k,), dtype=torch.float32, device=x.device)
     err = lib.label_stats(
-        x.data_ptr(), idx.data_ptr(), None if w is None else w.data_ptr(), n, d, k, chunks,
+        x.data_ptr(), _build.ELEM[x.dtype], idx.data_ptr(), None if w is None else w.data_ptr(),
+        n, d, k, chunks,
         part.data_ptr(), part.data_ptr() + 4 * chunks * k * d, sums.data_ptr(),
         counts.data_ptr(), _build.stream(x),
     )
