@@ -3,9 +3,10 @@
 
 Run from the repository root, with no arguments:  python3 chip_smoke.py
 (``python3 chip_smoke.py --kernels`` runs phase 1 and phase 3's timings of
-sim_best_edge, component_best_edge, label_stats, assign_stats, best_edge,
-assign_argmax, assign_stats_bounded and flash_decode on random unit rows of
-the 1 GB shape, then Buckshot on the 1 GB collection (its RSS and a digest of
+sim_best_edge, component_best_edge, label_stats, assign_stats, the bf16 rows
+of sim_best_edge, label_stats and assign_stats, best_edge, assign_argmax,
+assign_stats_bounded and flash_decode on random unit rows of the 1 GB shape,
+then Buckshot on the 1 GB collection (its RSS and a digest of
 its labels), and stops: copied into an older tree's root it times that
 tree's kernels too.)
 
@@ -48,15 +49,23 @@ Phases, in order; any failure raises and exits non-zero:
      unbounded on each, carried bounds at d = 33 and 2,048; on the 1 GB rows
      assign_argmax equal to assign_stats at k = 400); each kernel runs twice
      and must repeat its bits. component_best_edge's main-path shapes are held in
-     phase 4. Then bf16 document rows (phase_parity_bf16): sim_best_edge,
-     label_stats and assign_stats (bf16 and f32 centers) equal, bit for bit,
-     to their f32 mode on the upcast inputs on edge cases (odd d, d off 8 and
-     32, bases off 16 bytes, n and k off the tiles, labels -1, weight-0 rows)
+     phase 4. Then bf16 document rows (phase_parity_bf16): label_stats equal,
+     bit for bit, to its f32 mode on the upcast rows; sim_best_edge and
+     assign_stats (bf16 and f32 centers), whose products run on the tensor
+     cores, held to their f32 mode by gates (a) integer-valued rows, every
+     output equal, (b) unit rows, similarities within 1e-5, indices equal
+     but at near-ties, the fold's outputs bit for bit where idx agrees, (c)
+     repeats, (d) the full grid on a copy equal to the self-search, (e) the
+     same rows further into x equal, on edge cases (odd d, d off 8 and 32,
+     bases off 16 bytes, n and k off the tiles, labels -1, weight-0 rows)
      and at the main path's shapes (the 1 GB collection in bf16, Buckshot's
-     sample normalized in bf16), there also within the plain versions'
-     tolerances; one bf16 ops.assign_stats at the 1 GB shape must raise the
-     peak device memory by less than n * d * 2 bytes (an f32 copy of x would
-     add n * d * 4).
+     sample normalized in bf16, integer rows of both shapes), there also
+     within the plain versions' tolerances, the largest similarity error
+     printed beside the debug build's without the per-stage f32 sum (also
+     on dense unit rows of the main shapes, where the sums' order shows); one
+     bf16 ops.assign_stats at the 1 GB shape must raise the peak device
+     memory by less than n * d * 2 bytes (an f32 copy of x would add
+     n * d * 4).
   3. Timing (CUDA events): kernel, plain version, one library call, and the
      card's lower bound for the same work (sim_best_edge's self-search
      against the half product, the full grid on a copy of the rows beside
@@ -71,12 +80,13 @@ Phases, in order; any failure raises and exits non-zero:
      with the kernel alone, profiled; label_stats at Buckshot's centers
      also with the L2 flushed and profiled, and the fold alone at
      n = 250,000 for k = 50 and k = 800); the three kernels again on bf16
-     rows, each beside its f32 row (the library calls on bf16 operands run on
-     tensor cores, which the kernels' fmaf chains do not; the bounds count
-     bf16 bytes, and a product of two bf16 operands at the tensor cores'
-     bf16 rate, with the fmaf chains' figure beside it as a contract figure;
-     bf16 x by f32 centers counts f32 operations, and assign_stats is timed
-     with bf16 centers too).
+     rows, each beside its f32 row (sim_best_edge and assign_stats' tile run
+     on the tensor cores, as the library calls on bf16 operands do; the
+     bounds count bf16 bytes and the products at the tensor cores' bf16
+     rate, bf16 x by f32 centers as three products a column, with the fmaf
+     chains' f32-operations figure beside it as the contract figure it was;
+     assign_stats is timed with bf16 centers too, each center type beside a
+     library call, the f32 centers' a stand-in on bf16 centers).
   4. Paths at full size on the ~1 GB collection (n = 250,000, d = 2,048,
      50 topics), each with its launch counters set to 0 just before and read
      just after: tf-idf on the card, Buckshot with k = 50 (s = 3,536) and the
@@ -885,27 +895,43 @@ def gpu_tests():
     return mod
 
 
-def check_f32_mode(name, got, want):
-    """The bf16 gate: every output equal, dtype and bits (torch.equal), to
-    the same kernel's f32 mode on the upcast inputs."""
-    import torch
-
-    for i, (g, w) in enumerate(zip(got, want)):
-        if g.dtype != w.dtype or not torch.equal(g, w):
-            raise AssertionError(f"{name}: output {i} differs from the f32 mode on the upcast inputs")
+def exact_error(x, c, idx, val, chunk: int = 65_536) -> float:
+    """max |val[i] - x[i] . c[idx[i]]| over the rows with idx >= 0, the dot
+    in f64 (a chunk of rows at a time)."""
+    cd = c.double()
+    err = 0.0
+    for lo in range(0, x.shape[0], chunk):
+        j = idx[lo:lo + chunk].long()
+        keep = j >= 0
+        exact = (x[lo:lo + chunk].double() * cd[j.clamp(min=0)]).sum(1)
+        e = (val[lo:lo + chunk].double() - exact).abs()[keep]
+        if e.numel():
+            err = max(err, e.max().item())
+    return err
 
 
 def phase_parity_bf16(xb, xsb, dev):
-    """Phase 2 on bf16 rows: sim_best_edge, label_stats and assign_stats on
-    the edge cases of tests/test_torch_gpu.py's bf16 gates and at the main
-    path's shapes (xb: the 1 GB collection in
-    bf16, xsb: Buckshot's sample normalized in bf16, as phase 1 makes it),
-    each equal bit for bit to its f32 mode on the upcast inputs, repeating
-    its bits, and at the main shapes within the plain version's tolerances;
-    then the memory of one bf16 ops.assign_stats call at the 1 GB shape.
-    Returns each kernel's max abs error against its plain version."""
+    """Phase 2 on bf16 rows. tests/test_torch_gpu.py's bf16 gates on their
+    edge cases: label_stats bit for bit with its f32 mode on the upcast rows;
+    sim_best_edge and assign_stats (bf16 and f32 centers), whose products run
+    on the tensor cores, held to their f32 mode by (a) integer-valued rows,
+    every output equal; (b) unit rows, similarities within SIM_TOL, indices
+    equal but at near-ties, the fold's outputs bit for bit wherever idx
+    agrees; (c) repeats bit-identical; (d) the full grid on a copy equal to
+    the self-search; (e) the same rows 1 and 37 rows further into x equal.
+    Then the same gates at the main path's shapes (xb: the 1 GB collection in
+    bf16, xsb: Buckshot's sample normalized in bf16, as phase 1 makes it;
+    integer rows of both shapes drawn on the card), the largest similarity
+    error against the f32 mode and the near-tie index differences printed,
+    and the errors against the plain versions; the error of the debug build
+    whose tensor cores accumulate all of d (no per-stage f32 sum) beside the
+    kernel's, and each call's distance from the exact (f64) similarity of its
+    picks, on the main path's rows and on dense unit rows of the same shapes;
+    then the memory of one bf16 ops.assign_stats call at the 1 GB shape. Returns each kernel's max abs error against its
+    plain version."""
     import torch
 
+    from repro_torch.common import l2_normalize
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.assign_stats import assign_stats_cuda, label_stats_cuda
     from repro_torch.kernels.sim_best_edge import sim_best_edge_cuda
@@ -913,68 +939,124 @@ def phase_parity_bf16(xb, xsb, dev):
     t0 = time.perf_counter()
     gates = gpu_tests()
     for case in gates.BF16_SIM_CASES:
-        try:
-            gates.test_bf16_sim_best_edge_equals_f32_mode(dev, *case)
-        except AssertionError as e:
-            raise AssertionError(f"sim_best_edge bf16 (r, c, d, offset) {case}") from e
+        for gate in gates.BF16_SIM_GATES:
+            try:
+                gates.test_bf16_sim_best_edge_equals_f32_mode(dev, *case, gate)
+            except AssertionError as e:
+                raise AssertionError(f"sim_best_edge bf16 gate {gate} (r, c, d, offset) {case}") from e
     for case in gates.BF16_STATS_CASES:
         try:
             gates.test_bf16_label_stats_equals_f32_mode(dev, *case)
             for cdt in (torch.bfloat16, torch.float32):
-                gates.test_bf16_assign_stats_equals_f32_mode(dev, *case, cdt)
+                for gate in gates.BF16_STATS_GATES:
+                    gates.test_bf16_assign_stats_equals_f32_mode(dev, *case, cdt, gate)
         except AssertionError as e:
             raise AssertionError(f"label_stats / assign_stats bf16 (n, k, d, offset) {case}") from e
-    log(f"phase 2 parity bf16: tests/test_torch_gpu.py's gates on "
-        f"{len(gates.BF16_SIM_CASES)} sim_best_edge cases (full grid, self-search, a copy) and "
-        f"{len(gates.BF16_STATS_CASES)} label_stats / assign_stats cases (bf16 and f32 centers; "
-        "odd d, d off 8 and 32, bases off 16 bytes, n and k off the tiles, labels -1, weight-0 "
-        "rows) equal to the f32 mode on the upcast inputs bit for bit, repeats bit-identical")
+    log(f"phase 2 parity bf16: tests/test_torch_gpu.py's gates on {len(gates.BF16_SIM_CASES)} "
+        f"sim_best_edge cases ({', '.join(gates.BF16_SIM_GATES)}) and "
+        f"{len(gates.BF16_STATS_CASES)} label_stats (bit for bit) / assign_stats cases (bf16 and "
+        f"f32 centers; {', '.join(gates.BF16_STATS_GATES)}; odd d, d off 8 and 32, bases off 16 "
+        "bytes, n and k off the tiles, labels -1, weight-0 rows) passed, repeats bit-identical")
 
     # the main path's shapes
     g = torch.Generator().manual_seed(28)
-    s = xsb.shape[0]
-    errs, ties = {}, {}
+    gd = torch.Generator(device=dev).manual_seed(29)
+    s, d = xsb.shape
+    n = xb.shape[0]
     comp = torch.randint(0, s // 7, (s,), generator=g, dtype=torch.int32)
     comp[torch.randperm(s, generator=g)[:40]] = -1
+    comp = comp.to(dev)
+    ids = torch.arange(s, dtype=torch.int32, device=dev)
+    self_labels = (ids, comp)
+    xs_ints = torch.randint(-3, 4, (s, d), generator=gd, device=dev).bfloat16()
+    sim_f32, ties = {}, {}
+    for gate in gates.BF16_SIM_GATES:
+        rows = xs_ints if gate == "integer" else xsb
+        e, ties[f"sim_best_edge {gate}"] = gates.bf16_sim_gate(
+            gate, rows, rows.clone(), comp, comp.clone(), self_labels)
+        sim_f32["sim_best_edge_bf16"] = max(sim_f32.get("sim_best_edge_bf16", 0.0), e)
+    del xs_ints
+    w = torch.ones((n,), device=dev)
+    w[torch.randperm(n, generator=g)[:1000].to(dev)] = 0.0
     xsf = xsb.float()
+    for centers in (xsf[:K].contiguous(), xsb[:K].contiguous()):  # f32 (K-Means), bf16
+        for gate in ("unit", "rows_at"):
+            e, ties[f"assign_stats {centers.dtype} {gate}"] = gates.bf16_assign_gate(
+                gate, xb, centers, w)
+            key = f"assign_stats_bf16 centers {centers.dtype}"
+            sim_f32[key] = max(sim_f32.get(key, 0.0), e)
+    x_ints = torch.randint(-3, 4, (n, d), generator=gd, device=dev).bfloat16()
+    c_ints = x_ints[:K].contiguous()
+    for centers in (c_ints.float(), c_ints):
+        gates.bf16_assign_gate("integer", x_ints, centers, w)
+    del x_ints, c_ints
+    torch.cuda.empty_cache()
+    log(f"phase 2 parity bf16: main-path shapes (sample {s}x{d}, collection {n}x{d}, integer "
+        f"rows of both) passed gates {gates.BF16_SIM_GATES} / (integer, unit, rows_at); largest "
+        f"|similarity - the f32 mode's| {sim_f32} (limit {SIM_TOL}); near-tie index differences "
+        f"{ties}")
+    # How far each sum lands from the f32 mode's and from the exact one (f64)
+    # at its own pick: the kernel, the f32 mode's fmaf chains and the debug
+    # build whose tensor cores sum all of d; on the main path's rows (sparse
+    # tf-idf: few products a pair, so most sums are exact) and on dense unit
+    # rows of the same shapes, where every product is nonzero and the order
+    # of the sums shows.
+    dense = l2_normalize(torch.randn((s, d), generator=gd, device=dev)).bfloat16()
+    for rows_name, xs_, x_ in (("main-path rows", xsb, xb),
+                               ("dense unit rows", dense, None)):
+        xs_f = xs_.float()
+        picks = {"kernel": sim_best_edge_cuda(xs_, xs_, ids, ids),
+                 "f32 mode": sim_best_edge_cuda(xs_f, xs_f, ids, ids),
+                 "tensor cores over all of d": gates._sim_best_edge_wgacc(xs_, xs_, ids, ids)}
+        to_f32 = {f"sim_best_edge {name}": (v[1] - picks["f32 mode"][1]).abs().max().item()
+                  for name, v in picks.items()}
+        exact = {f"sim_best_edge {name}": exact_error(xs_, xs_, *v) for name, v in picks.items()}
+        if x_ is None:
+            x_ = l2_normalize(torch.randn((n, d), generator=gd, device=dev)).bfloat16()
+        cf = xs_f[:K].contiguous()
+        sts = {"kernel": assign_stats_cuda(x_, cf), "f32 mode": assign_stats_cuda(x_.float(), cf)}
+        for name, st in sts.items():
+            to_f32[f"assign_stats {name}"] = (st[1] - sts["f32 mode"][1]).abs().max().item()
+            exact[f"assign_stats {name}"] = exact_error(x_, cf, st[0], st[1])
+        n_idx = int((sts["kernel"][0] != sts["f32 mode"][0]).sum())
+        del sts, x_
+        torch.cuda.empty_cache()
+        log(f"phase 2 parity bf16: {rows_name}, largest |similarity - the f32 mode's| {to_f32}, "
+            f"|similarity - the exact (f64) one| at each call's own picks {exact}; assign_stats' "
+            f"index differences to the f32 mode {n_idx}")
+        if max(to_f32[f"{k} kernel"] for k in ("sim_best_edge", "assign_stats")) > SIM_TOL:
+            raise AssertionError(f"{rows_name}: a bf16 similarity moved past SIM_TOL")
+    if max(sim_f32.values()) > SIM_TOL:
+        raise AssertionError("a bf16 similarity moved past SIM_TOL from the f32 mode")
+
+    # against the plain versions
+    errs = {}
     err, n_tie = 0.0, 0
-    for labels in (torch.arange(s, dtype=torch.int32), comp):
-        labels = labels.to(dev)
+    for labels in self_labels:
         a = sim_best_edge_cuda(xsb, xsb, labels, labels)
-        check_repeat("sim_best_edge bf16", a, sim_best_edge_cuda(xsb, xsb, labels, labels))
-        check_f32_mode("sim_best_edge bf16 self-search (sample)", a,
-                       sim_best_edge_cuda(xsf, xsf, labels, labels))
-        check_f32_mode("sim_best_edge bf16 full grid (sample)", a,
-                       sim_best_edge_cuda(xsb.clone(), xsb, labels.clone(), labels))
         want = ref.sim_best_edge(xsb, xsb, labels, labels)
         n_tie += check_argmax("sim_best_edge bf16", a[0], a[1], want[0], want[1],
                               lambda rows, cols: (xsf[rows] * xsf[cols]).sum(1))
         err = max(err, check_close("sim_best_edge bf16 best_s", a[1], want[1], 0.0, SIM_TOL))
-    errs["sim_best_edge_bf16"], ties["sim_best_edge_bf16"] = err, n_tie
+    errs["sim_best_edge_bf16"], ties["sim_best_edge plain"] = err, n_tie
 
     idx = torch.randint(-1, K + 1, (s,), generator=g, dtype=torch.int32).to(dev)
-    w = torch.randint(0, 2, (s,), generator=g).float().to(dev)
-    a = label_stats_cuda(xsb, idx, K, w)
-    check_repeat("label_stats bf16", a, label_stats_cuda(xsb, idx, K, w))
-    check_f32_mode("label_stats bf16 (sample)", a, label_stats_cuda(xsf, idx, K, w))
+    ws = torch.randint(0, 2, (s,), generator=g).float().to(dev)
+    a = label_stats_cuda(xsb, idx, K, ws)
+    gates._same_bits(gates._twice(label_stats_cuda, xsb, idx, K, ws),
+                     label_stats_cuda(xsf, idx, K, ws))
     errs["label_stats_bf16"] = max(
         check_close(f"label_stats bf16 {part}", got, want, SUM_RTOL, SUM_ATOL)
-        for part, got, want in zip(("sums", "counts"), a, ref.label_stats_scatter(xsb, idx, K, w))
+        for part, got, want in zip(("sums", "counts"), a, ref.label_stats_scatter(xsb, idx, K, ws))
     )
 
-    n, d = xb.shape
-    w = torch.ones((n,), device=dev)
-    w[torch.randperm(n, generator=g)[:1000].to(dev)] = 0.0
     xf = xb.float()
     err = 0.0
-    for centers in (xsf[:K].contiguous(), xsb[:K].contiguous()):  # f32 (K-Means), bf16
-        a = assign_stats_cuda(xb, centers, w)
-        check_repeat("assign_stats bf16", a, assign_stats_cuda(xb, centers, w))
-        check_f32_mode(f"assign_stats bf16 (1 GB, centers {centers.dtype})", a,
-                       assign_stats_cuda(xf, centers.float(), w))
+    for centers in (xsf[:K].contiguous(), xsb[:K].contiguous()):
+        a = ops.assign_stats(xb, centers, w)
         want = ref.assign_stats_scatter(xb, centers, w)
         cf = centers.float()
-        ties[f"assign_stats_bf16 centers {centers.dtype}"] = check_argmax(
+        ties[f"assign_stats plain {centers.dtype}"] = check_argmax(
             "assign_stats bf16", a[0], a[1], want[0], want[1],
             lambda rows, cols: (xf[rows] * cf[cols]).sum(1),
         )
@@ -992,11 +1074,9 @@ def phase_parity_bf16(xb, xsb, dev):
     ops.assign_stats(xb, centers)
     torch.cuda.synchronize()
     rise = torch.cuda.max_memory_allocated() - base
-    log(f"phase 2 parity bf16: main-path shapes (sample {s}x{d}, collection {n}x{d}) equal to "
-        f"the f32 mode on the upcast inputs bit for bit; against the plain versions max abs err "
-        f"{errs}, near-tie index differences {ties}; one bf16 ops.assign_stats at {n}x{d}: peak "
-        f"device memory {rise} bytes above its start (limit n*d*2 = {n * d * 2}; an f32 copy of "
-        f"x is {n * d * 4})")
+    log(f"phase 2 parity bf16: against the plain versions max abs err {errs}, near-tie index "
+        f"differences {ties}; one bf16 ops.assign_stats at {n}x{d}: peak device memory {rise} "
+        f"bytes above its start (limit n*d*2 = {n * d * 2}; an f32 copy of x is {n * d * 4})")
     if rise >= n * d * 2:
         raise AssertionError("a bf16 ops.assign_stats call allocated as much as a copy of x")
     log(f"phase 2 parity bf16 took {time.perf_counter() - t0:.1f} s")
@@ -1005,16 +1085,18 @@ def phase_parity_bf16(xb, xsb, dev):
 
 def phase_timing_bf16(xb, xsb, f32_rows, dev):
     """Phase 3 on bf16 rows at the main path's shapes, each beside its f32
-    row: kernel, plain version, one library call on the bf16 operands
-    (cuBLAS runs the products on tensor cores, index_add_ sums in bf16) and
-    the bound. A product of two bf16 operands is bounded at the tensor
-    cores' bf16 rate: the least time the card could take, whatever the
-    kernels' fmaf-chain contract; the fmaf chains' figure (the same products
-    on CUDA cores) is printed beside it as the contract figure. bf16 x with
-    f32 centers (the K-Means passes, the kernels line's assign_stats_bf16)
-    multiplies by f32 operands, which no tensor-core type takes exactly: f32
-    operations, as in the f32 rows. assign_stats is timed and bounded with
-    bf16 centers too."""
+    row when ``f32_rows`` has it: kernel, plain version, one library call on
+    bf16 operands (cuBLAS runs the products on tensor cores, index_add_ sums
+    in bf16) and the bound. sim_best_edge and assign_stats run their
+    products on the tensor cores: a product of two bf16 operands is bounded
+    at the tensor cores' bf16 rate, and bf16 x by f32 centers too, three
+    products a column (the split centers' parts), which leaves that row
+    bound by its bytes; the f32-operations figure it had under the fmaf
+    contract is printed beside it. assign_stats is timed with bf16 centers
+    too, each center type beside its own library call (f32 centers: torch
+    takes no bf16-by-f32 product, so x @ centers.T on the bf16 centers
+    stands in, labelled so). Only the wrappers' public signatures: an older
+    tree is timed the same way (``--kernels``)."""
     import torch
 
     from repro_torch.kernels import ref
@@ -1041,6 +1123,9 @@ def phase_timing_bf16(xb, xsb, f32_rows, dev):
     def ls_call():
         return label_stats_cuda(xsb, labels, K)
 
+    def as_call():
+        return assign_stats_cuda(xb, centers)
+
     rows = {
         "sim_best_edge_bf16": dict(
             ms=event_ms(sim_call, 20),
@@ -1049,7 +1134,6 @@ def phase_timing_bf16(xb, xsb, f32_rows, dev):
             library_ms=event_ms(lambda: xsb @ xsb.T, 20),
             library="xs @ xs.T on tensor cores",
             bound=bound_ms(0.0, sim_bytes, bf16_flops=sim_ops),
-            contract=bound_ms(sim_ops, sim_bytes),
         ),
         "label_stats_bf16": dict(
             ms=event_ms(ls_call, 50),
@@ -1062,32 +1146,42 @@ def phase_timing_bf16(xb, xsb, f32_rows, dev):
             bound=bound_ms(2.0 * s * d, s * d * 2 + s * 4 + K * d * 4 + K * 4),
         ),
         "assign_stats_bf16": dict(
-            ms=event_ms(lambda: assign_stats_cuda(xb, centers), 10),
+            ms=event_ms(as_call, 10),
+            profiled_ms=profiled_kernel_ms(as_call, 5, ("assign_tile",)),
             plain_ms=event_ms(lambda: ref.assign_stats_scatter(xb, centers), 10),
             library_ms=event_ms(lambda: xb @ centers_b.T, 10),
-            library="x @ centers.T, bf16 centers, on tensor cores",
-            bound=bound_ms(as_ops + as_extra, as_bytes + K * d * 4),
+            library="x @ centers.T on the bf16 centers, a stand-in: torch takes no bf16-by-f32 "
+                    "product",
+            bound=bound_ms(as_extra, as_bytes + K * d * 4, bf16_flops=3 * as_ops),
+            contract=bound_ms(as_ops + as_extra, as_bytes + K * d * 4),
         ),
     }
     # the same pass with bf16 centers (the JAX sweep's operands)
     bc = dict(
         ms=event_ms(lambda: assign_stats_cuda(xb, centers_b), 10),
+        profiled_ms=profiled_kernel_ms(lambda: assign_stats_cuda(xb, centers_b), 5,
+                                       ("assign_tile",)),
         plain_ms=event_ms(lambda: ref.assign_stats_scatter(xb, centers_b), 10),
+        library_ms=event_ms(lambda: xb @ centers_b.T, 10),
         bound=bound_ms(as_extra, as_bytes + K * d * 2, bf16_flops=as_ops),
-        contract=bound_ms(as_ops + as_extra, as_bytes + K * d * 2),
     )
     for name, r in rows.items():
-        f = f32_rows[name[:-5]]
-        extra = "".join(f", {key} {r[key]:.4f} ms" for key in ("profiled_ms", "cold_ms") if key in r)
-        contract = (f"; the fmaf chains' contract figure {r['contract'][0]:.4f} ms"
+        f = (f32_rows or {}).get(name[:-5])
+        extra = "".join(f", {label} {r[key]:.4f} ms" for key, label in (
+            ("profiled_ms", "alone (profiled; assign_stats: launch 1)"), ("cold_ms", "L2 flushed"))
+            if key in r)
+        contract = (f"; the fmaf chains' contract figure {r['contract'][0]:.4f} ms ({r['contract'][1]})"
                     if "contract" in r else "")
-        log(f"phase 3 timing {name}: kernel {r['ms']:.4f} ms (f32 {f['ms']:.4f}){extra}, plain "
-            f"{r['plain_ms']:.4f} ms (f32 {f['plain_ms']:.4f}), library {r['library_ms']:.4f} ms "
-            f"({r['library']}; f32 {f['library_ms']:.4f}), bound "
-            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}{contract}; f32 {f['bound'][0]:.4f})")
-    log(f"phase 3 timing assign_stats_bf16 with bf16 centers: kernel {bc['ms']:.4f} ms, plain "
-        f"{bc['plain_ms']:.4f} ms, bound {bc['bound'][0]:.4f} ms ({bc['bound'][1]}; the fmaf "
-        f"chains' contract figure {bc['contract'][0]:.4f} ms)")
+        log(f"phase 3 timing {name}: kernel {r['ms']:.4f} ms"
+            + (f" (f32 {f['ms']:.4f})" if f else "") + f"{extra}, plain {r['plain_ms']:.4f} ms"
+            + (f" (f32 {f['plain_ms']:.4f})" if f else "") + f", library {r['library_ms']:.4f} ms "
+            f"({r['library']}" + (f"; f32 {f['library_ms']:.4f}" if f else "") + "), bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}{contract}"
+            + (f"; f32 {f['bound'][0]:.4f}" if f else "") + ")")
+    log(f"phase 3 timing assign_stats_bf16 with bf16 centers: kernel {bc['ms']:.4f} ms, launch 1 "
+        f"alone, profiled: {bc['profiled_ms']:.4f} ms, plain {bc['plain_ms']:.4f} ms, library "
+        f"{bc['library_ms']:.4f} ms (x @ centers.T, bf16 centers, on tensor cores), bound "
+        f"{bc['bound'][0]:.4f} ms ({bc['bound'][1]})")
     log(f"phase 3 timing bf16 took {time.perf_counter() - t0:.1f} s")
     return rows
 
@@ -4768,6 +4862,8 @@ def kernels_only(dev) -> None:
     log(f"phase 3 timing assign_stats (k={K}): kernel {r['ms']:.4f} ms, plain "
         f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
         f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    phase_timing_bf16(x.bfloat16(), xs.bfloat16(), None, dev)
+    torch.cuda.empty_cache()
     timing_best_edge(xs, dev)
     del xs
     phase_timing_bkc(x, bkc_state(x, dev), dev)

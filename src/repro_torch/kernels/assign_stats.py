@@ -9,8 +9,14 @@ them on bf16 rows of x.
 
 ``label_stats_cuda`` and ``assign_stats_cuda`` take x in f32 or bf16 (and
 ``assign_stats_cuda`` bf16 x with f32 or bf16 centers): bf16 rows are read
-as they are, with no f32 copy, and every output is f32 with the bits of the
-f32 call on the upcast inputs. ``assign_stats_bounded_cuda`` takes f32 only.
+as they are, with no f32 copy, and every output is f32. ``label_stats_cuda``
+on bf16 rows has the bits of the f32 call on the upcast rows.
+``assign_stats_cuda`` on bf16 x runs its products on the tensor cores (bf16
+products exact, f32 sums in another order; f32 centers go in as the three
+bf16 parts of ``split_bf16x3``): on integer-valued rows every output equals
+the f32 call on the upcast inputs; on unit rows the similarities are within
+1e-5 of it, and wherever idx agrees the sums, counts and sumsq keep its
+bits. ``assign_stats_bounded_cuda`` takes f32 only.
 
 The three kernels fold through one partials buffer per device. A call holds
 the device's lock (``_build.device_lock``) from taking the buffer to the
@@ -43,6 +49,7 @@ _SIGNATURES = {
     "assign_stats": {
         "assign_stats_chunks": [I, I, I],
         "assign_stats_scratch": [I],
+        "assign_stats_split_stride": [I],
         "assign_stats": [P, P, I, I, P, I, I, I, I] + [P] * 11,
     },
     "assign_stats_bounded": {
@@ -112,6 +119,43 @@ def _scratch(name: str, n: int, k: int, d: int, dev: torch.device, stream: int):
     return chunks, held[1], part, part + 4 * chunks * k * d
 
 
+_ELEM_SPLIT3 = 2  # kElemSplit3 (csrc/tma.cuh): f32 centers as three bf16 parts
+
+
+def split_stride(d: int) -> int:
+    """Row stride (elements) of ``split_bf16x3``'s parts: d padded to a
+    multiple of 8 (16-byte rows, which the copy engine takes) and to at
+    least 64 (one ring stage's columns). ``csrc/assign_tile.cuh``'s
+    ``split_stride`` is the same."""
+    return 64 if d < 64 else -(-d // 8) * 8
+
+
+def _truncate_bf16(v: torch.Tensor) -> torch.Tensor:
+    """f32 values cut to their top 16 bits: bf16 values, rounded toward 0."""
+    return torch.bitwise_and(v.view(torch.int32), -65536).view(torch.float32)
+
+
+def split_bf16x3(centers: torch.Tensor) -> torch.Tensor:
+    """(k, d) f32 -> (3, k, split_stride(d)) bf16 parts hi, mid, lo, zeros in
+    the pad columns, with hi + mid + lo == c exactly for every finite c with
+    |c| >= 2^-110 and for zeros (below 2^-110 lo loses the bits under
+    bf16's smallest step, 2^-133). Each part takes the top 8 significant
+    bits of what the ones before left (rounded toward 0, so the largest f32
+    does not round up to inf and every part has c's sign): 8 + 8 + 8 of
+    the 24. bf16 x times each part is exact in f32, so assign_stats' bf16
+    mode multiplies by f32 centers on the tensor cores exactly. Plain tensor
+    code on the centers only."""
+    k, d = centers.shape
+    c = centers.contiguous()
+    hi = _truncate_bf16(c)
+    rest = c - hi  # exact: c's low 16 significand bits
+    mid = _truncate_bf16(rest)
+    parts = torch.zeros((3, k, split_stride(d)), dtype=torch.bfloat16, device=c.device)
+    for p, v in enumerate((hi, mid, rest - mid)):
+        parts[p, :, :d] = v
+    return parts
+
+
 def _check_k_d(k: int, d: int) -> None:
     if k < 1 or d < 1:
         raise ValueError(f"the kernels need k >= 1 and d >= 1, got k={k}, d={d}")
@@ -150,7 +194,8 @@ def assign_stats_cuda(
 ) -> tuple[torch.Tensor, ...]:
     """(n, d) f32 and (k, d) f32, or (n, d) bf16 and (k, d) f32 or bf16[,
     (n,) f32] -> (idx, best_sim, sums, counts, min_sim, sumsq), all f32 but
-    idx. Contract of ``ref.assign_stats``."""
+    idx. Contract of ``ref.assign_stats``; bf16 x as the module says (f32
+    centers are split by ``split_bf16x3`` once a call)."""
     from repro_torch.kernels import _build
 
     n, d = x.shape
@@ -172,10 +217,14 @@ def assign_stats_cuda(
     sumsq = torch.empty((k,), dtype=torch.float32, device=dev)
     # the center tiles' winners, merged by launch 1's second kernel
     tile = torch.empty((n * lib.assign_stats_scratch(k),), dtype=torch.float32, device=dev)
+    cptr, celem = centers.data_ptr(), _build.ELEM[centers.dtype]
+    if x.dtype == torch.bfloat16 and centers.dtype == torch.float32:
+        parts = split_bf16x3(centers)
+        cptr, celem = parts.data_ptr(), _ELEM_SPLIT3
     with _build.device_lock(dev.index):
         chunks, buf, part, part_k = _scratch("assign_stats", n, k, d, dev, stream)
         err = lib.assign_stats(
-            x.data_ptr(), centers.data_ptr(), _build.ELEM[x.dtype], _build.ELEM[centers.dtype],
+            x.data_ptr(), cptr, _build.ELEM[x.dtype], celem,
             wp, n, d, k, chunks,
             idx.data_ptr(), best_sim.data_ptr(), rowsq.data_ptr(), part,
             part_k, tile.data_ptr() or None, sums.data_ptr(), counts.data_ptr(),

@@ -3,32 +3,23 @@
 //
 // A block is one producer warp and W consumer warps. The producer fills a
 // ring of stages in shared memory, each stage 32 columns of d (one 128-byte
-// row a staged row of f32, one 64-byte row of bf16) of up to two row blocks:
-// x's rows, and center rows (a tile of a row-major matrix, or rows gathered
-// by id). Each row block has its own element type, f32 or bf16 (bf16
-// document rows, read at half the bytes; sim_best_edge and assign_stats'
-// launch 1 take them). It copies with the copy engine (TMA: one 2-D box a
-// row block, the 128-byte swizzle for f32, the 64-byte one for bf16) where
-// the matrix has a 16-byte row stride and base, and otherwise with 4-byte
-// asynchronous copies (f32) or plain 2-byte loads and stores (bf16: a row
-// of odd d starts on a 2-byte boundary, which no asynchronous copy takes)
-// written to the same swizzled places; gathered rows go by 16-byte (or
-// 4-byte) asynchronous copies. A stage's arrival is one
+// row a staged row) of up to two row blocks: x's rows, and center rows (a
+// tile of a row-major matrix, or rows gathered by id). It copies with the
+// copy engine (TMA: one 2-D box a row block, 128-byte swizzle) where the
+// matrix has a 16-byte row stride and base, and otherwise with 4-byte
+// asynchronous copies written to the same swizzled places; gathered rows go
+// by 16-byte (or 4-byte) asynchronous copies. A stage's arrival is one
 // mbarrier phase (bytes from the copy engine, one arrival a producer lane
 // once its own copies have landed); consumers free a stage on a second
 // mbarrier. The ring runs on across sweeps: producer and consumers count
 // stages the same way, so a block may sweep d several times in a row.
 //
-// Swizzle (f32): the 16-byte chunk c (4 columns) of staged row r sits at
-// chunk c ^ (r % 8) of that row, so the 8 rows read by a quarter-warp at one
-// chunk fall on 8 different bank groups. bf16 (the copy engine's 64-byte
-// swizzle): chunk c (8 columns) of the 64-byte row r sits at chunk
-// c ^ ((r / 2) % 4), so the 8 rows' 8-byte reads again fall on 8 different
-// bank pairs. Each consumer thread holds an 8 x JN sub-tile of results:
-// rows ty + kTy * i, columns tx + kTx * j, and reads each row's 4
-// consecutive columns of d as one float4 (f32) or 8 bytes (4 bf16, each
-// converted exactly to f32 in registers). Rows ty + kTy * i share ty % 8,
-// so one XOR serves all of a thread's rows.
+// Swizzle: the 16-byte chunk c (4 columns) of staged row r sits at chunk
+// c ^ (r % 8) of that row, so the 8 rows read by a quarter-warp at one chunk
+// fall on 8 different bank groups. Each consumer thread holds an 8 x JN
+// sub-tile of results: rows ty + kTy * i, columns tx + kTx * j, and reads
+// each row's 4 consecutive columns of d as one float4. Rows ty + kTy * i
+// share ty % 8, so one XOR serves all of a thread's rows.
 //
 // Every result is ONE fp32 register updated by fmaf over k = 0 .. d-1 in
 // order (the float4's four columns are applied one after another, chunks
@@ -37,10 +28,10 @@
 // for bit, and because fmaf(a, b, c) == fmaf(b, a, c) the (i, j) and (j, i)
 // entries of xs . xs^T are bit-identical: the Borůvka search sees a
 // symmetric similarity. Pads (rows past the matrix, columns past d) arrive
-// as zeros and add nothing. A bf16 value converts to f32 exactly, so a
-// product over bf16 rows has the bits of the same product over their f32
-// upcasts: the bf16 mode of every kernel on the tile equals its f32 mode on
-// x.float() (and centers.float()) bit for bit.
+// as zeros and add nothing. This is the f32 mode's contract. bf16 rows run
+// on the tensor cores instead (wgmma_tile.cuh: this ring's barriers and
+// roles, its own stages and consumers, the JAX kernel's bf16-in, f32-sum
+// contract).
 #pragma once
 
 #include <cfloat>
@@ -80,42 +71,15 @@ __device__ __forceinline__ void lanes_argmax(float& best, int& bj) {
 using bf16 = __nv_bfloat16;
 
 constexpr int kPipeK = 32;                      // columns of d a stage
-constexpr int kPipeRowBytes = kPipeK * 4;       // one swizzle row (f32)
+constexpr int kPipeRowBytes = kPipeK * 4;       // one swizzle row
 constexpr int kPipeRows = 128;                  // rows of x a stage
-constexpr int kPipeBlock = kPipeRows * kPipeRowBytes;  // 16 KB: 128 staged f32 rows
+constexpr int kPipeBlock = kPipeRows * kPipeRowBytes;  // 16 KB: 128 staged rows
 constexpr int kPipeStage = 2 * kPipeBlock;      // x rows, then center rows
 constexpr int kPipeAlign = 1024;                // the swizzle repeats every 8 rows
 
-// Bytes of a staged block of `rows` rows of T (a bf16 block fills half of
-// its f32-sized place in the stage).
-template <typename T>
-__host__ __device__ constexpr int pipe_block_bytes(int rows) {
-  return rows * kPipeK * (int)sizeof(T);
-}
-
-// Offset (elements) of element (r, c) of a staged block: a staged row is
-// kPipeK elements of either type.
-__device__ __forceinline__ int swz(const float*, int r, int c) {
+// Offset (floats) of element (r, c) of a staged block.
+__device__ __forceinline__ int swz(int r, int c) {
   return r * kPipeK + ((((c >> 2) ^ r) & 7) << 2) + (c & 3);
-}
-__device__ __forceinline__ int swz(const bf16*, int r, int c) {
-  return r * kPipeK + ((((c >> 3) ^ (r >> 1)) & 3) << 3) + (c & 7);
-}
-
-// Columns 4 kc .. 4 kc + 3 of a staged row (`row` points at its element 0;
-// `r` is its row in the block, whose low three bits pick the swizzle) as
-// four floats.
-__device__ __forceinline__ float4 quad(const float* row, int kc, int r) {
-  return *reinterpret_cast<const float4*>(row + (((kc ^ r) & 7) << 2));
-}
-__device__ __forceinline__ float4 quad(const bf16* row, int kc, int r) {
-  struct alignas(8) Four {
-    __nv_bfloat162 lo, hi;
-  };
-  const Four v = *reinterpret_cast<const Four*>(
-      row + ((((kc >> 1) ^ (r >> 1)) & 3) << 3) + ((kc & 1) << 2));
-  return make_float4(__bfloat162float(v.lo.x), __bfloat162float(v.lo.y),
-                     __bfloat162float(v.hi.x), __bfloat162float(v.hi.y));
 }
 
 // Barrier among the consumer warps only (barrier 0 is the whole block's).
@@ -126,13 +90,10 @@ __device__ __forceinline__ void consumers_sync(int threads) {
 // ------------------------------------------------------------ the producer
 
 // One row block of a stage: rows [row0, row0 + nrows) x columns
-// [k0, k0 + 32) of a row-major (rows, d) matrix of T. With a tensor map,
-// lane 0 asks the copy engine for the box (its bytes are expected by the
-// caller); otherwise the warp copies one element a lane, zeros outside the
-// matrix: f32 by 4-byte asynchronous copies, bf16 by plain loads and stores
-// (the caller then arrives with producer_arrive(bar, true): pipe_commit's
-// `stored`).
-__device__ __forceinline__ void pipe_load(void* dst, const CUtensorMap* map,
+// [k0, k0 + 32) of a row-major (rows, d) matrix. With a tensor map, lane 0
+// asks the copy engine for the box (its bytes are expected by the caller);
+// otherwise the warp copies 4 bytes a lane, zeros outside the matrix.
+__device__ __forceinline__ void pipe_load(float* dst, const CUtensorMap* map,
                                           const float* __restrict__ src, int rows,
                                           int d, int row0, int k0, int nrows,
                                           uint64_t* bar, int lane) {
@@ -140,30 +101,11 @@ __device__ __forceinline__ void pipe_load(void* dst, const CUtensorMap* map,
     if (lane == 0) tma_load_2d(dst, map, k0, row0, bar);
     return;
   }
-  float* out = static_cast<float*>(dst);
   const int col = k0 + lane;
   for (int r = 0; r < nrows; ++r) {
     const int gr = row0 + r;
     const bool in = gr < rows && col < d;
-    cp_async4(out + swz(out, r, lane), src + (in ? (size_t)gr * d + col : 0), in ? 4 : 0);
-  }
-}
-__device__ __forceinline__ void pipe_load(void* dst, const CUtensorMap* map,
-                                          const bf16* __restrict__ src, int rows, int d,
-                                          int row0, int k0, int nrows, uint64_t* bar,
-                                          int lane) {
-  if (map != nullptr) {
-    if (lane == 0) tma_load_2d(dst, map, k0, row0, bar);
-    return;
-  }
-  bf16* out = static_cast<bf16*>(dst);
-  const unsigned short* bits = reinterpret_cast<const unsigned short*>(src);
-  const int col = k0 + lane;
-#pragma unroll 8
-  for (int r = 0; r < nrows; ++r) {
-    const int gr = row0 + r;
-    const unsigned short v = gr < rows && col < d ? bits[(size_t)gr * d + col] : 0;
-    reinterpret_cast<unsigned short*>(out)[swz(out, r, lane)] = v;
+    cp_async4(dst + swz(r, lane), src + (in ? (size_t)gr * d + col : 0), in ? 4 : 0);
   }
 }
 
@@ -180,7 +122,7 @@ __device__ __forceinline__ void pipe_gather(float* dst, const float* __restrict_
       const int p = ids[r];
       if (p < 0) continue;
       const bool in = k0 + c < d;
-      cp_async16(dst + swz(dst, r, c), src + (in ? (size_t)p * d + k0 + c : 0), in ? 16 : 0);
+      cp_async16(dst + swz(r, c), src + (in ? (size_t)p * d + k0 + c : 0), in ? 16 : 0);
     }
     return;
   }
@@ -189,7 +131,7 @@ __device__ __forceinline__ void pipe_gather(float* dst, const float* __restrict_
     const int p = ids[r];
     if (p < 0) continue;
     const bool in = col < d;
-    cp_async4(dst + swz(dst, r, lane), src + (in ? (size_t)p * d + col : 0), in ? 4 : 0);
+    cp_async4(dst + swz(r, lane), src + (in ? (size_t)p * d + col : 0), in ? 4 : 0);
   }
 }
 
@@ -213,19 +155,22 @@ struct PipeThread {
 };
 
 // acc[i][j] += A[ty + kTy*i] . B[tx + kTx*j] over one stage's 32 columns,
-// column by column (a and b are staged blocks of TA and TB: f32 or bf16).
-template <int kTy, int kTx, int JN, typename TA, typename TB>
-__device__ __forceinline__ void pipe_fma(const TA* a, const TB* b, int ty, int tx,
+// column by column (a and b are staged blocks).
+template <int kTy, int kTx, int JN>
+__device__ __forceinline__ void pipe_fma(const float* a, const float* b, int ty, int tx,
                                          float (&acc)[8][JN]) {
-  const TA* ap = a + ty * kPipeK;
-  const TB* bp = b + tx * kPipeK;
+  const float* ap = a + ty * kPipeK;
+  const float* bp = b + tx * kPipeK;
+  const int sa = ty & 7, sb = tx & 7;
 #pragma unroll
   for (int kc = 0; kc < kPipeK / 4; ++kc) {
     float4 av[8], bv[JN];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) av[i] = quad(ap + i * kTy * kPipeK, kc, ty);
+    for (int i = 0; i < 8; ++i)
+      av[i] = *reinterpret_cast<const float4*>(ap + i * kTy * kPipeK + ((kc ^ sa) << 2));
 #pragma unroll
-    for (int j = 0; j < JN; ++j) bv[j] = quad(bp + j * kTx * kPipeK, kc, tx);
+    for (int j = 0; j < JN; ++j)
+      bv[j] = *reinterpret_cast<const float4*>(bp + j * kTx * kPipeK + ((kc ^ sb) << 2));
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -245,21 +190,21 @@ __device__ __forceinline__ void pipe_fma(const TA* a, const TB* b, int ty, int t
   }
 }
 
-// Staged row r's squared norm over one stage (a of TA: f32 or bf16), and
-// with DOT its product with staged f32 row r of g: the fmaf chains of
-// pipe_fma.
-template <bool DOT, typename TA>
-__device__ __forceinline__ void pipe_row(const TA* a, const float* g, int r, float& sq,
+// Staged row r's squared norm over one stage, and with DOT its product
+// with staged row r of g: the fmaf chains of pipe_fma.
+template <bool DOT>
+__device__ __forceinline__ void pipe_row(const float* a, const float* g, int r, float& sq,
                                          float& dot) {
 #pragma unroll
   for (int kc = 0; kc < kPipeK / 4; ++kc) {
-    const float4 v = quad(a + r * kPipeK, kc, r);
+    const int off = r * kPipeK + ((kc ^ (r & 7)) << 2);
+    const float4 v = *reinterpret_cast<const float4*>(a + off);
     sq = fmaf(v.x, v.x, sq);
     sq = fmaf(v.y, v.y, sq);
     sq = fmaf(v.z, v.z, sq);
     sq = fmaf(v.w, v.w, sq);
     if (DOT) {
-      const float4 c = quad(g + r * kPipeK, kc, r);
+      const float4 c = *reinterpret_cast<const float4*>(g + off);
       dot = fmaf(v.x, c.x, dot);
       dot = fmaf(v.y, c.y, dot);
       dot = fmaf(v.z, c.z, dot);
@@ -321,10 +266,9 @@ __device__ __forceinline__ void pipe_acquire(const PipeRing& ring, int i, uint32
   if (lane == 0 && tx_bytes) mbar_expect_tx(ring.full_of(i), tx_bytes);
 }
 
-// Producer: stage i is issued; each lane arrives once its copies land
-// (`stored`: a bf16 block of the stage went by plain stores).
-__device__ __forceinline__ void pipe_commit(const PipeRing& ring, int i, bool stored = false) {
-  producer_arrive(ring.full_of(i), stored);
+// Producer: stage i is issued; each lane arrives once its copies land.
+__device__ __forceinline__ void pipe_commit(const PipeRing& ring, int i) {
+  cp_async_arrive(ring.full_of(i));
 }
 
 // Producer, last: wait until the consumers have freed the last stages, so
@@ -344,35 +288,21 @@ __device__ __forceinline__ void pipe_release(const PipeRing& ring, int i, int la
   if (lane == 0) mbar_arrive(ring.empty_of(i));
 }
 
-// Host: a tensor map of a row-major (rows, d) matrix of T in boxes of
-// `box_rows` x 32: f32 with the 128-byte swizzle, bf16 (64-byte box rows)
-// with the 64-byte one. Returns false (and leaves the matrix to the
-// producer's own copies) where the copy engine cannot take it: a row stride
-// or base that is not a multiple of 16 bytes, or rows narrower than a box;
-// *err is a CUDA error if the map could not be made.
-template <typename T>
-inline bool pipe_map(CUtensorMap* map, const T* base, int rows, int d, int box_rows,
+// Host: a tensor map of a row-major (rows, d) f32 matrix in boxes of
+// `box_rows` x 32 with the 128-byte swizzle. Returns false (and leaves the
+// matrix to the producer's 4-byte copies) where the copy engine cannot take
+// it: a row stride or base that is not a multiple of 16 bytes, or rows
+// narrower than a box; *err is a CUDA error if the map could not be made.
+inline bool pipe_map(CUtensorMap* map, const float* base, int rows, int d, int box_rows,
                      int* err) {
-  constexpr bool kF32 = sizeof(T) == 4;
   *err = 0;
-  if (d % (16 / (int)sizeof(T)) != 0 || d < kPipeK ||
-      reinterpret_cast<uintptr_t>(base) % 16 != 0)
-    return false;
+  if (d % 4 != 0 || d < kPipeK || reinterpret_cast<uintptr_t>(base) % 16 != 0) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)d * sizeof(T)};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * 4};
   const cuuint32_t box[2] = {(cuuint32_t)kPipeK, (cuuint32_t)box_rows};
-  *err = make_tensor_map(map,
-                         kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                         2, base, dims, strides, box,
-                         kF32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
+  *err = make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, base, dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
   return *err == 0;
-}
-
-// Whether the producer writes a row block of T with plain stores (bf16
-// without a tensor map): its lanes then arrive with pipe_commit(.., true).
-template <typename T>
-__host__ __device__ __forceinline__ bool pipe_stored(bool tma) {
-  return sizeof(T) == 2 && !tma;
 }
 
 }  // namespace repro

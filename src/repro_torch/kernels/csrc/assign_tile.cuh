@@ -17,13 +17,18 @@
 // With ROWSQ the blocks of center tile 0 also write each row's squared norm
 // (the same fmaf chain, summed while the row passes through the ring).
 //
-// x and the centers are each f32 or bf16 (TX, TC; assign_stats takes bf16
-// document rows with f32 or bf16 centers, assign_argmax f32 only): a bf16
-// element is converted to f32 in registers, so every output has the bits of
-// the f32 launch on the upcast matrices.
+// x and the centers are f32 here (assign_argmax, and assign_stats' f32
+// mode). bf16 x (assign_stats' bf16 mode) runs launch_assign_tile_wg below
+// on the tensor cores (wgmma_tile.cuh): bf16 centers as they are, f32
+// centers as three bf16 parts (hi + mid + lo == c exactly, the wrapper's
+// split) whose three products go into one f32 accumulator. The row
+// squared norms stay the fmaf chain above, so they keep their bits; the
+// similarities are within 1e-5 of the f32 mode's on unit rows and equal to
+// them on integer-valued rows.
 #pragma once
 
-#include "assign_pipe.cuh"
+#include "wgmma_tile.cuh"
+
 
 namespace repro {
 
@@ -39,7 +44,7 @@ inline int assign_tiles(int k) { return (k + kTileCols - 1) / kTileCols; }
 
 // A block's consumer work for a center tile of width > 8 * (JN / 2) (JN
 // column groups of 16).
-template <bool ROWSQ, int JN, typename TX, typename TC>
+template <bool ROWSQ, int JN>
 __device__ __forceinline__ void tile_consume(const PipeRing& ring, int nk, bool rowsq_here,
                                              int row0, int col0, int n, int k, int tiles,
                                              int ct, float* xv, int* xi,
@@ -58,10 +63,9 @@ __device__ __forceinline__ void tile_consume(const PipeRing& ring, int nk, bool 
   float rsq = 0.f, unused = 0.f;
   for (int i = 0; i < nk; ++i) {
     pipe_wait(ring, i);
-    const TX* a = reinterpret_cast<const TX*>(ring.block(i, 0));
+    const float* a = ring.block(i, 0);
     if (ROWSQ && rowsq_here && t < kTileRows) pipe_row<false>(a, nullptr, t, rsq, unused);
-    pipe_fma<kTileTy, kTileTx, JN>(a, reinterpret_cast<const TC*>(ring.block(i, 1)), th.ty,
-                                   th.tx, acc);
+    pipe_fma<kTileTy, kTileTx, JN>(a, ring.block(i, 1), th.ty, th.tx, acc);
     pipe_release(ring, i, lane);
   }
   // each row's tile winner: a thread's columns ascend with j, then the 8
@@ -106,11 +110,11 @@ __device__ __forceinline__ void tile_consume(const PipeRing& ring, int nk, bool 
   }
 }
 
-template <bool ROWSQ, typename TX, typename TC>
+template <bool ROWSQ>
 __global__ void __launch_bounds__((kTileWarps + 1) * 32, 1)
     assign_tile(const __grid_constant__ CUtensorMap xmap,
                 const __grid_constant__ CUtensorMap cmap, int xtma, int ctma,
-                const TX* __restrict__ x, const TC* __restrict__ centers, int n,
+                const float* __restrict__ x, const float* __restrict__ centers, int n,
                 int k, int d, int tiles, int* __restrict__ idx,
                 float* __restrict__ best_sim, float* __restrict__ rowsq,
                 float* __restrict__ part_v, int* __restrict__ part_i) {
@@ -126,16 +130,14 @@ __global__ void __launch_bounds__((kTileWarps + 1) * 32, 1)
   __syncthreads();
 
   if (warp == kTileWarps) {  // producer
-    const uint32_t tx = (xtma ? pipe_block_bytes<TX>(kTileRows) : 0) +
-                        (ctma ? pipe_block_bytes<TC>(kTileCols) : 0);
-    const bool stored = pipe_stored<TX>(xtma) || pipe_stored<TC>(ctma);
+    const uint32_t tx = (xtma ? kPipeBlock : 0) + (ctma ? kPipeBlock : 0);
     for (int i = 0; i < nk; ++i) {
       pipe_acquire(ring, i, tx, lane);
       pipe_load(ring.block(i, 0), xtma ? &xmap : nullptr, x, n, d, row0, i * kPipeK,
                 kTileRows, ring.full_of(i), lane);
       pipe_load(ring.block(i, 1), ctma ? &cmap : nullptr, centers, k, d, col0, i * kPipeK,
                 kTileCols, ring.full_of(i), lane);
-      pipe_commit(ring, i, stored);
+      pipe_commit(ring, i);
     }
     pipe_drain(ring, nk);
     return;
@@ -143,7 +145,7 @@ __global__ void __launch_bounds__((kTileWarps + 1) * 32, 1)
   const bool rowsq_here = ct == 0;
   const int jn = pipe_jn<kTileTx>(min(kTileCols, k - col0));
 #define REPRO_TILE_CONSUME(JN)                                                          \
-  tile_consume<ROWSQ, JN, TX, TC>(ring, nk, rowsq_here, row0, col0, n, k, tiles, ct, xv, xi, idx, \
+  tile_consume<ROWSQ, JN>(ring, nk, rowsq_here, row0, col0, n, k, tiles, ct, xv, xi, idx, \
                           best_sim, rowsq, part_v, part_i)
   if (jn == 8)
     REPRO_TILE_CONSUME(8);
@@ -182,37 +184,223 @@ inline int assign_tile_scratch(int k) {
   return tiles > 1 ? 2 * tiles : 0;
 }
 
-// per library, per kernel [ROWSQ][x bf16][centers bf16]: devices whose
-// limit is raised
-static unsigned tile_smem_set[2][2][2] = {};
+// per library, per kernel [ROWSQ]: devices whose limit is raised
+static unsigned tile_smem_set[2] = {};
+
+// Set up the tile winners' scratch and the grid; false when the grid is too
+// large.
+inline bool assign_grid(int n, int k, float* scratch, int& tiles, float*& part_v,
+                        int*& part_i, unsigned& blocks) {
+  tiles = assign_tiles(k);
+  part_v = scratch;
+  part_i = tiles > 1 ? reinterpret_cast<int*>(scratch + (size_t)tiles * n) : nullptr;
+  const long long b = (long long)((n + kTileRows - 1) / kTileRows) * tiles;
+  blocks = (unsigned)b;
+  return b <= 0x7fffffffLL;
+}
+
+// After the tile launch: merge the center tiles' winners (more than one
+// tile).
+inline int assign_finish(const float* part_v, const int* part_i, int n, int tiles, int* idx,
+                         float* best_sim, cudaStream_t st) {
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || tiles == 1) return (int)e;
+  assign_merge<<<(n + 255) / 256, 256, 0, st>>>(part_v, part_i, n, tiles, idx, best_sim);
+  return (int)cudaGetLastError();
+}
 
 // Launch on `st`; n == 0 launches nothing. scratch: n * assign_tile_scratch(k)
 // floats (may be null when that is 0).
-template <bool ROWSQ, typename TX, typename TC>
-inline int launch_assign_tile(const TX* x, const TC* centers, int n, int k, int d, int* idx,
-                              float* best_sim, float* rowsq, float* scratch,
+template <bool ROWSQ>
+inline int launch_assign_tile(const float* x, const float* centers, int n, int k, int d,
+                              int* idx, float* best_sim, float* rowsq, float* scratch,
                               cudaStream_t st) {
   if (n == 0) return 0;
-  int err = allow_smem(assign_tile<ROWSQ, TX, TC>, kTileSmem,
-                       tile_smem_set[ROWSQ][sizeof(TX) == 2][sizeof(TC) == 2]);
+  int err = allow_smem(assign_tile<ROWSQ>, kTileSmem, tile_smem_set[ROWSQ]);
   if (err != 0) return err;
   CUtensorMap xmap{}, cmap{};
   const bool xtma = pipe_map(&xmap, x, n, d, kTileRows, &err);
   if (err != 0) return err;
   const bool ctma = pipe_map(&cmap, centers, k, d, kTileCols, &err);
   if (err != 0) return err;
-  const int tiles = assign_tiles(k);
-  float* part_v = scratch;
-  int* part_i = tiles > 1 ? reinterpret_cast<int*>(scratch + (size_t)tiles * n) : nullptr;
-  const long long blocks = (long long)((n + kTileRows - 1) / kTileRows) * tiles;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  assign_tile<ROWSQ, TX, TC><<<(unsigned)blocks, (kTileWarps + 1) * 32, kTileSmem, st>>>(
+  int tiles, *part_i;
+  float* part_v;
+  unsigned blocks;
+  if (!assign_grid(n, k, scratch, tiles, part_v, part_i, blocks))
+    return (int)cudaErrorInvalidConfiguration;
+  assign_tile<ROWSQ><<<blocks, (kTileWarps + 1) * 32, kTileSmem, st>>>(
       xmap, cmap, xtma, ctma, x, centers, n, k, d, tiles, idx, best_sim, rowsq, part_v,
       part_i);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || tiles == 1) return (int)e;
-  assign_merge<<<(n + 255) / 256, 256, 0, st>>>(part_v, part_i, n, tiles, idx, best_sim);
-  return (int)cudaGetLastError();
+  return assign_finish(part_v, part_i, n, tiles, idx, best_sim, st);
+}
+
+// ------------------------------------------------- bf16 x: tensor cores
+
+// Row stride (elements) of the split centers' parts, (3, k, stride) bf16:
+// d padded to a multiple of 8 (16-byte rows, which the copy engine takes)
+// and to at least one stage's kWgCols columns; the pad columns are zeros.
+// kernels/assign_stats.py's split_stride is the same.
+__host__ __device__ constexpr int split_stride(int d) {
+  return d < kWgCols ? kWgCols : (d + 7) / 8 * 8;
+}
+
+// The center columns a bf16 tile computes for k centers: 16, 32 or 64 (one
+// tile), else 128 (tiles of 128 side by side).
+inline int wg_tile_n(int k) { return k > 64 ? 128 : k > 32 ? 64 : k > 16 ? 32 : 16; }
+
+// the ring (the x block and P B blocks of N rows a stage, up to 200 KB)
+template <int P, int N>
+using TileWgRing = WgRing<P, N>;
+template <int P, int N>
+constexpr int kTileWgStages = 200 * 1024 / TileWgRing<P, N>::kStage;
+template <int P, int N>
+constexpr int kTileWgSmem = wg_ring_bytes<TileWgRing<P, N>>(kTileWgStages<P, N>);
+
+// The consumers of a bf16 tile with N computed center columns against P B
+// blocks (1: bf16 centers; 3: the parts of f32 ones). Columns past k hold
+// products with whatever rows the boxes brought (zeros past the matrix, the
+// next part's rows inside it) and are never read. With ROWSQ, in the
+// blocks of center tile 0, threads 0-63 of warpgroup g sum the squared
+// norms of rows 64g .. 64g + 63 as they pass (wg_row_sq: the fmaf chain of
+// assign_pipe.cuh's pipe_row).
+template <bool ROWSQ, int N, int P>
+__device__ __forceinline__ void wg_assign_consume(const TileWgRing<P, N>& ring, int nk,
+                                                  bool rowsq_here, int row0, int col0, int n,
+                                                  int k, int tiles, int ct,
+                                                  int* __restrict__ idx,
+                                                  float* __restrict__ best_sim,
+                                                  float* __restrict__ rowsq,
+                                                  float* __restrict__ part_v,
+                                                  int* __restrict__ part_i) {
+  const int t = threadIdx.x, lane = t & 31;
+  const int nrow = (t >> 7) * 64 + (t & 127);
+  const bool norms = ROWSQ && rowsq_here && (t & 127) < 64;  // whole warps
+  float rsq = 0.f;
+  float s[N / 2];
+  wg_mainloop<N>(ring, nk, s, [&](const unsigned char* xb) {
+    if (norms) wg_row_sq(xb, nrow, rsq);
+  });
+  // each row's tile winner: a thread's columns, then the 4 lanes of its quad
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float tb = kNeg;
+    int tj = -1;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = col0 + wg_col(t, j, e);
+        if (col < k && beats(s[4 * j + 2 * h + e], col, tb, tj)) {
+          tb = s[4 * j + 2 * h + e];
+          tj = col;
+        }
+      }
+    lanes_argmax<1, 4>(tb, tj);
+    const int row = row0 + wg_row(t, h);
+    if ((lane & 3) == 0 && row < n) {
+      if (tiles == 1) {
+        idx[row] = tj;
+        best_sim[row] = tb;
+      } else {
+        part_v[(size_t)ct * n + row] = tb;
+        part_i[(size_t)ct * n + row] = tj;
+      }
+    }
+  }
+  if (norms && row0 + nrow < n) rowsq[row0 + nrow] = rsq;
+}
+
+// bf16 x against P = 1 bf16 center matrix (cmap, or ctma == 0: plain
+// stores) or P = 3 parts (cmap: the (3k, split_stride(d)) rows of the
+// parts, always the copy engine), in boxes of N center rows: part p of
+// center tile ct is rows p * k + 128 ct .. of the parts.
+template <bool ROWSQ, int P, int N>
+__global__ void __launch_bounds__((kTileWarps + 1) * 32, 1)
+    assign_tile_wg(const __grid_constant__ CUtensorMap xmap,
+                   const __grid_constant__ CUtensorMap cmap, int xtma, int ctma,
+                   const bf16* __restrict__ x, const bf16* __restrict__ centers, int n, int k,
+                   int d, int tiles, int* __restrict__ idx, float* __restrict__ best_sim,
+                   float* __restrict__ rowsq, float* __restrict__ part_v,
+                   int* __restrict__ part_i) {
+  extern __shared__ unsigned char raw[];
+  TileWgRing<P, N> ring;
+  wg_ring(raw, kTileWgStages<P, N>, ring);
+  const int ct = blockIdx.x % tiles, row0 = (blockIdx.x / tiles) * kTileRows;
+  const int col0 = ct * kTileCols;
+  const int nk = (d + kWgCols - 1) / kWgCols;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) pipe_ring_init(ring, kTileWarps);
+  __syncthreads();
+
+  if (warp == kTileWarps) {  // producer
+    const uint32_t tx = (xtma ? kWgBlock : 0) + (ctma ? P * TileWgRing<P, N>::kB : 0);
+    const bool stored = !xtma || !ctma;
+    for (int i = 0; i < nk; ++i) {
+      pipe_acquire(ring, i, tx, lane);
+      wg_load(ring.blk(i, 0), xtma ? &xmap : nullptr, x, n, d, row0, i * kWgCols, kTileRows,
+              ring.full_of(i), lane);
+      if (P == 1) {
+        wg_load(ring.blk(i, 1), ctma ? &cmap : nullptr, centers, k, d, col0, i * kWgCols, N,
+                ring.full_of(i), lane);
+      } else if (lane == 0) {
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          tma_load_2d(ring.blk(i, 1 + p), &cmap, i * kWgCols, p * k + col0, ring.full_of(i));
+      }
+      wg_publish(ring, i, stored);
+    }
+    pipe_drain(ring, nk);
+    return;
+  }
+  wg_assign_consume<ROWSQ, N, P>(ring, nk, ct == 0, row0, col0, n, k, tiles, ct, idx, best_sim,
+                                 rowsq, part_v, part_i);
+}
+
+// per library, per kernel [ROWSQ][P == 3][N: 16, 32, 64, 128]: devices
+// whose limit is raised
+static unsigned tile_wg_smem_set[2][2][4] = {};
+
+template <bool ROWSQ, int P, int N>
+inline int launch_wg(const bf16* x, const bf16* centers, int n, int k, int d, int* idx,
+                     float* best_sim, float* rowsq, float* scratch, cudaStream_t st) {
+  constexpr int smem = kTileWgSmem<P, N>;
+  int err = allow_smem(assign_tile_wg<ROWSQ, P, N>, smem,
+                       tile_wg_smem_set[ROWSQ][P == 3][N == 16 ? 0 : N == 32 ? 1 : N == 64 ? 2 : 3]);
+  if (err != 0) return err;
+  CUtensorMap xmap{}, cmap{};
+  const bool xtma = wg_map(&xmap, x, n, d, kTileRows, &err);
+  if (err != 0) return err;
+  bool ctma = wg_map(&cmap, centers, P * k, P == 1 ? d : split_stride(d), N, &err);
+  if (err != 0) return err;
+  if (P == 3 && !ctma) return (int)cudaErrorInvalidValue;
+  int tiles, *part_i;
+  float* part_v;
+  unsigned blocks;
+  if (!assign_grid(n, k, scratch, tiles, part_v, part_i, blocks))
+    return (int)cudaErrorInvalidConfiguration;
+  assign_tile_wg<ROWSQ, P, N><<<blocks, (kTileWarps + 1) * 32, smem, st>>>(
+      xmap, cmap, xtma, ctma, x, centers, n, k, d, tiles, idx, best_sim, rowsq, part_v, part_i);
+  return assign_finish(part_v, part_i, n, tiles, idx, best_sim, st);
+}
+
+// The bf16 launch 1: P = 1, `centers` a (k, d) bf16 matrix; P = 3, the
+// (3, k, split_stride(d)) bf16 parts of f32 centers (16-byte aligned).
+// Otherwise as launch_assign_tile.
+template <bool ROWSQ, int P>
+inline int launch_assign_tile_wg(const bf16* x, const bf16* centers, int n, int k, int d,
+                                 int* idx, float* best_sim, float* rowsq, float* scratch,
+                                 cudaStream_t st) {
+  if (n == 0) return 0;
+  switch (wg_tile_n(k)) {
+    case 16:
+      return launch_wg<ROWSQ, P, 16>(x, centers, n, k, d, idx, best_sim, rowsq, scratch, st);
+    case 32:
+      return launch_wg<ROWSQ, P, 32>(x, centers, n, k, d, idx, best_sim, rowsq, scratch, st);
+    case 64:
+      return launch_wg<ROWSQ, P, 64>(x, centers, n, k, d, idx, best_sim, rowsq, scratch, st);
+    default:
+      return launch_wg<ROWSQ, P, 128>(x, centers, n, k, d, idx, best_sim, rowsq, scratch, st);
+  }
 }
 
 }  // namespace repro

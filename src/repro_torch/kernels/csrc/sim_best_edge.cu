@@ -35,11 +35,21 @@
 // returns the full grid's bits. At s = 3,536: 406 tiles instead of 784.
 //
 // bf16 rows (both matrices bf16: the sample of a bf16 collection, as the
-// JAX kernel takes it) are read at half the bytes and converted to f32 in
-// registers; the fmaf chains are those of the f32 launch on xs.float(), so
-// every output, and the symmetry the self-search relies on, keeps its bits.
+// JAX kernel takes it) run on the tensor cores instead (wgmma_tile.cuh):
+// each warpgroup of a block computes 64 rows of the 128 x 128 tile, products
+// of bf16 values exact, sums in f32 in the tensor cores' order, within 1e-5
+// of the f32 mode on the upcast rows and equal to it on integer-valued
+// rows. The fmaf argument for the symmetry does not carry over, so the
+// self-search takes it by construction: on a diagonal tile (I, I) only the
+// entries with row < column are read, row i over its columns j > i and, on
+// the column side, row j over its rows i < j, the rule of the tiles off the
+// diagonal; the two sides merge into slot I with the same (value desc,
+// index asc) rule. The full grid reads every entry of its tiles; it equals
+// the self-search where the tensor cores' sum for a pair does not depend on
+// which operand is the row (held on the card: tests/test_torch_gpu.py's bf16
+// gates, the full grid on a copy against the self-search).
 
-#include "assign_pipe.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -55,6 +65,12 @@ constexpr int kWarpRows = kWarps / Thread::kWarpsX;  // 4 warps down the tile
 // columns; each column's (best, row) from the 4 warp rows
 constexpr int kSmem =
     kPipeAlign + kStages * (kPipeStage + 16) + kRows * 2 * 8 + kCols * kWarpRows * 8;
+// the bf16 tile: its ring (two 16 KB blocks a stage), each row's (best,
+// column), each column's (best, row) from the 8 consumer warps, the tile's
+// row and column labels
+constexpr int kWgStages = 6;
+constexpr int kWgSmem =
+    wg_ring_bytes<WgRing<1>>(kWgStages) + kRows * 8 + kCols * kWarps * 8 + (kRows + kCols) * 4;
 
 // Block b of the self-search -> its tile (I, J), J >= I: row tile I holds the
 // tiles - I blocks after those of the row tiles before it.
@@ -67,10 +83,22 @@ __device__ __forceinline__ void upper_tile(int b, int tiles, int& rt, int& ct) {
   ct = rt + b;
 }
 
+// The block's tile: (I, J) of the self-search's upper triangle, or of the
+// full grid.
+template <bool SELF>
+__device__ __forceinline__ void block_tile(int tiles, int& rt, int& ct) {
+  if (SELF) {
+    upper_tile(blockIdx.x, tiles, rt, ct);
+  } else {
+    ct = blockIdx.x % tiles;
+    rt = blockIdx.x / tiles;
+  }
+}
+
 // The consumers of tile (rt, ct) with JN column groups of 16 (a narrow last
 // column tile computes fewer); with SELF, and off the diagonal, the column
 // side too.
-template <int JN, bool SELF, typename T>
+template <int JN, bool SELF>
 __device__ __forceinline__ void tile_consume(const PipeRing& ring, int nk, int rt, int ct,
                                              const int* __restrict__ lr,
                                              const int* __restrict__ lc, int r, int c,
@@ -87,11 +115,9 @@ __device__ __forceinline__ void tile_consume(const PipeRing& ring, int nk, int r
     for (int j = 0; j < JN; ++j) acc[i][j] = 0.f;
   for (int i = 0; i < nk; ++i) {
     pipe_wait(ring, i);
-    pipe_fma<kTy, kTx, JN>(reinterpret_cast<const T*>(ring.block(i, 0)),
-                           reinterpret_cast<const T*>(ring.block(i, 1)), th.ty, th.tx, acc);
+    pipe_fma<kTy, kTx, JN>(ring.block(i, 0), ring.block(i, 1), th.ty, th.tx, acc);
     pipe_release(ring, i, lane);
   }
-
   int lrow[8], lcol[JN];  // -1 past the matrix: pads match nothing
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -177,11 +203,11 @@ __device__ __forceinline__ void tile_consume(const PipeRing& ring, int nk, int r
   }
 }
 
-template <bool SELF, typename T>
+template <bool SELF>
 __global__ void __launch_bounds__((kWarps + 1) * 32, 1)
     sim_best_edge_tile(const __grid_constant__ CUtensorMap rmap,
                        const __grid_constant__ CUtensorMap cmap, int rtma, int ctma,
-                       const T* __restrict__ xr, const T* __restrict__ xc,
+                       const float* __restrict__ xr, const float* __restrict__ xc,
                        const int* __restrict__ lr, const int* __restrict__ lc, int r, int c,
                        int d, int tiles, float* __restrict__ part_s,
                        int* __restrict__ part_j) {
@@ -192,35 +218,28 @@ __global__ void __launch_bounds__((kWarps + 1) * 32, 1)
   float* cv = reinterpret_cast<float*>(xi + kRows * 2);
   int* ci = reinterpret_cast<int*>(cv + kCols * kWarpRows);
   int rt, ct;
-  if (SELF) {
-    upper_tile(blockIdx.x, tiles, rt, ct);
-  } else {
-    ct = blockIdx.x % tiles;
-    rt = blockIdx.x / tiles;
-  }
+  block_tile<SELF>(tiles, rt, ct);
   const int nk = (d + kPipeK - 1) / kPipeK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) pipe_ring_init(ring, kWarps);
   __syncthreads();
 
   if (warp == kWarps) {  // producer
-    const uint32_t tx =
-        (rtma ? pipe_block_bytes<T>(kRows) : 0) + (ctma ? pipe_block_bytes<T>(kCols) : 0);
-    const bool stored = pipe_stored<T>(rtma) || pipe_stored<T>(ctma);
+    const uint32_t tx = (rtma ? kPipeBlock : 0) + (ctma ? kPipeBlock : 0);
     for (int i = 0; i < nk; ++i) {
       pipe_acquire(ring, i, tx, lane);
       pipe_load(ring.block(i, 0), rtma ? &rmap : nullptr, xr, r, d, rt * kRows, i * kPipeK,
                 kRows, ring.full_of(i), lane);
       pipe_load(ring.block(i, 1), ctma ? &cmap : nullptr, xc, c, d, ct * kCols, i * kPipeK,
                 kCols, ring.full_of(i), lane);
-      pipe_commit(ring, i, stored);
+      pipe_commit(ring, i);
     }
     pipe_drain(ring, nk);
     return;
   }
   const int jn = pipe_jn<kTx>(min(kCols, c - ct * kCols));
 #define REPRO_SIM_CONSUME(JN) \
-  tile_consume<JN, SELF, T>(ring, nk, rt, ct, lr, lc, r, c, xv, xi, cv, ci, part_s, part_j)
+  tile_consume<JN, SELF>(ring, nk, rt, ct, lr, lc, r, c, xv, xi, cv, ci, part_s, part_j)
   if (jn == 8)
     REPRO_SIM_CONSUME(8);
   else if (jn == 4)
@@ -230,6 +249,159 @@ __global__ void __launch_bounds__((kWarps + 1) * 32, 1)
   else
     REPRO_SIM_CONSUME(1);
 #undef REPRO_SIM_CONSUME
+}
+
+// ------------------------------------------------- bf16 rows: tensor cores
+
+// The consumers of the bf16 tile (rt, ct), N computed columns (16, 32, 64 or
+// 128: a narrow last column tile computes fewer). Rows and columns past the
+// matrices carry label -1 and match nothing.
+template <int N, bool SELF>
+__device__ __forceinline__ void wg_tile_consume(const WgRing<1>& ring, int nk, int rt, int ct,
+                                                int r, int c, const int* lrs, const int* lcs,
+                                                float* xv, int* xi, float* cv, int* ci,
+                                                float* __restrict__ part_s,
+                                                int* __restrict__ part_j) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int row0 = rt * kRows, col0 = ct * kCols;
+  const bool diag = SELF && rt == ct;  // there only the entries with row < column
+  float s[N / 2];
+  wg_mainloop<N>(ring, nk, s, [](const unsigned char*) {});
+  consumers_sync(kWarps * 32);  // the staged labels
+  // each row's best column: a thread's columns, then the 4 lanes of its quad
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rr = wg_row(t, h), lrow = lrs[rr];
+    float tb = kNeg;
+    int tj = -1;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cc = wg_col(t, j, e), lcol = lcs[cc];
+        const bool keep = lrow >= 0 && lcol >= 0 && lrow != lcol && (!diag || cc > rr);
+        if (keep && beats(s[4 * j + 2 * h + e], col0 + cc, tb, tj)) {
+          tb = s[4 * j + 2 * h + e];
+          tj = col0 + cc;
+        }
+      }
+    lanes_argmax<1, 4>(tb, tj);
+    if ((lane & 3) == 0) {
+      xv[rr] = tb;
+      xi[rr] = tj;
+    }
+  }
+  if (SELF) {
+    // each column's best row: a thread's two rows, then the 8 lanes of the
+    // column in this warp, then the 8 warps in shared memory
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cc = wg_col(t, j, e), lcol = lcs[cc];
+        float tb = kNeg;
+        int ti = -1;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int rr = wg_row(t, h), lrow = lrs[rr];
+          const bool keep = lrow >= 0 && lcol >= 0 && lrow != lcol && (!diag || rr < cc);
+          if (keep && beats(s[4 * j + 2 * h + e], row0 + rr, tb, ti)) {
+            tb = s[4 * j + 2 * h + e];
+            ti = row0 + rr;
+          }
+        }
+        lanes_argmax<4, 8>(tb, ti);
+        if (lane < 4) {
+          cv[cc * kWarps + warp] = tb;
+          ci[cc * kWarps + warp] = ti;
+        }
+      }
+  }
+  consumers_sync(kWarps * 32);
+  if (t < kRows && row0 + t < r) {
+    float bv = xv[t];
+    int bj = xi[t];
+    if (diag) {  // row i's partners i' < i, read at (i', i)
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        if (beats(cv[t * kWarps + w], ci[t * kWarps + w], bv, bj)) {
+          bv = cv[t * kWarps + w];
+          bj = ci[t * kWarps + w];
+        }
+      }
+    }
+    part_s[(size_t)ct * r + row0 + t] = bv;
+    part_j[(size_t)ct * r + row0 + t] = bj;
+  }
+  // columns past c were never written (a tile is at most N wide)
+  if (SELF && !diag && t < kCols && col0 + t < c) {
+    float bv = cv[t * kWarps];
+    int bi = ci[t * kWarps];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      if (beats(cv[t * kWarps + w], ci[t * kWarps + w], bv, bi)) {
+        bv = cv[t * kWarps + w];
+        bi = ci[t * kWarps + w];
+      }
+    }
+    part_s[(size_t)rt * r + col0 + t] = bv;  // row col0 + t, slot rt
+    part_j[(size_t)rt * r + col0 + t] = bi;
+  }
+}
+
+template <bool SELF>
+__global__ void __launch_bounds__((kWarps + 1) * 32, 1)
+    sim_best_edge_wg(const __grid_constant__ CUtensorMap rmap,
+                     const __grid_constant__ CUtensorMap cmap, int rtma, int ctma,
+                     const bf16* __restrict__ xr, const bf16* __restrict__ xc,
+                     const int* __restrict__ lr, const int* __restrict__ lc, int r, int c,
+                     int d, int tiles, float* __restrict__ part_s, int* __restrict__ part_j) {
+  extern __shared__ unsigned char raw[];
+  WgRing<1> ring;
+  float* xv = reinterpret_cast<float*>(wg_ring(raw, kWgStages, ring));
+  int* xi = reinterpret_cast<int*>(xv + kRows);
+  float* cv = reinterpret_cast<float*>(xi + kRows);
+  int* ci = reinterpret_cast<int*>(cv + kCols * kWarps);
+  int* lrs = ci + kCols * kWarps;
+  int* lcs = lrs + kRows;
+  int rt, ct;
+  block_tile<SELF>(tiles, rt, ct);
+  const int nk = (d + kWgCols - 1) / kWgCols;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  if (t == 0) pipe_ring_init(ring, kWarps);
+  __syncthreads();
+
+  if (warp == kWarps) {  // producer
+    const uint32_t tx = (rtma ? kWgBlock : 0) + (ctma ? kWgBlock : 0);
+    const bool stored = !rtma || !ctma;
+    for (int i = 0; i < nk; ++i) {
+      pipe_acquire(ring, i, tx, lane);
+      wg_load(ring.blk(i, 0), rtma ? &rmap : nullptr, xr, r, d, rt * kRows, i * kWgCols, kRows,
+              ring.full_of(i), lane);
+      wg_load(ring.blk(i, 1), ctma ? &cmap : nullptr, xc, c, d, ct * kCols, i * kWgCols, kCols,
+              ring.full_of(i), lane);
+      wg_publish(ring, i, stored);
+    }
+    pipe_drain(ring, nk);
+    return;
+  }
+  if (t < kRows) {
+    const int row = rt * kRows + t, col = ct * kCols + t;
+    lrs[t] = row < r ? lr[row] : -1;
+    lcs[t] = col < c ? lc[col] : -1;
+  }
+  const int jn = pipe_jn<16>(min(kCols, c - ct * kCols));
+#define REPRO_SIM_WG(JN) \
+  wg_tile_consume<16 * JN, SELF>(ring, nk, rt, ct, r, c, lrs, lcs, xv, xi, cv, ci, part_s, part_j)
+  if (jn == 8)
+    REPRO_SIM_WG(8);
+  else if (jn == 4)
+    REPRO_SIM_WG(4);
+  else if (jn == 2)
+    REPRO_SIM_WG(2);
+  else
+    REPRO_SIM_WG(1);
+#undef REPRO_SIM_WG
 }
 
 __global__ void sim_best_edge_merge(const float* __restrict__ part_s,
@@ -252,22 +424,35 @@ __global__ void sim_best_edge_merge(const float* __restrict__ part_s,
 
 unsigned smem_set[2][2] = {};  // per kernel [SELF][bf16]: devices whose limit is raised
 
+// The f32 tile (fmaf chains) or, on bf16 rows, the tensor-core tile.
 template <bool SELF, typename T>
 int launch_tiles(const T* xr, const T* xc, const int* lr, const int* lc, int r, int c, int d,
                  int tiles, float* part_s, int* part_j, cudaStream_t st) {
-  int err = allow_smem(sim_best_edge_tile<SELF, T>, kSmem, smem_set[SELF][sizeof(T) == 2]);
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int smem = kBf16 ? kWgSmem : kSmem;
+  int err = kBf16 ? allow_smem(sim_best_edge_wg<SELF>, smem, smem_set[SELF][1])
+                  : allow_smem(sim_best_edge_tile<SELF>, smem, smem_set[SELF][0]);
   if (err != 0) return err;
   CUtensorMap rmap{}, cmap{};
-  const bool rtma = pipe_map(&rmap, xr, r, d, kRows, &err);
-  if (err != 0) return err;
-  const bool ctma = SELF ? rtma : pipe_map(&cmap, xc, c, d, kCols, &err);
+  bool rtma, ctma;
+  if constexpr (kBf16) {
+    rtma = wg_map(&rmap, xr, r, d, kRows, &err);
+    if (err == 0) ctma = SELF ? rtma : wg_map(&cmap, xc, c, d, kCols, &err);
+  } else {
+    rtma = pipe_map(&rmap, xr, r, d, kRows, &err);
+    if (err == 0) ctma = SELF ? rtma : pipe_map(&cmap, xc, c, d, kCols, &err);
+  }
   if (err != 0) return err;
   if (SELF) cmap = rmap;
   const long long blocks = SELF ? (long long)tiles * (tiles + 1) / 2
                                 : (long long)tiles * ((r + kRows - 1) / kRows);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  sim_best_edge_tile<SELF, T><<<(unsigned)blocks, (kWarps + 1) * 32, kSmem, st>>>(
-      rmap, cmap, rtma, ctma, xr, xc, lr, lc, r, c, d, tiles, part_s, part_j);
+  if constexpr (kBf16)
+    sim_best_edge_wg<SELF><<<(unsigned)blocks, (kWarps + 1) * 32, smem, st>>>(
+        rmap, cmap, rtma, ctma, xr, xc, lr, lc, r, c, d, tiles, part_s, part_j);
+  else
+    sim_best_edge_tile<SELF><<<(unsigned)blocks, (kWarps + 1) * 32, smem, st>>>(
+        rmap, cmap, rtma, ctma, xr, xc, lr, lc, r, c, d, tiles, part_s, part_j);
   return (int)cudaGetLastError();
 }
 

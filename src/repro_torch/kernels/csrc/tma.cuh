@@ -15,8 +15,9 @@
 
 namespace repro {
 
-// Element type codes of the C entries' matrices (document rows f32 or bf16).
-constexpr int kElemF32 = 0, kElemBf16 = 1;
+// Element type codes of the C entries' matrices (document rows f32 or bf16;
+// kElemSplit3: f32 centers as three bf16 parts, assign_stats' bf16 mode).
+constexpr int kElemF32 = 0, kElemBf16 = 1, kElemSplit3 = 2;
 
 // ------------------------------------------------------------------ host
 

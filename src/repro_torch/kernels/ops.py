@@ -7,10 +7,17 @@ code imports only this module, never the kernels directly.
 
 Document rows: on the card ``sim_best_edge``, ``label_stats`` and
 ``assign_stats`` (and ``assign_stats_chunked``) take f32 or bf16 rows (bf16
-x of ``assign_stats`` with f32 or bf16 centers) as they are, and return f32
-statistics with the bits of the f32 call on the upcast rows; ``assign_argmax``
-and ``assign_stats_bounded`` take f32 rows only and raise ``TypeError`` on
-any other. The plain versions take any float rows and accumulate in f32.
+x of ``assign_stats`` with f32 or bf16 centers) as they are, with no f32
+copy, and return f32. On bf16 rows ``sim_best_edge`` and ``assign_stats``'
+nearest-center tile multiply on the tensor cores, the JAX kernels' contract
+(bf16 products exact, sums in f32 in the tensor cores' order): every output
+equals the f32 call on the upcast rows where all sums are exact in f32
+(integer-valued rows); on unit rows the similarities are within 1e-5 of it
+and an index may differ only at a near-tie. ``label_stats``, the row norms
+and ``assign_stats``' fold keep the f32 call's bits (sums, counts and sumsq
+wherever idx agrees). ``assign_argmax`` and ``assign_stats_bounded`` take
+f32 rows only and raise ``TypeError`` on any other. The plain versions take
+any float rows and accumulate in f32.
 
 ``launch_counts()`` reads each kernel wrapper's count of launches,
 ``bf16_launch_counts()`` the launches on bf16 rows among them, and

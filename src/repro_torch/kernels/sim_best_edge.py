@@ -11,8 +11,12 @@ labels, labels)``), is a self-search: the kernel computes only the tiles on
 and above the diagonal and gives the full grid's bits. Any other call, a copy
 of the same rows included, takes the full grid.
 
-The rows are f32 or bf16, both matrices the same: bf16 rows are read as
-they are (no f32 copy) and give the bits of the f32 call on their upcasts.
+The rows are f32 or bf16, both matrices the same. bf16 rows are read as
+they are (no f32 copy) and multiplied on the tensor cores (products exact,
+f32 sums in another order than the f32 call's fmaf chains): equal to the f32
+call on their upcasts where every sum is exact in f32 (integer-valued rows),
+similarities within 1e-5 of it on unit rows, and the self-search symmetric by
+construction (``csrc/sim_best_edge.cu``).
 """
 
 from __future__ import annotations

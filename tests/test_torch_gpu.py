@@ -377,10 +377,39 @@ def test_bounded_row_pass_ring_wraps(card, d, k):
 
 # ------------------------------------------------------------------ bf16 rows
 #
-# sim_best_edge, label_stats and assign_stats take bf16 document rows. The
-# gate: every output equals, bit for bit, the same kernel's f32 mode on the
-# upcast inputs (a bf16 value converts to f32 exactly and the fmaf chains
-# and fold orders are unchanged). The rows are unit rows rounded to bf16.
+# sim_best_edge, label_stats and assign_stats take bf16 document rows.
+# label_stats, assign_stats' fold and its row norms convert each element to
+# f32 exactly and keep the f32 mode's order: bit for bit with the f32 mode on
+# the upcast rows. sim_best_edge and assign_stats' nearest-center tile
+# multiply on the tensor cores, the JAX kernels' contract (bf16 products
+# exact, f32 sums in the tensor cores' order), held to the f32 mode on the
+# upcast inputs by these gates, each a case of the tests below:
+#   (a) "integer": entries in {-3, ..., 3}, so every product and partial sum
+#       is exact in f32: every output torch.equal to the f32 mode's, ties
+#       (everywhere) to the lowest index;
+#   (b) "unit": unit rows rounded to bf16: similarities within SIM_TOL of
+#       the f32 mode's, an index differing only at a near-tie (chip_smoke.py's
+#       check_argmax rule) and, wherever idx agrees on every row, assign_stats'
+#       sums, counts and sumsq bit for bit, min_sim within SIM_TOL;
+#   (c) every call repeats its bits (_twice);
+#   (d) "symmetry" (sim_best_edge): the full grid on a copy equals the
+#       self-search bit for bit, whichever operand a row is;
+#   (e) "rows_at": the same rows 1 and 37 rows further into x (another place
+#       in the tiles and in a warpgroup's 64 rows) give the same bits.
+# chip_smoke.py's phase 2 runs these tests and the gates at the main shapes.
+
+SIM_TOL = 1e-5  # the plain versions' tolerance on unit rows (chip_smoke.py)
+SUM_RTOL, SUM_ATOL = 1e-4, 1e-5
+ROW_SHIFTS = (1, 37)
+
+
+def _at_offset(t, offset):
+    """``t`` copied to start ``offset`` elements into a fresh allocation (a
+    base off 16 bytes); ``t`` itself for offset 0."""
+    if not offset:
+        return t
+    flat = torch.empty((t.numel() + offset,), dtype=t.dtype, device=t.device)
+    return flat[offset:].view(t.shape).copy_(t)
 
 
 def _bf16_rows(rng, shape, card, offset=0):
@@ -388,11 +417,12 @@ def _bf16_rows(rng, shape, card, offset=0):
     that many elements into their allocation (a base off 16 bytes)."""
     a = rng.normal(size=shape).astype(np.float32)
     a /= np.maximum(np.linalg.norm(a, axis=-1, keepdims=True), 1e-30)
-    t = torch.from_numpy(a).to(card).bfloat16()
-    if offset:
-        flat = torch.empty((t.numel() + offset,), dtype=torch.bfloat16, device=card)
-        t = flat[offset:].view(shape).copy_(t)
-    return t
+    return _at_offset(torch.from_numpy(a).to(card).bfloat16(), offset)
+
+
+def _bf16_ints(rng, shape, card, offset=0):
+    """Rows of integers in {-3, ..., 3} in bf16, placed as _bf16_rows."""
+    return _at_offset(_ints(rng, shape, -3, 3, card).bfloat16(), offset)
 
 
 def _same_bits(got, want):
@@ -400,34 +430,127 @@ def _same_bits(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
+def _near_ties(name, got_idx, want_idx, want_val, sim_at):
+    """Indices equal except where the bf16 call's pick scores, in f32, within
+    SIM_TOL of the f32 mode's best; returns how many differ."""
+    assert torch.equal(got_idx < 0, want_idx < 0), f"{name}: a row lost or gained its candidate"
+    rows = (got_idx != want_idx).nonzero().flatten()
+    if rows.numel():
+        gap = (want_val[rows] - sim_at(rows, got_idx[rows].long())).abs()
+        assert gap.max().item() <= SIM_TOL, f"{name}: {rows.numel()} indices differ, not at near-ties"
+    return int(rows.numel())
+
+
+def _close(name, got, want, rtol, atol):
+    err = (got.double() - want.double()).abs()
+    assert (err <= atol + rtol * want.double().abs()).all(), (
+        f"{name}: max abs err {err.max().item()} beyond rtol={rtol} atol={atol}")
+    return err.max().item() if err.numel() else 0.0
+
+
+def _shifted(x, shift):
+    """x's rows ``shift`` rows further down, after rows of zeros."""
+    return torch.cat([x.new_zeros((shift, x.shape[1])), x])
+
+
+def bf16_sim_gate(gate, xr, xc, lr, lc, self_labels):
+    """Gate ``gate`` (with (c)) of sim_best_edge on bf16 rows: the full grid
+    xr by xc (labels lr, lc) and the self-search on xr under each of
+    ``self_labels``. Returns (max |best_s - the f32 mode's|, indices that
+    differ at near-ties)."""
+    xrf, xcf = xr.float(), xc.float()
+    calls = [(xr, xc, lr, lc, xrf, xcf)] + [(xr, xr, lab, lab, xrf, xrf) for lab in self_labels]
+    err, ties = 0.0, 0
+    for a, b, la, lb, af, bf in calls:
+        self_search = a is b
+        got = _twice(sim_best_edge_cuda, a, b, la, lb)
+        if gate == "integer":  # (the f32 mode of a self-search is one too)
+            _same_bits(got, sim_best_edge_cuda(af, bf, la, lb))
+        elif gate == "unit":
+            want = sim_best_edge_cuda(af, bf, la, lb)
+            ties += _near_ties("sim_best_edge bf16", got[0], want[0], want[1],
+                               lambda rows, cols: (af[rows] * bf[cols]).sum(1))
+            err = max(err, _close("sim_best_edge bf16 best_s", got[1], want[1], 0.0, SIM_TOL))
+        elif gate == "symmetry":
+            if self_search:  # the full grid on a copy, every pair both ways
+                _same_bits(got, sim_best_edge_cuda(a, b.clone(), la, lb.clone()))
+        elif gate == "rows_at":
+            for shift in ROW_SHIFTS:
+                pad = torch.full((shift,), -1, dtype=torch.int32, device=a.device)
+                a2 = _shifted(a, shift)
+                la2 = torch.cat([pad, la])
+                if self_search:
+                    moved = sim_best_edge_cuda(a2, a2, la2, la2)
+                else:
+                    moved = sim_best_edge_cuda(a2, _shifted(b, shift), la2,
+                                               torch.cat([pad, lb]))
+                j, s = moved[0][shift:], moved[1][shift:]
+                _same_bits((torch.where(j >= 0, j - shift, j), s), got)
+        else:
+            raise ValueError(gate)
+    return err, ties
+
+
+def bf16_assign_gate(gate, x, centers, w):
+    """Gate ``gate`` (with (c)) of assign_stats on bf16 x (bf16 or f32
+    centers, weights w). Returns (max abs err of best_sim and min_sim
+    against the f32 mode, and of the fold against the f32 fold over its own
+    assignment; near-tie index differences)."""
+    xf, cf = x.float(), centers.float()
+    got = _twice(assign_stats_cuda, x, centers, w)
+    if gate == "integer":
+        _same_bits(got, assign_stats_cuda(xf, cf, w))
+        _same_bits(assign_stats_cuda(x, centers), assign_stats_cuda(xf, cf))
+        return 0.0, 0
+    if gate == "rows_at":
+        for shift in ROW_SHIFTS:
+            w2 = None if w is None else torch.cat([w.new_zeros((shift,)), w])
+            moved = assign_stats_cuda(_shifted(x, shift), centers, w2)
+            _same_bits((moved[0][shift:], moved[1][shift:]), got[:2])
+        return 0.0, 0
+    assert gate == "unit", gate
+    want = assign_stats_cuda(xf, cf, w)
+    ties = _near_ties("assign_stats bf16", got[0], want[0], want[1],
+                      lambda rows, cols: (xf[rows] * cf[cols]).sum(1))
+    err = _close("assign_stats bf16 best_sim", got[1], want[1], 0.0, SIM_TOL)
+    if not ties:  # the fold and the row norms are the f32 mode's
+        _same_bits((got[0], got[2], got[3], got[5]), (want[0], want[2], want[3], want[5]))
+        err = max(err, _close("assign_stats bf16 min_sim", got[4], want[4], 0.0, SIM_TOL))
+    else:  # the f32 fold over the bf16 call's own assignment
+        sums, counts = label_stats_cuda(xf, got[0], centers.shape[0], w)
+        err = max(err, _close("assign_stats bf16 sums", got[2], sums, SUM_RTOL, SUM_ATOL))
+        _close("assign_stats bf16 counts", got[3], counts, SUM_RTOL, SUM_ATOL)
+    return err, ties
+
+
 # (r, c, d, offset): odd d, d off 8 and 32 (no copy engine: plain loads),
 # bases off 16 bytes, sizes off the 128-row and 128-column tiles
 BF16_SIM_CASES = [(300, 270, 70, 0), (257, 257, 257, 0), (129, 129, 2048, 1),
                   (1, 129, 16, 0), (1000, 1000, 130, 0), (3536, 3536, 2048, 0)]
+BF16_SIM_GATES = ("integer", "unit", "symmetry", "rows_at")
 
 
+@pytest.mark.parametrize("gate", BF16_SIM_GATES)
 @pytest.mark.parametrize("r,c,d,offset", BF16_SIM_CASES)
-def test_bf16_sim_best_edge_equals_f32_mode(card, r, c, d, offset):
+def test_bf16_sim_best_edge_equals_f32_mode(card, r, c, d, offset, gate):
+    """sim_best_edge on bf16 rows against its f32 mode on the upcast rows,
+    under gate (a), (b), (d) or (e), each with (c)."""
     rng = np.random.default_rng(r + c + d + offset)
-    xr = _bf16_rows(rng, (r, d), card, offset)
-    xc = _bf16_rows(rng, (c, d), card)
+    rows = _bf16_ints if gate == "integer" else _bf16_rows
+    xr = rows(rng, (r, d), card, offset)
+    xc = rows(rng, (c, d), card)
     lr = interop.labels(rng.integers(-1, 5, size=r), card)  # -1 = pad
     lc = interop.labels(rng.integers(-1, 5, size=c), card)
-    _same_bits(_twice(sim_best_edge_cuda, xr, xc, lr, lc),
-               sim_best_edge_cuda(xr.float(), xc.float(), lr, lc))
-    # the self-search (the resident round) and the full grid on a copy
-    for lab in (torch.arange(r, dtype=torch.int32, device=card),
-                interop.labels(rng.integers(-1, r // 7 + 2, size=r), card)):
-        got = _twice(sim_best_edge_cuda, xr, xr, lab, lab)
-        xf = xr.float()
-        _same_bits(got, sim_best_edge_cuda(xf, xf, lab, lab))
-        _same_bits(got, sim_best_edge_cuda(xr, xr.clone(), lab, lab.clone()))
+    self_labels = (torch.arange(r, dtype=torch.int32, device=card),
+                   interop.labels(rng.integers(-1, r // 7 + 2, size=r), card))
+    bf16_sim_gate(gate, xr, xc, lr, lc, self_labels)
 
 
 # (n, k, d, offset) for the fold and the fused pass
 BF16_STATS_CASES = [(1000, 70, 130, 0), (300, 129, 257, 0), (129, 1, 33, 1),
                     (1000, 50, 2048, 1), (3000, 50, 2048, 0), (127, 64, 8, 0),
                     (1, 5, 64, 0), (0, 3, 40, 0), (3000, 800, 96, 0), (2000, 1600, 130, 0)]
+BF16_STATS_GATES = ("integer", "unit", "rows_at")
 
 
 @pytest.mark.parametrize("n,k,d,offset", BF16_STATS_CASES)
@@ -440,20 +563,63 @@ def test_bf16_label_stats_equals_f32_mode(card, n, k, d, offset):
     _same_bits(label_stats_cuda(x, idx, k), label_stats_cuda(x.float(), idx, k))
 
 
+@pytest.mark.parametrize("gate", BF16_STATS_GATES)
 @pytest.mark.parametrize("centers_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n,k,d,offset", BF16_STATS_CASES)
-def test_bf16_assign_stats_equals_f32_mode(card, n, k, d, offset, centers_dtype):
+def test_bf16_assign_stats_equals_f32_mode(card, n, k, d, offset, centers_dtype, gate):
     """bf16 x with bf16 centers (the JAX sweep) or f32 centers (K-Means
-    after its first pass); equal centers across tiles, weight-0 rows."""
+    after its first pass: three bf16 parts) against the f32 mode on the
+    upcast inputs, under gate (a), (b) or (e), each with (c); equal centers
+    across tiles, weight-0 rows."""
     rng = np.random.default_rng(n + k + d + offset + 2)
-    x = _bf16_rows(rng, (n, d), card, offset)
-    centers = _bf16_rows(rng, (k, d), card).to(centers_dtype)
+    rows = _bf16_ints if gate == "integer" else _bf16_rows
+    x = rows(rng, (n, d), card, offset)
+    centers = rows(rng, (k, d), card).to(centers_dtype)
     if k > 65:
         centers[65] = centers[1]  # a tie across center tiles
     w = _ints(rng, (n,), 0, 1, card)
-    got = _twice(assign_stats_cuda, x, centers, w)
-    _same_bits(got, assign_stats_cuda(x.float(), centers.float(), w))
-    _same_bits(assign_stats_cuda(x, centers), assign_stats_cuda(x.float(), centers.float()))
+    bf16_assign_gate(gate, x, centers, w)
+
+
+@pytest.mark.parametrize("d", [1, 8, 31, 33, 63, 64, 65, 130, 2048])
+def test_bf16_split_stride_matches_the_kernel(card, d):
+    """The wrapper's parts have the row stride the C entry assumes."""
+    from repro_torch.kernels import assign_stats as ak
+
+    assert ak._lib("assign_stats").assign_stats_split_stride(d) == ak.split_stride(d)
+
+
+def _sim_best_edge_wgacc(xr, xc, lr, lc):
+    """sim_best_edge through the debug build whose tensor cores accumulate
+    all of d (``_build.VARIANTS``: REPRO_WGMMA_FLUSH=0)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import sim_best_edge as sk
+
+    lib = _build.library("sim_best_edge_wgacc", sk._SIGNATURES)
+    r, c = xr.shape[0], xc.shape[0]
+    tiles = -(-c // lib.sim_best_edge_col_tile())
+    part_s = torch.empty((tiles, r), dtype=torch.float32, device=xr.device)
+    part_j = torch.empty((tiles, r), dtype=torch.int32, device=xr.device)
+    best_j = torch.empty((r,), dtype=torch.int32, device=xr.device)
+    best_s = torch.empty((r,), dtype=torch.float32, device=xr.device)
+    err = lib.sim_best_edge(
+        xr.data_ptr(), xc.data_ptr(), _build.ELEM[xr.dtype], lr.data_ptr(), lc.data_ptr(),
+        r, c, xr.shape[1], part_s.data_ptr(), part_j.data_ptr(), best_j.data_ptr(),
+        best_s.data_ptr(), _build.stream(xr),
+    )
+    _build.check(err, "sim_best_edge_wgacc")
+    return best_j, best_s
+
+
+def test_bf16_sim_best_edge_wgacc_build_exact_on_integer_rows(card):
+    """The debug build without the per-stage f32 sum (the tensor cores
+    accumulate all of d; chip_smoke.py measures its error on unit rows) is
+    exact where every sum is: integer-valued rows, against the f32 mode."""
+    rng = np.random.default_rng(29)
+    x = _bf16_ints(rng, (600, 2048), card)
+    lab = interop.labels(rng.integers(0, 90, size=600), card)
+    xf = x.float()
+    _same_bits(_sim_best_edge_wgacc(x, x, lab, lab), sim_best_edge_cuda(xf, xf, lab, lab))
 
 
 def test_bf16_assign_stats_holds_no_f32_copy_of_x(card):
