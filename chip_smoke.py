@@ -921,14 +921,17 @@ def phase_parity_bf16(xb, xsb, dev):
     the self-search; (e) the same rows 1 and 37 rows further into x equal.
     Then the same gates at the main path's shapes (xb: the 1 GB collection in
     bf16, xsb: Buckshot's sample normalized in bf16, as phase 1 makes it;
-    integer rows of both shapes drawn on the card), the largest similarity
+    integer rows of both shapes drawn on the card; f32 centers that are not
+    bf16 values, so the mid and lo parts of their split carry bits: the
+    normalized means of 64 rows of xb each, as K-Means makes them, and for
+    the integer rows gpu_tests' _split_exact_rows), the largest similarity
     error against the f32 mode and the near-tie index differences printed,
-    and the errors against the plain versions; the error of the debug build
-    whose tensor cores accumulate all of d (no per-stage f32 sum) beside the
-    kernel's, and each call's distance from the exact (f64) similarity of its
-    picks, on the main path's rows and on dense unit rows of the same shapes;
-    then the memory of one bf16 ops.assign_stats call at the 1 GB shape. Returns each kernel's max abs error against its
-    plain version."""
+    and the errors against the plain versions; each call's distance from the
+    exact (f64) similarity of its picks, on the main path's rows and on dense
+    unit rows of the same shapes; then the memory of one bf16
+    ops.assign_stats call at the 1 GB shape. Returns each kernel's max abs
+    error against its plain version."""
+    import numpy as np
     import torch
 
     from repro_torch.common import l2_normalize
@@ -979,45 +982,47 @@ def phase_parity_bf16(xb, xsb, dev):
     w = torch.ones((n,), device=dev)
     w[torch.randperm(n, generator=g)[:1000].to(dev)] = 0.0
     xsf = xsb.float()
-    for centers in (xsf[:K].contiguous(), xsb[:K].contiguous()):  # f32 (K-Means), bf16
+    # f32 centers as K-Means passes them: normalized means, full significands
+    c_f32 = l2_normalize(xb[:K * 64].float().view(K, 64, d).mean(1))
+    gates._three_parts(c_f32)
+    for centers in (c_f32, xsb[:K].contiguous()):  # f32 (K-Means), bf16
         for gate in ("unit", "rows_at"):
             e, ties[f"assign_stats {centers.dtype} {gate}"] = gates.bf16_assign_gate(
                 gate, xb, centers, w)
             key = f"assign_stats_bf16 centers {centers.dtype}"
             sim_f32[key] = max(sim_f32.get(key, 0.0), e)
     x_ints = torch.randint(-3, 4, (n, d), generator=gd, device=dev).bfloat16()
-    c_ints = x_ints[:K].contiguous()
-    for centers in (c_ints.float(), c_ints):
+    c_split = gates._split_exact_rows(np.random.default_rng(29), (K, d), dev)
+    gates._three_parts(c_split)
+    for centers in (c_split, x_ints[:K].contiguous()):
         gates.bf16_assign_gate("integer", x_ints, centers, w)
-    del x_ints, c_ints
+    del x_ints
     torch.cuda.empty_cache()
     log(f"phase 2 parity bf16: main-path shapes (sample {s}x{d}, collection {n}x{d}, integer "
         f"rows of both) passed gates {gates.BF16_SIM_GATES} / (integer, unit, rows_at); largest "
         f"|similarity - the f32 mode's| {sim_f32} (limit {SIM_TOL}); near-tie index differences "
         f"{ties}")
     # How far each sum lands from the f32 mode's and from the exact one (f64)
-    # at its own pick: the kernel, the f32 mode's fmaf chains and the debug
-    # build whose tensor cores sum all of d; on the main path's rows (sparse
-    # tf-idf: few products a pair, so most sums are exact) and on dense unit
-    # rows of the same shapes, where every product is nonzero and the order
-    # of the sums shows.
+    # at its own pick: the kernel and the f32 mode's fmaf chains; on the main
+    # path's rows (sparse tf-idf: few products a pair, so most sums are
+    # exact) and on dense unit rows of the same shapes, where every product
+    # is nonzero and the order of the sums shows.
     dense = l2_normalize(torch.randn((s, d), generator=gd, device=dev)).bfloat16()
-    for rows_name, xs_, x_ in (("main-path rows", xsb, xb),
-                               ("dense unit rows", dense, None)):
+    for rows_name, xs_, x_, cf_ in (("main-path rows", xsb, xb, c_f32),
+                                    ("dense unit rows", dense, None, None)):
         xs_f = xs_.float()
         picks = {"kernel": sim_best_edge_cuda(xs_, xs_, ids, ids),
-                 "f32 mode": sim_best_edge_cuda(xs_f, xs_f, ids, ids),
-                 "tensor cores over all of d": gates._sim_best_edge_wgacc(xs_, xs_, ids, ids)}
+                 "f32 mode": sim_best_edge_cuda(xs_f, xs_f, ids, ids)}
         to_f32 = {f"sim_best_edge {name}": (v[1] - picks["f32 mode"][1]).abs().max().item()
                   for name, v in picks.items()}
         exact = {f"sim_best_edge {name}": exact_error(xs_, xs_, *v) for name, v in picks.items()}
         if x_ is None:
             x_ = l2_normalize(torch.randn((n, d), generator=gd, device=dev)).bfloat16()
-        cf = xs_f[:K].contiguous()
-        sts = {"kernel": assign_stats_cuda(x_, cf), "f32 mode": assign_stats_cuda(x_.float(), cf)}
+            cf_ = l2_normalize(torch.randn((K, d), generator=gd, device=dev))
+        sts = {"kernel": assign_stats_cuda(x_, cf_), "f32 mode": assign_stats_cuda(x_.float(), cf_)}
         for name, st in sts.items():
             to_f32[f"assign_stats {name}"] = (st[1] - sts["f32 mode"][1]).abs().max().item()
-            exact[f"assign_stats {name}"] = exact_error(x_, cf, st[0], st[1])
+            exact[f"assign_stats {name}"] = exact_error(x_, cf_, st[0], st[1])
         n_idx = int((sts["kernel"][0] != sts["f32 mode"][0]).sum())
         del sts, x_
         torch.cuda.empty_cache()
@@ -1052,7 +1057,7 @@ def phase_parity_bf16(xb, xsb, dev):
 
     xf = xb.float()
     err = 0.0
-    for centers in (xsf[:K].contiguous(), xsb[:K].contiguous()):
+    for centers in (c_f32, xsb[:K].contiguous()):
         a = ops.assign_stats(xb, centers, w)
         want = ref.assign_stats_scatter(xb, centers, w)
         cf = centers.float()
@@ -1067,7 +1072,7 @@ def phase_parity_bf16(xb, xsb, dev):
     torch.cuda.empty_cache()
 
     # memory: a hidden f32 copy of x would add n * d * 4 bytes
-    centers = xsf[:K].contiguous()
+    centers = c_f32
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -2344,20 +2349,34 @@ def event_ms_cold(fn, iters: int, warmup: int = 2, flush_by: str = "write") -> f
 def profiled_kernel_ms(fn, iters: int, names: tuple[str, ...]) -> float:
     """Device time per call of the kernels whose names contain one of
     ``names``, from torch.profiler over ``iters`` calls: the kernels alone,
-    without launch gaps."""
+    without launch gaps. The profiler can lose launches (on the H100 it has
+    read 0 and reads below a kernel's bound), so the matched launches are
+    counted: one call profiled alone gives the launches a call makes, and a
+    reading counts only when ``iters`` calls made ``iters`` times as many.
+    Three tries, else nan (not measured)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def matched(calls):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and any(n in e.key for n in names)]
+        return sum(e.self_device_time_total for e in hits), sum(e.count for e in hits)
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and any(n in e.key for n in names))
-    return us / 1e3 / iters
+    for _ in range(3):
+        per_call = matched(1)[1]
+        us, launches = matched(iters)
+        if per_call >= 1 and launches == per_call * iters:
+            return us / 1e3 / iters
+        log(f"profiler: {launches} launches of {names} over {iters} calls, {per_call} in one "
+            "call alone; profiling again")
+    return float("nan")
 
 
 def check_bf16_ulp(name, got, want) -> float:

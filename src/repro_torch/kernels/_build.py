@@ -45,11 +45,8 @@ SOURCES = (
 # debug builds, for tests only: library -> (source, extra nvcc flags).
 # label_stats_delay issues each odd ring stage's copies of the fold after the
 # next stage's and after a pause, so a later stage's copies land first.
-# sim_best_edge_wgacc lets the tensor cores accumulate all of d on bf16 rows
-# (no per-stage f32 sum: csrc/wgmma_tile.cuh), to measure what that sum buys.
 VARIANTS = {
     "label_stats_delay": ("label_stats", ("-DREPRO_FOLD_DELAY_STAGES=1",)),
-    "sim_best_edge_wgacc": ("sim_best_edge", ("-DREPRO_WGMMA_FLUSH=0",)),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

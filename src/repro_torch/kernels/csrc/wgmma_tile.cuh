@@ -16,15 +16,15 @@
 // (assign_pipe.cuh) and every bit.
 //
 // Accumulation. The tensor cores add each k16 step's 16 products into the
-// accumulator with their own alignment and rounding; left to sum all of d
-// (REPRO_WGMMA_FLUSH=0, the debug build sim_best_edge_wgacc), a unit row's
-// similarity at d = 2,048 lands several times further from the exact value
-// than with the per-stage sum below (chip_smoke.py prints both; PERF.md
-// holds them). So each stage's products go into a fresh accumulator
-// (scale_d = 0 on the stage's first product), which the consumers add into
-// an f32 register sum on the CUDA cores (round to nearest) once they have
-// landed: the tensor cores sum 64 columns of d, the CUDA cores the 32
-// stages of d = 2,048, for N / 2 FADD a thread a stage.
+// accumulator with their own alignment and rounding. Each stage's products
+// go into a fresh accumulator (scale_d = 0 on the stage's first product),
+// which the consumers add into an f32 register sum on the CUDA cores (round
+// to nearest) once they have landed: the tensor cores sum 64 columns of d,
+// the CUDA cores the 32 stages of d = 2,048, for N / 2 FADD a thread a
+// stage. On dense unit rows at d = 2,048 this sum's largest error against
+// the exact (f64) similarity read 3.2e-8, against 3.1e-7 for a one-off
+// build that left all of d to the tensor cores (PERF.md section 6): both
+// far inside the 1e-5 gate, and the FADDs hide under the stage's products.
 //
 // Stage layout. A staged row is 64 bf16 columns in 128 bytes (an L2 line),
 // under the copy engine's 128-byte swizzle: 16-byte chunk c of row r at
@@ -64,13 +64,8 @@
 
 #include "assign_pipe.cuh"
 
-#ifndef REPRO_WGMMA_FLUSH
-#define REPRO_WGMMA_FLUSH 1  // 1: the per-stage f32 sum; 0: the tensor cores sum all of d
-#endif
-
 namespace repro {
 
-constexpr bool kWgFlush = REPRO_WGMMA_FLUSH != 0;
 constexpr int kWgCols = 64;                        // columns of d a stage
 constexpr int kWgRowBytes = kWgCols * 2;           // a staged bf16 row: 128 bytes
 constexpr int kWgBlock = kPipeRows * kWgRowBytes;  // 16 KB: 128 staged rows
@@ -331,9 +326,8 @@ __device__ __forceinline__ int wg_col(int t, int j, int e) { return 8 * j + 2 * 
 // 64g + 63 of each stage's x block, B the stage's P B blocks (P = 3: the
 // lo, mid and hi parts of split f32 centers, summed into one accumulator,
 // the small parts first). Each stage's products go into a fresh accumulator
-// and are added into sum[] once they have landed (the debug build: one
-// accumulator over all of d). per_stage(x block) runs on the CUDA cores
-// while a stage's products are in flight, in stage order.
+// and are added into sum[] once they have landed. per_stage(x block) runs
+// on the CUDA cores while a stage's products are in flight, in stage order.
 template <int N, int P, int BR, typename PerStage>
 __device__ __forceinline__ void wg_mainloop(const WgRing<P, BR>& ring, int nk,
                                             float (&sum)[N / 2], PerStage per_stage) {
@@ -345,7 +339,6 @@ __device__ __forceinline__ void wg_mainloop(const WgRing<P, BR>& ring, int nk,
     pipe_wait(ring, i);
     const unsigned char* x = ring.blk(i, 0);
     const uint64_t a = wg_desc(x + g * 64 * kWgRowBytes);
-    const bool restart = kWgFlush || i == 0;
     wg_fence_acc(acc);
     wg_fence();
 #pragma unroll
@@ -353,21 +346,15 @@ __device__ __forceinline__ void wg_mainloop(const WgRing<P, BR>& ring, int nk,
       const uint64_t b = wg_desc(ring.blk(i, 1 + p));
 #pragma unroll
       for (int s = 0; s < kWgSteps; ++s)
-        Wgmma<N>::mma(acc, a + 2 * s, b + 2 * s, p == P - 1 && s == 0 && restart ? 0 : 1);
+        Wgmma<N>::mma(acc, a + 2 * s, b + 2 * s, p == P - 1 && s == 0 ? 0 : 1);
     }
     wg_commit();
     per_stage(x);
     wg_wait_all();
     wg_fence_acc(acc);
     pipe_release(ring, i, lane);
-    if (kWgFlush) {
 #pragma unroll
-      for (int j = 0; j < N / 2; ++j) sum[j] += acc[j];
-    }
-  }
-  if (!kWgFlush) {
-#pragma unroll
-    for (int j = 0; j < N / 2; ++j) sum[j] = acc[j];
+    for (int j = 0; j < N / 2; ++j) sum[j] += acc[j];
   }
 }
 

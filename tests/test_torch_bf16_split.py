@@ -15,8 +15,12 @@ import math
 import numpy as np
 import pytest
 import torch
-from hypothesis import given, settings
-from hypothesis import strategies as st
+
+try:
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+except ImportError:
+    from hypothesis_stub import given, settings, st
 
 from repro_torch.kernels.assign_stats import split_bf16x3, split_stride
 
@@ -58,10 +62,10 @@ def test_split_keeps_the_sign_and_shrinks():
 
 
 @settings(max_examples=300, deadline=None)
-@given(st.lists(st.floats(width=32, allow_nan=False, allow_infinity=False)
-                .filter(lambda v: v == 0.0 or abs(v) >= EXACT_FROM), min_size=1, max_size=40))
+@given(st.lists(st.floats(width=32, allow_nan=False, allow_infinity=False),
+                min_size=1, max_size=40))
 def test_split_is_exact_over_f32(values):
-    c = _row(values)
+    c = _row([v for v in values if v == 0.0 or abs(v) >= EXACT_FROM] or [0.0])
     assert torch.equal(_sum_of_parts(c), c.double())
 
 

@@ -24,6 +24,7 @@ from repro_torch.kernels.assign_stats import (
     assign_stats_bounded_cuda,
     assign_stats_cuda,
     label_stats_cuda,
+    split_bf16x3,
 )
 from repro_torch.kernels.best_edge import best_edge_cuda
 from repro_torch.kernels.component_reduce import component_best_edge_cuda
@@ -384,13 +385,15 @@ def test_bounded_row_pass_ring_wraps(card, d, k):
 # multiply on the tensor cores, the JAX kernels' contract (bf16 products
 # exact, f32 sums in the tensor cores' order), held to the f32 mode on the
 # upcast inputs by these gates, each a case of the tests below:
-#   (a) "integer": entries in {-3, ..., 3}, so every product and partial sum
-#       is exact in f32: every output torch.equal to the f32 mode's, ties
-#       (everywhere) to the lowest index;
-#   (b) "unit": unit rows rounded to bf16: similarities within SIM_TOL of
-#       the f32 mode's, an index differing only at a near-tie (chip_smoke.py's
-#       check_argmax rule) and, wherever idx agrees on every row, assign_stats'
-#       sums, counts and sumsq bit for bit, min_sim within SIM_TOL;
+#   (a) "integer": x's entries in {-3, ..., 3}, centers too or f32 values
+#       of 24 significant bits (_split_exact_rows), so every product and
+#       partial sum is exact in f32: every output torch.equal to the f32
+#       mode's, ties (everywhere) to the lowest index;
+#   (b) "unit": unit rows rounded to bf16 (f32 centers: unit rows in f32,
+#       not rounded): similarities within SIM_TOL of the f32 mode's, an
+#       index differing only at a near-tie (chip_smoke.py's check_argmax
+#       rule) and, wherever idx agrees on every row, assign_stats' sums,
+#       counts and sumsq bit for bit, min_sim within SIM_TOL;
 #   (c) every call repeats its bits (_twice);
 #   (d) "symmetry" (sim_best_edge): the full grid on a copy equals the
 #       self-search bit for bit, whichever operand a row is;
@@ -412,12 +415,43 @@ def _at_offset(t, offset):
     return flat[offset:].view(t.shape).copy_(t)
 
 
+def _unit_rows(rng, shape, card):
+    """Unit rows in f32 on the card, full 24-bit significands."""
+    a = rng.normal(size=shape).astype(np.float32)
+    a /= np.maximum(np.linalg.norm(a, axis=-1, keepdims=True), 1e-30)
+    return torch.from_numpy(a).to(card)
+
+
 def _bf16_rows(rng, shape, card, offset=0):
     """Unit rows rounded to bf16 on the card; with ``offset`` the rows start
     that many elements into their allocation (a base off 16 bytes)."""
-    a = rng.normal(size=shape).astype(np.float32)
-    a /= np.maximum(np.linalg.norm(a, axis=-1, keepdims=True), 1e-30)
-    return _at_offset(torch.from_numpy(a).to(card).bfloat16(), offset)
+    return _at_offset(_unit_rows(rng, shape, card).bfloat16(), offset)
+
+
+def _split_exact_rows(rng, shape, card):
+    """f32 center rows with all three bf16 parts (split_bf16x3) in use whose
+    dot products with rows of integers in {-3, ..., 3} sum exactly in f32
+    in any order. Up to 16 entries a row are +-(1 + b 2^-8 + e 2^-16), b in
+    {0, ..., 3}, e in {1, 3} (hi holds 1 and 2^-7, mid 2^-8 and 2^-15, lo
+    2^-16: never 0); the others b' 2^-8 + e' 2^-16, b', e' in {-3, ..., 3}.
+    Every value is a multiple of 2^-16 and 3 * sum |c| of a row stays under
+    2^7 up to d = 2,048, so every product and partial sum has at most 23
+    significant bits."""
+    k, d = shape
+    c = (rng.integers(-3, 4, size=shape) * 256 + rng.integers(-3, 4, size=shape)).astype(np.int64)
+    m = min(d, 16)
+    pos = np.argsort(rng.random(shape), axis=1)[:, :m]
+    big = 65536 + rng.integers(0, 4, size=(k, m)) * 256 + rng.choice([1, 3], size=(k, m))
+    np.put_along_axis(c, pos, rng.choice([-1, 1], size=(k, m)) * big, axis=1)
+    assert k == 0 or 3 * np.abs(c).sum(1).max() < 2**23
+    return torch.from_numpy((c / 65536.0).astype(np.float32)).to(card)
+
+
+def _three_parts(centers):
+    """Fail unless f32 centers carry bits in the mid and lo parts of their
+    split, so a kernel that read only the hi part would disagree."""
+    parts = split_bf16x3(centers)
+    assert (parts[1] != 0).any() and (parts[2] != 0).any(), "f32 centers with no mid or lo bits"
 
 
 def _bf16_ints(rng, shape, card, offset=0):
@@ -568,13 +602,17 @@ def test_bf16_label_stats_equals_f32_mode(card, n, k, d, offset):
 @pytest.mark.parametrize("n,k,d,offset", BF16_STATS_CASES)
 def test_bf16_assign_stats_equals_f32_mode(card, n, k, d, offset, centers_dtype, gate):
     """bf16 x with bf16 centers (the JAX sweep) or f32 centers (K-Means
-    after its first pass: three bf16 parts) against the f32 mode on the
-    upcast inputs, under gate (a), (b) or (e), each with (c); equal centers
-    across tiles, weight-0 rows."""
+    after its first pass: three bf16 parts, all in use) against the f32
+    mode on the upcast inputs, under gate (a), (b) or (e), each with (c);
+    equal centers across tiles, weight-0 rows."""
     rng = np.random.default_rng(n + k + d + offset + 2)
     rows = _bf16_ints if gate == "integer" else _bf16_rows
     x = rows(rng, (n, d), card, offset)
-    centers = rows(rng, (k, d), card).to(centers_dtype)
+    if centers_dtype == torch.float32:  # not bf16 values: mid and lo carry bits
+        centers = (_split_exact_rows if gate == "integer" else _unit_rows)(rng, (k, d), card)
+        _three_parts(centers)
+    else:
+        centers = rows(rng, (k, d), card)
     if k > 65:
         centers[65] = centers[1]  # a tie across center tiles
     w = _ints(rng, (n,), 0, 1, card)
@@ -587,39 +625,6 @@ def test_bf16_split_stride_matches_the_kernel(card, d):
     from repro_torch.kernels import assign_stats as ak
 
     assert ak._lib("assign_stats").assign_stats_split_stride(d) == ak.split_stride(d)
-
-
-def _sim_best_edge_wgacc(xr, xc, lr, lc):
-    """sim_best_edge through the debug build whose tensor cores accumulate
-    all of d (``_build.VARIANTS``: REPRO_WGMMA_FLUSH=0)."""
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import sim_best_edge as sk
-
-    lib = _build.library("sim_best_edge_wgacc", sk._SIGNATURES)
-    r, c = xr.shape[0], xc.shape[0]
-    tiles = -(-c // lib.sim_best_edge_col_tile())
-    part_s = torch.empty((tiles, r), dtype=torch.float32, device=xr.device)
-    part_j = torch.empty((tiles, r), dtype=torch.int32, device=xr.device)
-    best_j = torch.empty((r,), dtype=torch.int32, device=xr.device)
-    best_s = torch.empty((r,), dtype=torch.float32, device=xr.device)
-    err = lib.sim_best_edge(
-        xr.data_ptr(), xc.data_ptr(), _build.ELEM[xr.dtype], lr.data_ptr(), lc.data_ptr(),
-        r, c, xr.shape[1], part_s.data_ptr(), part_j.data_ptr(), best_j.data_ptr(),
-        best_s.data_ptr(), _build.stream(xr),
-    )
-    _build.check(err, "sim_best_edge_wgacc")
-    return best_j, best_s
-
-
-def test_bf16_sim_best_edge_wgacc_build_exact_on_integer_rows(card):
-    """The debug build without the per-stage f32 sum (the tensor cores
-    accumulate all of d; chip_smoke.py measures its error on unit rows) is
-    exact where every sum is: integer-valued rows, against the f32 mode."""
-    rng = np.random.default_rng(29)
-    x = _bf16_ints(rng, (600, 2048), card)
-    lab = interop.labels(rng.integers(0, 90, size=600), card)
-    xf = x.float()
-    _same_bits(_sim_best_edge_wgacc(x, x, lab, lab), sim_best_edge_cuda(xf, xf, lab, lab))
 
 
 def test_bf16_assign_stats_holds_no_f32_copy_of_x(card):
