@@ -5,7 +5,8 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
 (``python3 chip_smoke.py --kernels`` runs phase 1 and phase 3's timings of
 sim_best_edge, component_best_edge, label_stats, assign_stats, the bf16 rows
 of sim_best_edge, label_stats and assign_stats, best_edge, assign_argmax,
-assign_stats_bounded and flash_decode on random unit rows of the 1 GB shape,
+assign_stats_bounded, their bf16 rows where the tree takes them, and
+flash_decode on random unit rows of the 1 GB shape,
 then Buckshot on the 1 GB collection (its RSS and a digest of
 its labels), and stops: copied into an older tree's root it times that
 tree's kernels too.)
@@ -65,7 +66,18 @@ Phases, in order; any failure raises and exits non-zero:
      on dense unit rows of the main shapes, where the sums' order shows); one
      bf16 ops.assign_stats at the 1 GB shape must raise the peak device
      memory by less than n * d * 2 bytes (an f32 copy of x would add
-     n * d * 4).
+     n * d * 4). Then the bf16 two-pass and bounded routes
+     (phase_parity_bf16_routes): the tile-width probe (one product's bits at
+     N = 16, 32, 64, 128 and at every column), assign_argmax under gates
+     (a), (b), (e) with (c) and bit for bit equal to assign_stats' bf16
+     pass, the bounded pass equal to assign_stats' bf16 pass on every output
+     but hi and the carry (k in {1, 16, 17, 63, 64, 65, 128, 129, 400, 800},
+     sentinel, carried and invalidated bounds, duplicate centers across slab
+     edges, a center index), best_edge on bf16 blocks torch.equal to its
+     float(), on the edge cases and at the main shapes (k = 400 and BigK =
+     800 on the 1 GB collection in bf16, the round-1 and round-2 blocks),
+     and one bf16 call of assign_argmax and of assign_stats_bounded raising
+     the peak device memory by less than n * d * 2 bytes.
   3. Timing (CUDA events): kernel, plain version, one library call, and the
      card's lower bound for the same work (sim_best_edge's self-search
      against the half product, the full grid on a copy of the rows beside
@@ -86,7 +98,12 @@ Phases, in order; any failure raises and exits non-zero:
      rate, bf16 x by f32 centers as three products a column, with the fmaf
      chains' f32-operations figure beside it as the contract figure it was;
      assign_stats is timed with bf16 centers too, each center type beside a
-     library call, the f32 centers' a stand-in on bf16 centers).
+     library call, the f32 centers' a stand-in on bf16 centers); then the
+     bf16 rows 6b, 4b and 7b (phase_timing_bf16_routes): assign_argmax at
+     k = 400 (f32 centers, bf16 beside), the bounded pass at BigK = 800 (a
+     full sweep with bf16 centers, then f32 centers, the index and carried
+     settings), best_edge on the 3,536 x 3,536 bf16 block, each beside its
+     f32 row, a library call on bf16 operands and its bound.
   4. Paths at full size on the ~1 GB collection (n = 250,000, d = 2,048,
      50 topics), each with its launch counters set to 0 just before and read
      just after: tf-idf on the card, Buckshot with k = 50 (s = 3,536) and the
@@ -96,7 +113,11 @@ Phases, in order; any failure raises and exits non-zero:
      path's f32 fit recorded); then BKC with k = 400, BigK = 800 through the
      bound-pruned pass, its fused and two-pass routes, bounded against
      unbounded K-Means at k = 400, bounded Buckshot, and assign_batch in
-     64-row micro-batches; then distributed Buckshot (k = 50, s = 3,536)
+     64-row micro-batches; the same BKC routes, bounded against unbounded
+     K-Means and bounded Buckshot on the collection in bf16 (routes and
+     bounded runs bit-identical to each other, agreement and RSS against
+     the f32 BKC recorded, assign_argmax and assign_stats_bounded launched
+     on bf16 rows); then distributed Buckshot (k = 50, s = 3,536)
      through the multi-device engine over a NCCL group of world size 1 made
      from a FileStore: the distributed sample (s distinct real rows, equal to
      x at their ids), the sharded Borůvka phase 1 and distributed K-Means,
@@ -247,13 +268,15 @@ Phases, in order; any failure raises and exits non-zero:
   5. End-to-end oracles at the 20 Newsgroups shape: Buckshot (k = 20), on
      f32 and on bf16 documents, and BKC
      (Table 1: k = 50, BigK = 250) on the card against the plain path on the
-     CPU, on the same draws; BKC also on that collection with 5 % off-topic
+     CPU, on the same draws; on bf16 documents also BKC's two-pass and
+     bounded routes and two-pass K-Means; BKC also on that collection with 5 % off-topic
      documents added, where joinToGroups bisects over real pair values
      (threshold above 1e-3, pair values on both sides of it; thresholds of
      card and CPU within 1e-5, groups equal but at a near-tie).
   6. Summary: a {"kernels": [...]} line (the eight kernels, then the bf16
-     mode of sim_best_edge, label_stats and assign_stats as three entries of
-     their own), then {"ok": true, "device": ...} last.
+     mode of sim_best_edge, label_stats, assign_stats, assign_argmax,
+     assign_stats_bounded and best_edge as entries of their own), then
+     {"ok": true, "device": ...} last.
 
 Tolerances. Integer-valued inputs make every product and sum exact in f32, so
 there the kernels must equal the plain versions bit for bit (the bounded
@@ -268,9 +291,12 @@ the deflated bounds clear the margin by less than 1e-5. Kernels that compute
 similarities by the same fmaf chain (assign_stats, assign_argmax,
 assign_stats_bounded) must agree with each other bit for bit. End to end:
 assignment agreement >= 99.9% and RSS within 1e-4 relative, for the same
-reason. bf16 rows: a bf16 value converts to f32 exactly and the kernels keep
-their fmaf chains and fold orders, so every output must equal, bit for bit,
-the same kernel's f32 mode on x.float() (and centers.float()).
+reason. bf16 rows: the products run on the tensor cores (bf16 products
+exact, f32 sums in their order), held to the f32 mode on x.float() by the
+gates above: equal on integer-valued rows, similarities within 1e-5 on unit
+rows; label_stats, the fold and the row norms keep the f32 mode's bits; the
+kernels on one tile (assign_stats, assign_argmax, assign_stats_bounded) agree
+with each other bit for bit.
 """
 
 from __future__ import annotations
@@ -874,8 +900,9 @@ def phase_oracle(dev):
     log(f"phase 5 oracle bf16 at n={n} k={k} s={s}: assignment agreement {agree}, RSS card "
         f"{got.kmeans.rss.item()} vs CPU {want.kmeans.rss.item()} (rel {rel:.2e}); launches on "
         f"bf16 rows {on_bf16}; took {time.perf_counter() - t0:.1f} s")
-    if not all(on_bf16.values()):
-        raise AssertionError(f"the bf16 oracle did not launch every kernel on bf16 rows: {on_bf16}")
+    if not all(on_bf16[name] for name in ("sim_best_edge", "label_stats", "assign_stats")):
+        raise AssertionError(f"the bf16 oracle did not launch Buckshot's kernels on bf16 rows: "
+                             f"{on_bf16}")
     if agree < 0.999 or rel > 1e-4:
         raise AssertionError("the card's bf16 Buckshot disagrees with the plain CPU path")
 
@@ -1616,7 +1643,8 @@ def phase_timing_bkc(x, state, dev):
 
 def phase_bkc_path(x, truth, n_topics, buckshot_labels, dev):
     """BKC at Table 4's width through the bound-pruned pass, its other
-    routes, bounded K-Means and Buckshot, and assign_batch."""
+    routes, bounded K-Means and Buckshot, and assign_batch. Returns the
+    bounded BKC run's launches and its result."""
     import statistics
 
     import torch
@@ -1739,7 +1767,449 @@ def phase_bkc_path(x, truth, n_topics, buckshot_labels, dev):
     log(f"phase 4 assign_batch: 300 batches of {BATCH} rows at k={BKC_K}, labels equal the "
         f"full pass; median {1e3 * statistics.median(times):.4f} ms per batch, "
         f"min {1e3 * min(times):.4f} ms")
-    return counts
+    return counts, res
+
+
+# ------------------------------------------- bf16 rows: two-pass and bounded
+
+
+def bkc_state_bf16(x, xb, state, dev):
+    """The BKC slice's operands on bf16 rows: BKC's first pass takes the
+    BigK sampled documents in bf16 (bkc_state's draw, normalized in bf16),
+    its second pass and K-Means f32 centers (bkc_state's k = 400 centers:
+    f32 rows of full significands, so all three split parts carry bits);
+    the carried bounds after one bounded bf16 K-Means step at k = 400."""
+    import torch
+
+    from repro_torch.common import l2_normalize
+    from repro_torch.core import sampling
+    from repro_torch.kernels import ops
+
+    n = x.shape[0]
+    c400 = state[0]
+    pick = sampling.sample_indices(n, BIG_K, torch.Generator().manual_seed(3), dev)
+    c800b = l2_normalize(xb[pick]).contiguous()
+    index = ops.build_center_index(c800b)
+    st0 = ops.assign_stats_bounded(xb, c400, _sentinel(n, dev), torch.zeros(BKC_K, device=dev))
+    means = st0.sums / torch.clamp(st0.counts, min=1.0)[:, None]
+    c1 = torch.where(st0.counts[:, None] > 0, l2_normalize(means), c400).contiguous()
+    drift = torch.linalg.vector_norm(c1 - c400, dim=1)
+    return c400, c800b, index, st0.bounds, c1, drift
+
+
+def phase_parity_bf16_routes(x, xb, xs, state, dev):
+    """Phase 2 of the bf16 two-pass and bounded routes. tests/test_torch_gpu.py's
+    gates on their edge cases: the tile-width probe (one product's bits at
+    N = 16, 32, 64, 128 and at every column), assign_argmax under gates (a),
+    (b), (e) with (c) and bit for bit equal to assign_stats' bf16 pass, the
+    bounded pass equal to assign_stats' bf16 pass on every output but hi and
+    the carry for k in {1, 16, 17, 63, 64, 65, 128, 129, 400, 800} under
+    sentinel, carried and invalidated bounds and a center index, a block of
+    settled rows only, best_edge on bf16 blocks torch.equal to its float().
+    Then at the main shapes (the 1 GB collection in bf16): assign_argmax at
+    k = 400 with f32 and bf16 centers under the gates and against the plain
+    version; the bounded pass at BigK = 800 (bf16 sampled documents through
+    the center index) and with carried bounds after one step at k = 400,
+    equal to assign_stats bit for bit and within the plain version's
+    tolerances; best_edge on the main path's bf16 round-1 and round-2
+    blocks; and one bf16 call of each row kernel raising the peak device
+    memory by less than n * d * 2 bytes. Returns (the max abs errors
+    against the plain versions, the bf16 state)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.hac import components_from_edges
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.assign_argmax import assign_argmax_cuda
+    from repro_torch.kernels.assign_stats import assign_stats_bounded_cuda, assign_stats_cuda
+    from repro_torch.kernels.best_edge import best_edge_cuda
+
+    t0 = time.perf_counter()
+    gates = gpu_tests()
+    cdts = (torch.bfloat16, torch.float32)
+    for d in (130, 2048):
+        for cdt in cdts:
+            gates.test_bf16_tile_width_probe(dev, d, cdt)
+    for case in gates.BF16_STATS_CASES:
+        for cdt in cdts:
+            for gate in gates.BF16_STATS_GATES:
+                try:
+                    gates.test_bf16_assign_argmax_equals_f32_mode(dev, *case, cdt, gate)
+                except AssertionError as e:
+                    raise AssertionError(f"assign_argmax bf16 gate {gate} {cdt} {case}") from e
+    for case in gates.BOUNDED_SHAPES:
+        for cdt in cdts:
+            gates.test_bf16_bounded_all_rows_pruned(dev, cdt)
+            for kind in ("integer", "unit"):
+                try:
+                    gates.test_bf16_bounded_equals_unbounded(dev, *case, cdt, kind)
+                except AssertionError as e:
+                    raise AssertionError(f"assign_stats_bounded bf16 {kind} {cdt} {case}") from e
+    be_cases = gates.BF16_BEST_EDGE_CASES
+    for r, c in be_cases:
+        gates.test_bf16_best_edge_equals_its_float(dev, r, c)
+    gates.test_bf16_best_edge_nan_inf_and_ties(dev)
+    log(f"phase 2 parity bf16 routes: tests/test_torch_gpu.py's gates passed: the tile-width "
+        f"probe (N = 16, 32, 64, 128 and every column give one product's bits, bf16 and f32 "
+        f"centers, d = 130 and 2,048); assign_argmax on {len(gates.BF16_STATS_CASES)} cases x "
+        f"bf16/f32 centers x {gates.BF16_STATS_GATES}, bit for bit equal to assign_stats; the "
+        f"bounded pass equal to assign_stats on every output but hi and the carry on "
+        f"{len(gates.BOUNDED_SHAPES)} shapes (odd d, d off 8 and 32, a base off 16 bytes, n off "
+        f"the block) x k in {gates.BOUNDED_K} x bf16/f32 centers x integer/unit rows, sentinel, "
+        f"carried and invalidated bounds, identity and index order, all rows settled; best_edge "
+        f"on {len(be_cases)} bf16 blocks and NaN/-inf rows torch.equal to its float()")
+
+    n, d = xb.shape
+    c400, c800b, index, bnd, c1, drift = state_b = bkc_state_bf16(x, xb, state, dev)
+    c400b = c800b[:BKC_K].contiguous()
+    errs, ties, sims = {}, {}, {}
+    # assign_argmax: the gates at the main shapes, both center types
+    for centers in (c400, c400b):
+        for gate in ("unit", "rows_at"):
+            e, ties[f"assign_argmax {centers.dtype} {gate}"] = gates.bf16_argmax_gate(
+                gate, xb, centers)
+            sims[f"assign_argmax {centers.dtype}"] = max(
+                sims.get(f"assign_argmax {centers.dtype}", 0.0), e)
+    gd = torch.Generator(device=dev).manual_seed(30)
+    x_ints = torch.randint(-3, 4, (n, d), generator=gd, device=dev).bfloat16()
+    c_split = gates._split_exact_rows(np.random.default_rng(30), (BKC_K, d), dev)
+    gates._three_parts(c_split)
+    for centers in (c_split, x_ints[:BKC_K].contiguous()):
+        gates.bf16_argmax_gate("integer", x_ints, centers)
+    del x_ints
+    torch.cuda.empty_cache()
+    if max(sims.values()) > SIM_TOL:
+        raise AssertionError(f"assign_argmax bf16 moved past SIM_TOL from its f32 mode: {sims}")
+    xf = xb.float()
+    a = assign_argmax_cuda(xb, c400)
+    want = ref.assign_argmax(xb, c400)
+    ties["assign_argmax plain"] = check_argmax(
+        "assign_argmax bf16", a[0], a[1], want[0], want[1],
+        lambda rows, cols: (xf[rows] * c400[cols]).sum(1))
+    errs["assign_argmax_bf16"] = check_close("assign_argmax bf16 best_sim", a[1], want[1], 0.0,
+                                             SIM_TOL)
+    del a, want
+
+    # the bounded pass: BKC's first pass (bf16 documents, the index) and the
+    # carried bounds after one K-Means step, equal to assign_stats bit for bit
+    b = _sentinel(n, dev)
+    zero = torch.zeros(BIG_K, device=dev)
+    got = assign_stats_bounded_cuda(xb, c800b, b.idx, b.lo, b.hi, zero, perm=index.perm)
+    check_repeat("assign_stats_bounded bf16", got,
+                 assign_stats_bounded_cuda(xb, c800b, b.idx, b.lo, b.hi, zero, perm=index.perm))
+    check_equal("assign_stats_bounded bf16 vs assign_stats bf16", got[:6],
+                assign_stats_cuda(xb, c800b))
+    if got[9].any():
+        raise AssertionError("assign_stats_bounded bf16: sentinel bounds pruned a row")
+    want = ref.assign_stats_bounded_scatter(xb, c800b, b.idx, b.lo, b.hi, zero)
+    cf = c800b.float()
+    ties["assign_stats_bounded plain"] = check_argmax(
+        "assign_stats_bounded bf16", got[0], got[1], want[0], want[1],
+        lambda rows, cols: (xf[rows] * cf[cols]).sum(1))
+    err = check_close("assign_stats_bounded bf16 best_sim", got[1], want[1], 0.0, SIM_TOL)
+    check_bounded_hi("assign_stats_bounded bf16", got[8], want[8], got[0] == want[0])
+    for name, gt, wt, tol in zip(
+        ("sums", "counts", "min_sim", "sumsq"), got[2:6], plain_stats(xf, got[0], got[1], BIG_K),
+        ((SUM_RTOL, SUM_ATOL), (SUM_RTOL, SUM_ATOL), (0.0, SIM_TOL), (SUM_RTOL, SUM_ATOL)),
+    ):
+        err = max(err, check_close(f"assign_stats_bounded bf16 {name}", gt, wt, *tol))
+    errs["assign_stats_bounded_bf16"] = err
+    del got, want
+    args = (xb, c1, bnd.idx, bnd.lo, bnd.hi, drift)
+    got = assign_stats_bounded_cuda(*args)
+    check_repeat("assign_stats_bounded bf16 carried", got, assign_stats_bounded_cuda(*args))
+    check_equal("assign_stats_bounded bf16 carried vs assign_stats bf16", got[:6],
+                assign_stats_cuda(xb, c1))
+    exact = ref.assign_stats_bounded_scatter(xb, c1, b.idx, b.lo, b.hi, torch.zeros(
+        BKC_K, device=dev))[8]
+    check_bounded_hi("assign_stats_bounded bf16 carried", got[8], exact)
+    share = got[9].float().mean().item()
+    del got, exact, xf
+    torch.cuda.empty_cache()
+
+    # best_edge on the main path's blocks in bf16
+    s = xs.shape[0]
+    ids = torch.arange(s, dtype=torch.int32, device=dev)
+    sb = (xs @ xs.T).bfloat16()
+    j1 = best_edge_cuda(sb, ids, ids)
+    comp = components_from_edges(s, ids, torch.where(j1[0] >= 0, j1[0], ids), j1[0] >= 0)
+    for name, lab in (("round 1", ids), ("round 2", comp)):
+        got = best_edge_cuda(sb, lab, lab)
+        check_repeat(f"best_edge bf16 {name}", got, best_edge_cuda(sb, lab, lab))
+        gates._same_bits(got, best_edge_cuda(sb.float(), lab, lab))
+        check_equal(f"best_edge bf16 {name}", got, ref.best_edge(sb.float(), lab, lab))
+    errs["best_edge_bf16"] = 0.0
+    del sb
+
+    # memory: a hidden f32 copy of x would add n * d * 4 bytes
+    rises = {}
+    for name, call in (
+        ("assign_argmax", lambda: ops.assign_argmax(xb, c400)),
+        ("assign_stats_bounded", lambda: ops.assign_stats_bounded(
+            xb, c800b, _sentinel(n, dev), zero, index=index)),
+    ):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        call()
+        torch.cuda.synchronize()
+        rises[name] = torch.cuda.max_memory_allocated() - base
+    log(f"phase 2 parity bf16 routes: main shapes ({n}x{d} bf16): assign_argmax k={BKC_K} (f32 "
+        f"and bf16 centers) passed gates (unit, rows_at, integer), largest |similarity - the f32 "
+        f"mode's| {sims}; assign_stats_bounded BigK={BIG_K} (bf16 documents, index) and carried "
+        f"after one step at k={BKC_K} (pruned share {share:.4f}) equal to assign_stats bit for "
+        f"bit; best_edge on the {s}x{s} bf16 blocks (rounds 1, 2) equal to its float(); against "
+        f"the plain versions max abs err {errs}, near-tie index differences {ties}; peak device "
+        f"memory above the call's start {rises} bytes (limit n*d*2 = {n * d * 2})")
+    if max(rises.values()) >= n * d * 2:
+        raise AssertionError(f"a bf16 row kernel allocated as much as a copy of x: {rises}")
+    log(f"phase 2 parity bf16 routes took {time.perf_counter() - t0:.1f} s")
+    return errs, state_b
+
+
+def phase_timing_bf16_routes(xb, xs, state_b, c800f, f32_rows, dev):
+    """Phase 3 of rows 6b, 4b and 7b beside their f32 rows: assign_argmax at
+    k = 400 with f32 centers (BKC's second pass; bf16 centers beside it),
+    the bounded pass at BigK = 800, sentinel bounds, identity order (a full
+    sweep) with bf16 centers (BKC's first pass; f32 centers beside it, and
+    the index and carried settings after), best_edge on the 3,536 x 3,536
+    bf16 block with the L2 flushed by a 512 MB write (by a read beside it).
+    c800f: bkc_state's BigK f32 centers (full significands).
+    The library calls: x @ centers.T on bf16 operands (the bf16 centers: no
+    bf16-by-f32 product in torch), torch.max(sim, 1) on the bf16 block. The
+    bounds: bf16 products at the tensor cores' rate (f32 centers: three
+    products a column), bf16 bytes."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.assign_argmax import assign_argmax_cuda
+    from repro_torch.kernels.assign_stats import assign_stats_bounded_cuda
+    from repro_torch.kernels.best_edge import best_edge_cuda
+
+    t0 = time.perf_counter()
+    c400, c800b, index, bnd, c1, drift = state_b
+    c400b = c800b[:BKC_K].contiguous()
+    n, d = xb.shape
+    rows = {}
+    k = BKC_K
+    am_bytes = n * d * 2 + 2 * n * 4
+    for centers, nb, p in ((c400, 4, 3), (c400b, 2, 1)):
+        r = dict(
+            ms=event_ms(lambda: assign_argmax_cuda(xb, centers), 10),
+            plain_ms=event_ms(lambda: ref.assign_argmax(xb, centers), 5),
+            library_ms=event_ms(lambda: xb @ c400b.T, 10),
+            bound=bound_ms(0.0, am_bytes + k * d * nb, bf16_flops=p * 2.0 * n * k * d),
+        )
+        if centers.dtype == torch.float32:
+            rows["assign_argmax_bf16"] = r
+        log(f"phase 3 timing assign_argmax_bf16 ({centers.dtype} centers, k={k}): kernel "
+            f"{r['ms']:.4f} ms (f32 rows {f32_rows['assign_argmax']['ms']:.4f}), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms (x @ centers.T, bf16 "
+            f"operands), bound {r['bound'][0]:.4f} ms ({r['bound'][1]}; {p} bf16 product"
+            f"{'s' if p > 1 else ''} a column at 989 TFLOP/s), {100 * r['bound'][0] / r['ms']:.1f} "
+            f"% of it")
+    k = BIG_K
+    b = _sentinel(n, dev)
+    zero = torch.zeros(k, device=dev)
+    first = assign_stats_bounded_cuda(xb, c800b, b.idx, b.lo, b.hi, zero)
+    settings = {
+        "sentinel, bf16 centers": ((xb, c800b, b.idx, b.lo, b.hi, zero), None, 2, 1),
+        "sentinel, f32 centers": ((xb, c800f, b.idx, b.lo, b.hi, zero), None, 4, 3),
+        "sentinel+index, bf16 centers": ((xb, c800b, b.idx, b.lo, b.hi, zero), index.perm, 2, 1),
+        "carried, zero drift, bf16 centers": ((xb, c800b, first[6], first[7], first[8], zero),
+                                              None, 2, 1),
+        "carried after one K-Means step, f32 centers": (
+            (xb, c1, bnd.idx, bnd.lo, bnd.hi, drift), None, 4, 3),
+    }
+    del first
+    for name, (args, perm, nb, p) in settings.items():
+        kk = args[1].shape[0]
+        active = n - int(assign_stats_bounded_cuda(*args, perm=perm)[9].sum())
+        ms = event_ms(lambda: assign_stats_bounded_cuda(*args, perm=perm), 5)
+        plain = event_ms(lambda: ref.assign_stats_bounded_scatter(*args), 3)
+        lib = event_ms(lambda: xb @ c800b[:kk].T, 5)
+        nbytes = bounded_bytes(n, kk, d) - n * d * 2 - kk * d * (4 - nb)  # bf16 x, nb-byte centers
+        bnd_ms = bound_ms(4.0 * n * d, nbytes, bf16_flops=p * 2.0 * active * kk * d)
+        log(f"phase 3 timing assign_stats_bounded_bf16 {name} (k={kk}): kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, library {lib:.4f} ms (x @ centers.T, bf16 operands), bound "
+            f"{bnd_ms[0]:.4f} ms ({bnd_ms[1]}; {p} bf16 product{'s' if p > 1 else ''} a column "
+            f"over the active rows, 4*n*d f32 flops), {100 * bnd_ms[0] / ms:.1f} % of it, pruned "
+            f"share {1 - active / n:.4f} (f32 rows, sentinel: "
+            f"{f32_rows['assign_stats_bounded']['ms']:.4f} ms)")
+        if name == "sentinel, bf16 centers":  # the table row: a full sweep, BKC's first pass
+            rows["assign_stats_bounded_bf16"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                                     bound=bnd_ms)
+    s = xs.shape[0]
+    ids = torch.arange(s, dtype=torch.int32, device=dev)
+    sb = (xs @ xs.T).bfloat16()
+
+    def call():
+        return best_edge_cuda(sb, ids, ids)
+
+    def library():
+        return torch.max(sb, dim=1)
+
+    r = dict(
+        ms=event_ms_cold(call, 30),
+        plain_ms=event_ms_cold(lambda: ref.best_edge(sb, ids, ids), 10),
+        library_ms=event_ms_cold(library, 30),
+        warm_ms=event_ms(call, 30),
+        clean_ms=event_ms_cold(call, 30, flush_by="read"),
+        library_clean_ms=event_ms_cold(library, 30, flush_by="read"),
+        profiled_ms=profiled_kernel_ms(call, 20, ("best_edge_rows",)),
+        bound=bound_ms(0.0, s * s * 2 + 2 * s * 4 + s * 8),
+    )
+    rows["best_edge_bf16"] = r
+    f = f32_rows[f"best_edge {s}x{s}"]
+    log(f"phase 3 timing best_edge_bf16 {s}x{s} (L2 flushed before each call): kernel "
+        f"{r['ms']:.4f} ms after a 512 MB write (f32 block {f['ms']:.4f}), "
+        f"{100 * r['bound'][0] / r['ms']:.1f} % of the bound; {r['clean_ms']:.4f} ms after a "
+        f"512 MB read (f32 {f['clean_ms']:.4f}); back to back {r['warm_ms']:.4f} ms, alone "
+        f"(profiled) {r['profiled_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms; library "
+        f"torch.max(sim, dim=1) on the bf16 block {r['library_ms']:.4f} ms after the write, "
+        f"{r['library_clean_ms']:.4f} ms after the read; bound {r['bound'][0]:.4f} ms "
+        f"({r['bound'][1]}: {s}*{s}*2 B read; f32 {f['bound'][0]:.4f})")
+    log(f"phase 3 timing bf16 routes took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def phase_bf16_bkc_path(x, truth, n_topics, f32_bkc, dev):
+    """Phase 4 of the bf16 routes on the 1 GB collection in bf16, each run
+    with its launch counters set to 0 just before and read just after: BKC
+    (k = 400, BigK = 800) through bkc() bound-pruned, then bkc_fit's fused
+    and two-pass routes from the same draw (groups and labels equal to the
+    bounded route's, bit for bit); agreement and RSS against the f32 BKC of
+    phase_bkc_path (recorded); bounded against unbounded K-Means at k = 400
+    (centers, labels and iterations bit-identical); bounded Buckshot against
+    unbounded (labels equal). Each must launch assign_stats_bounded on bf16
+    rows, the two-pass route assign_argmax. Returns the launches on bf16
+    rows of the bounded BKC run (assign_stats_bounded) and the two-pass run
+    (assign_argmax)."""
+    import torch
+
+    from repro_torch.common import l2_normalize
+    from repro_torch.core import metrics, sampling
+    from repro_torch.core.bkc import bkc, bkc_fit
+    from repro_torch.core.buckshot import buckshot
+    from repro_torch.core.kmeans import kmeans
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    n, d = x.shape
+    xb = x.bfloat16()
+    truth_t = torch.from_numpy(truth).to(dev)
+
+    def purity(labels, k):
+        return metrics.purity(labels, truth_t, k, n_topics).item()
+
+    def run(fn, *args, **kw):
+        ops.reset_launch_counts()
+        res, t = sync_time(fn, *args, **kw)
+        return res, t, ops.launch_counts(), ops.bf16_launch_counts()
+
+    res, t_b, counts, on_bf16 = run(bkc, xb, BIG_K, BKC_K, torch.Generator().manual_seed(SEED),
+                                    bounded=True)
+    check_result("bkc bf16", res, n, d, BKC_K)
+    if not (on_bf16["assign_stats_bounded"] == 2 and counts["assign_stats_bounded"] == 2):
+        raise AssertionError(f"bkc bf16 bounded did not run its kernel on bf16 rows: {on_bf16}")
+    out = {"assign_stats_bounded": on_bf16["assign_stats_bounded"]}
+    pick = sampling.sample_indices(n, BIG_K, torch.Generator().manual_seed(SEED), dev)
+    init = l2_normalize(xb[pick])
+    warm, t_w, _, _ = run(bkc_fit, xb, init, BIG_K, BKC_K, bounded=True)
+    lines = [f"bounded {t_b:.4f} s cold, {t_w:.4f} s warm"]
+    for route, kw in (("fused", {}), ("two-pass", {"fused": False})):
+        other, t_o, rc, rb = run(bkc_fit, xb, init, BIG_K, BKC_K, **kw)
+        for field in ("group_of_mc", "assignment", "threshold", "best_sim"):
+            if not torch.equal(getattr(other, field), getattr(res, field)):
+                raise AssertionError(f"bkc bf16 {route} route: {field} differs from the bounded")
+        if route == "two-pass":
+            if rb["assign_argmax"] != 2:
+                raise AssertionError(f"bkc bf16 two-pass: assign_argmax on bf16 rows {rb}")
+            out["assign_argmax"] = rb["assign_argmax"]
+        lines.append(f"{route} {t_o:.4f} s (launches on bf16 rows {rb})")
+    agree = (res.assignment == f32_bkc.assignment).double().mean().item()
+    rel = abs(res.rss.item() - f32_bkc.rss.item()) / abs(f32_bkc.rss.item())
+    log(f"phase 4 bkc bf16 at n={n} d={d} k={BKC_K} BigK={BIG_K}: {'; '.join(lines)}; the three "
+        f"routes' groups, labels, threshold and similarities bit-identical; threshold "
+        f"{res.threshold.item()!r} (f32 {f32_bkc.threshold.item()!r}), rss {res.rss.item()!r} "
+        f"(f32 {f32_bkc.rss.item()!r}), purity {purity(res.assignment, BKC_K):.6f} (f32 "
+        f"{purity(f32_bkc.assignment, BKC_K):.6f}); against the f32 BKC: assignment agreement "
+        f"{agree!r}, RSS rel {rel:.3e} (recorded); launches of the bounded run {counts}, on "
+        f"bf16 rows {on_bf16}")
+
+    kb, t_kb, kc, kbf = run(kmeans, xb, BKC_K, torch.Generator().manual_seed(SEED), bounded=True)
+    ku, t_ku, _, _ = run(kmeans, xb, BKC_K, torch.Generator().manual_seed(SEED), bounded=False)
+    if not (torch.equal(kb.centers, ku.centers) and torch.equal(kb.assignment, ku.assignment)
+            and kb.iterations == ku.iterations):
+        raise AssertionError("bf16 bounded and unbounded K-Means differ")
+    if kbf["assign_stats_bounded"] != kb.iterations + 1:
+        raise AssertionError(f"bf16 bounded kmeans did not run its kernel on bf16 rows: {kbf}")
+    log(f"phase 4 kmeans bf16 k={BKC_K}: bounded {t_kb:.4f} s, unbounded {t_ku:.4f} s (cold); "
+        f"{kb.iterations} iterations, centers and labels bit-identical (0 differences); rss "
+        f"{kb.rss.item()!r}, purity {purity(kb.assignment, BKC_K):.6f}; launches {kc}, on bf16 "
+        f"rows {kbf}")
+
+    bb, t_bb, bc, bbf = run(buckshot, xb, K, torch.Generator().manual_seed(SEED), bounded=True)
+    bu, t_bu, _, _ = run(buckshot, xb, K, torch.Generator().manual_seed(SEED))
+    if not torch.equal(bb.kmeans.assignment, bu.kmeans.assignment):
+        raise AssertionError("bf16 bounded Buckshot differs from the unbounded run")
+    if bbf["assign_stats_bounded"] < 1:
+        raise AssertionError(f"bf16 bounded Buckshot did not run its kernel on bf16 rows: {bbf}")
+    log(f"phase 4 buckshot bf16 bounded: {t_bb:.4f} s (unbounded {t_bu:.4f} s), labels equal the "
+        f"unbounded run; launches {bc}, on bf16 rows {bbf}")
+    del xb
+    torch.cuda.empty_cache()
+    log(f"phase 4 bf16 routes took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_oracle_bf16_routes(dev):
+    """Phase 5's bf16 oracle of the two-pass and bounded routes at the 20
+    Newsgroups shape: BKC (Table 1: k = 50, BigK = 250; two-pass and
+    bounded) and two-pass K-Means (k = 20) on the card against the port's
+    plain path on the CPU on the same bf16 rows and draws: agreement >=
+    99.9 %, RSS within 1e-4 relative."""
+    import torch
+
+    from repro_torch.common import l2_normalize
+    from repro_torch.core import sampling
+    from repro_torch.core.bkc import bkc_fit
+    from repro_torch.core.kmeans import kmeans_fit
+    from repro_torch.kernels import ops
+    from repro_torch.text import pipeline, synth
+
+    t0 = time.perf_counter()
+    shape = synth.paper_20ng_shape()
+    x_cpu, _ = pipeline.prepare_local(synth.make_corpus(**shape), device="cpu")
+    xb = x_cpu.bfloat16()
+    n = xb.shape[0]
+    xd = xb.to(dev)
+    k, big_k = 50, 250  # Table 1
+    pick = sampling.sample_indices(n, big_k, torch.Generator().manual_seed(0), device="cpu")
+    init = l2_normalize(xb[pick])
+    kinit = l2_normalize(x_cpu[pick[:shape["n_topics"]]])  # f32 centers, as K-Means takes them
+    runs = {
+        f"bkc two-pass k={k} BigK={big_k}": (bkc_fit, (init, big_k, k), {"fused": False}),
+        f"bkc bounded k={k} BigK={big_k}": (bkc_fit, (init, big_k, k), {"bounded": True}),
+        f"kmeans two-pass k={shape['n_topics']}": (kmeans_fit, (kinit, shape["n_topics"]),
+                                                   {"fused": False}),
+    }
+    for name, (fn, args, kw) in runs.items():
+        want = fn(xb, *args, **kw)
+        ops.reset_launch_counts()
+        got = fn(xd, *(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args), **kw)
+        on_bf16 = ops.bf16_launch_counts()
+        agree = (got.assignment.cpu() == want.assignment).double().mean().item()
+        rel = abs(got.rss.item() - want.rss.item()) / abs(want.rss.item())
+        log(f"phase 5 oracle bf16 {name} at n={n}: assignment agreement {agree}, RSS card "
+            f"{got.rss.item()!r} vs CPU {want.rss.item()!r} (rel {rel:.2e}); launches on bf16 "
+            f"rows {on_bf16}")
+        kernel = "assign_stats_bounded" if "bounded" in name else "assign_argmax"
+        if on_bf16[kernel] < 1:
+            raise AssertionError(f"the bf16 oracle {name} did not launch {kernel} on bf16 rows")
+        if agree < 0.999 or rel > 1e-4:
+            raise AssertionError(f"the card's bf16 {name} disagrees with the plain CPU path")
+    log(f"phase 5 oracle bf16 routes took {time.perf_counter() - t0:.1f} s")
 
 
 def off_topic_corpus(shape: dict, share: float, doc_len: int = 120):
@@ -2672,13 +3142,15 @@ def phase_ops_stream_kernels(xs, dev):
     from repro_torch.kernels import ops, ref
 
     be = best_edge_inputs(xs, dev)
+    be.update({f"{name} bf16": (sim.bfloat16(), lr, lc) for name, (sim, lr, lc) in be.items()})
     dec = {name: decode_inputs(name, dev) for name in DECODE_CASES}
     ops.reset_launch_counts()
     outs = [ops.best_edge(*args) for args in be.values()]
     dec_outs = [ops.flash_decode(*args) for args in dec.values()]
     counts = ops.launch_counts()
-    for got, args in zip(outs, be.values()):
-        check_equal("ops.best_edge", got, ref.best_edge(*args))
+    on_bf16 = ops.bf16_launch_counts()
+    for got, (sim, lr, lc) in zip(outs, be.values()):
+        check_equal("ops.best_edge", got, ref.best_edge(sim.float(), lr, lc))
     for got, (name, args) in zip(dec_outs, dec.items()):
         want = ref.flash_decode(*args)
         if got.dtype == torch.float32:
@@ -2687,11 +3159,14 @@ def phase_ops_stream_kernels(xs, dev):
         else:
             check_bf16_ulp(f"ops.flash_decode {name}", got, want)
     others = {k: v for k, v in counts.items() if k not in ("best_edge", "flash_decode")}
-    if counts["best_edge"] != 2 or counts["flash_decode"] != 2 or any(others.values()):
-        raise AssertionError(f"ops.best_edge / ops.flash_decode did not run on their kernels: {counts}")
+    if (counts["best_edge"] != 4 or on_bf16["best_edge"] != 2 or counts["flash_decode"] != 2
+            or any(others.values())):
+        raise AssertionError(f"ops.best_edge / ops.flash_decode did not run on their kernels: "
+                             f"{counts}, on bf16 blocks {on_bf16}")
     log(f"phase 4 ops.best_edge ({', '.join(be)}) and ops.flash_decode ({', '.join(dec)}): "
-        f"outputs held to the plain versions; launches {counts}")
-    return counts
+        f"outputs held to the plain versions; launches {counts}, on bf16 blocks {on_bf16}")
+    return dict(counts, best_edge=counts["best_edge"] - on_bf16["best_edge"],
+                best_edge_bf16=on_bf16["best_edge"])
 
 
 def stream_run(fn, *args, **kwargs):
@@ -4859,7 +5334,9 @@ def kernels_only(dev) -> None:
     self-search and the full grid), component_best_edge (round 1 of that
     search), label_stats, assign_stats (k = 50), best_edge (2,000 x 2,000
     and xs @ xs.T), assign_argmax (k = 400), assign_stats_bounded (BigK =
-    800, the five settings of phase_timing_bkc) and flash_decode, on random unit rows of the 1 GB shape, without the
+    800, the five settings of phase_timing_bkc), the bf16 rows of
+    phase_timing_bf16 and, where the tree takes bf16 rows there,
+    phase_timing_bf16_routes', and flash_decode, on random unit rows of the 1 GB shape, without the
     paths; last Buckshot on the 1 GB collection, its RSS and a digest of its
     labels: the tool for timing two trees' kernels in one call. It uses only
     the wrappers' and ops' public signatures, so it also times an older
@@ -4867,6 +5344,7 @@ def kernels_only(dev) -> None:
     import torch
 
     from repro_torch.common import l2_normalize
+    from repro_torch.kernels import ops
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     n, d = 250_000, 2048
@@ -4883,10 +5361,15 @@ def kernels_only(dev) -> None:
         f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
     phase_timing_bf16(x.bfloat16(), xs.bfloat16(), None, dev)
     torch.cuda.empty_cache()
-    timing_best_edge(xs, dev)
-    del xs
-    phase_timing_bkc(x, bkc_state(x, dev), dev)
-    del x
+    rows = timing_best_edge(xs, dev)
+    state = bkc_state(x, dev)
+    rows.update(phase_timing_bkc(x, state, dev))
+    # rows 6b, 4b and 7b where the tree's wrappers take bf16 rows there
+    if "assign_stats_bounded" in ops.bf16_launch_counts():
+        xb = x.bfloat16()
+        phase_timing_bf16_routes(xb, xs, bkc_state_bf16(x, xb, state, dev), state[1], rows, dev)
+        del xb
+    del x, xs, state
     torch.cuda.empty_cache()
     timing_flash_decode(dev)
     torch.cuda.empty_cache()
@@ -4934,6 +5417,8 @@ def main() -> int:
     phase_parity_pipe_edges(dev)
     errs_bkc, state = phase_parity_main_bkc(x, dev)
     errs.update(errs_bkc)
+    errs_b, state_b = phase_parity_bf16_routes(x, xb, xs, state, dev)
+    errs.update(errs_b)
     errs["component_best_edge"] = phase_parity_edges_cbe(dev)
     errs["best_edge"] = phase_parity_best_edge(xs, dev)
     errs["flash_decode"] = phase_parity_flash_decode(dev)
@@ -4945,16 +5430,21 @@ def main() -> int:
     stream_rows = phase_timing_stream_kernels(xs, dev)
     times["best_edge"] = stream_rows[f"best_edge {s}x{s}"]
     times["flash_decode"] = stream_rows["flash_decode kernel_bench f32"]
+    times.update(phase_timing_bf16_routes(xb, xs, state_b, state[1], {**times, **stream_rows}, dev))
     log(f"phase 3 timing took {time.perf_counter() - t:.1f} s")
-    del x, xs, xb, xsb, state
+    del x, xs, xb, xsb, state, state_b
     torch.cuda.empty_cache()
     t = time.perf_counter()
     counts, buckshot_labels, x, truth, f32_fits = phase_main_path(corpus, dev)
     for name, c in phase_bf16_path(x, truth, corpus.n_topics, f32_fits, dev).items():
         counts[f"{name}_bf16"] = c
-    bkc_counts = phase_bkc_path(x, truth, corpus.n_topics, buckshot_labels, dev)
+    bkc_counts, f32_bkc = phase_bkc_path(x, truth, corpus.n_topics, buckshot_labels, dev)
     for name in ("assign_argmax", "assign_stats_bounded"):  # the kernels BKC brings
         counts[name] = bkc_counts[name]
+    # their bf16 mode: bounded BKC (assign_stats_bounded), its two-pass route (assign_argmax)
+    for name, c in phase_bf16_bkc_path(x, truth, corpus.n_topics, f32_bkc, dev).items():
+        counts[f"{name}_bf16"] = c
+    del f32_bkc
     # the kernel distributed Buckshot brings; its main-path parity and
     # timing come from the three-shard fold's rounds
     dist_counts, err, times["component_best_edge"] = phase_distributed(x, card, dev)
@@ -4962,7 +5452,8 @@ def main() -> int:
     errs["component_best_edge"] = max(errs["component_best_edge"], err)
     # the two kernels' own path: their public ops at the phase 3 shapes
     op_counts = phase_ops_stream_kernels(l2_normalize(x[sidx]), dev)
-    counts["best_edge"], counts["flash_decode"] = op_counts["best_edge"], op_counts["flash_decode"]
+    for name in ("best_edge", "best_edge_bf16", "flash_decode"):
+        counts[name] = op_counts[name]
     log(f"phase 4 paths took {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     ctx = phase_stream_host(x, dev)
@@ -4994,6 +5485,7 @@ def main() -> int:
     t = time.perf_counter()
     phase_oracle(dev)
     phase_oracle_bkc(dev)
+    phase_oracle_bf16_routes(dev)
     log(f"phase 5 oracles took {time.perf_counter() - t:.1f} s")
     phase_dryrun(dryrun_child, lm_peak, lm_flops)
 
@@ -5015,9 +5507,10 @@ def main() -> int:
         "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                          "src/repro/kernels/flash_decode.py:124"),
     }
-    # the bf16 mode of the three kernels Buckshot and the K-Means baseline
-    # launch: the same sources and TPU kernels, on bf16 document rows
-    for name in ("sim_best_edge", "label_stats", "assign_stats"):
+    # the bf16 mode of the kernels that take bf16 document rows (best_edge:
+    # a bf16 block): the same sources and TPU kernels
+    for name in ("sim_best_edge", "label_stats", "assign_stats", "assign_argmax",
+                 "assign_stats_bounded", "best_edge"):
         replaces[f"{name}_bf16"] = replaces[name]
     kernels = []
     for name, (source, tpu) in replaces.items():

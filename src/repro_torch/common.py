@@ -26,6 +26,24 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = EPS) -> torch.Tens
     return x / torch.clamp(norm, min=eps)
 
 
+def f32_row_blocks(x: torch.Tensor, elems: int = 1 << 24) -> Iterator[torch.Tensor]:
+    """The rows of (n, d) ``x`` as f32: x itself when it is f32, else blocks
+    of rows of about ``elems`` elements (64 MB in f32) upcast one at a time,
+    so no f32 copy of all of a bf16 x is held."""
+    if x.dtype == torch.float32:
+        yield x
+        return
+    step = max(1, elems // max(1, x.shape[1]))
+    for lo in range(0, max(x.shape[0], 1), step):
+        yield x[lo:lo + step].float()
+
+
+def sq_row_norms(x: torch.Tensor) -> torch.Tensor:
+    """(n, d) -> (n,) f32 squared row norms of x's f32 values
+    (``einsum("nd,nd->n")``), over ``f32_row_blocks``."""
+    return torch.cat([torch.einsum("nd,nd->n", b, b) for b in f32_row_blocks(x)])
+
+
 def cosine_sim_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(n, d) x (m, d) -> (n, m) cosine similarity (inputs need not be
     normalized)."""

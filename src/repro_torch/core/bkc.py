@@ -147,6 +147,9 @@ def bkc_fit(
     none (58.69 ms with the index against 58.41 ms without), and the route
     is slower than ``fused=True``; it is kept for parity with the reference.
     fused=False runs both passes as ``assign_argmax`` plus separate folds.
+    On bf16 x every route takes it as it is: pass 1 multiplies by the bf16
+    sampled documents, pass 2 by the f32 centers of the groups, as the JAX
+    package does.
     """
     mc, _, _ = build_microclusters(x, init_centers, big_k, fused=fused, bounded=bounded)
     centers, group, s = _group_centers(mc, k)

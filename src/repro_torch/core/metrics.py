@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.common import bincount
+from repro_torch.common import bincount, f32_row_blocks
 from repro_torch.kernels import ops
 
 
@@ -18,7 +18,9 @@ def rss(x: torch.Tensor, idx: torch.Tensor, k: int) -> torch.Tensor:
     """Residual sum of squares vs member-mean centroids (any norm)."""
     sums, counts = ops.label_stats(x, idx, k)
     means = sums / torch.clamp(counts, min=1.0)[:, None]
-    sq_norm_x = torch.sum(x.float() ** 2)
+    # x itself when f32; row blocks upcast one at a time when bf16
+    parts = [torch.sum(b ** 2) for b in f32_row_blocks(x)]
+    sq_norm_x = parts[0] if len(parts) == 1 else torch.sum(torch.stack(parts))
     sq_norm_m = torch.sum(counts * torch.sum(means * means, dim=1))
     return sq_norm_x - sq_norm_m
 

@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.common import segment_min
+from repro_torch.common import segment_min, sq_row_norms
 from repro_torch.kernels import ops
 
 
@@ -69,8 +69,7 @@ def build_microclusters(
     else:
         idx, best_sim = ops.assign_argmax(x, centers)
         sums, counts = ops.label_stats(x, idx, big_k)
-        xf = x.float()
-        sq = torch.einsum("nd,nd->n", xf, xf)
+        sq = sq_row_norms(x)  # no f32 copy of a bf16 x
         cf2 = ops.label_stats(sq[:, None], idx, big_k)[0][:, 0]
         min_sim = segment_min(best_sim, idx, big_k)
     valid = counts > 0

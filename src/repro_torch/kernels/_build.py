@@ -152,8 +152,10 @@ def stream(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-# The element types of the document rows that sim_best_edge, label_stats and
-# assign_stats take, and their codes in the C entries (csrc/tma.cuh).
+# The element types of the document rows that sim_best_edge, label_stats,
+# assign_argmax, assign_stats and assign_stats_bounded take (and of
+# best_edge's similarity block), and their codes in the C entries
+# (csrc/tma.cuh).
 ROWS = (torch.float32, torch.bfloat16)
 ELEM = {torch.float32: 0, torch.bfloat16: 1}
 

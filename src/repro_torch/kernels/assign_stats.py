@@ -7,16 +7,19 @@ Counterpart of the JAX package's ``kernels/assign_stats.py``. ``launches``
 counts, per kernel, the calls that launched it, ``bf16_launches`` those of
 them on bf16 rows of x.
 
-``label_stats_cuda`` and ``assign_stats_cuda`` take x in f32 or bf16 (and
-``assign_stats_cuda`` bf16 x with f32 or bf16 centers): bf16 rows are read
-as they are, with no f32 copy, and every output is f32. ``label_stats_cuda``
-on bf16 rows has the bits of the f32 call on the upcast rows.
-``assign_stats_cuda`` on bf16 x runs its products on the tensor cores (bf16
-products exact, f32 sums in another order; f32 centers go in as the three
-bf16 parts of ``split_bf16x3``): on integer-valued rows every output equals
-the f32 call on the upcast inputs; on unit rows the similarities are within
-1e-5 of it, and wherever idx agrees the sums, counts and sumsq keep its
-bits. ``assign_stats_bounded_cuda`` takes f32 only.
+The three kernels take x in f32 or bf16 (``assign_stats_cuda`` and
+``assign_stats_bounded_cuda`` bf16 x with f32 or bf16 centers): bf16 rows
+are read as they are, with no f32 copy, and every output is f32.
+``label_stats_cuda`` on bf16 rows has the bits of the f32 call on the
+upcast rows. ``assign_stats_cuda`` on bf16 x runs its products on the
+tensor cores (bf16 products exact, f32 sums in another order; f32 centers
+go in as the three bf16 parts of ``split_bf16x3``): on integer-valued rows
+every output equals the f32 call on the upcast inputs; on unit rows the
+similarities are within 1e-5 of it, and wherever idx agrees the sums,
+counts and sumsq keep its bits. ``assign_stats_bounded_cuda`` on bf16 x
+computes every similarity it keeps by the same tensor-core products:
+labels and statistics equal ``assign_stats_cuda``'s on the same inputs for
+any bounds state, as in the f32 mode.
 
 The three kernels fold through one partials buffer per device. A call holds
 the device's lock (``_build.device_lock``) from taking the buffer to the
@@ -35,10 +38,11 @@ from ctypes import c_void_p as P
 
 import torch
 
+from repro_torch.common import sq_row_norms
 from repro_torch.kernels import ref
 
 launches = {"label_stats": 0, "assign_stats": 0, "assign_stats_bounded": 0}
-bf16_launches = {"label_stats": 0, "assign_stats": 0}
+bf16_launches = {"label_stats": 0, "assign_stats": 0, "assign_stats_bounded": 0}
 
 # C entries: pointers and the stream as c_void_p, sizes as c_int
 _SIGNATURES = {
@@ -54,8 +58,9 @@ _SIGNATURES = {
     },
     "assign_stats_bounded": {
         "assign_stats_bounded_slab": [],
+        "assign_stats_bounded_rep_chunk": [],
         "assign_stats_bounded_chunks": [I, I, I],
-        "assign_stats_bounded": [P, P, P, P, P, P, P, P, I, I, I, I, F, I]
+        "assign_stats_bounded": [P, P, P, P, P, P, P, I, I, P, I, I, I, I, F, I]
         + [P] * 11,
     },
 }
@@ -156,6 +161,29 @@ def split_bf16x3(centers: torch.Tensor) -> torch.Tensor:
     return parts
 
 
+def center_operand(x: torch.Tensor, centers: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """The centers as the kernels' product tile takes them, and their
+    element code: as they are, except f32 centers of bf16 x, which go in as
+    ``split_bf16x3``'s parts (split once a call)."""
+    from repro_torch.kernels import _build
+
+    if x.dtype == torch.bfloat16 and centers.dtype == torch.float32:
+        return split_bf16x3(centers), _ELEM_SPLIT3
+    return centers, _build.ELEM[centers.dtype]
+
+
+def _padded_bf16(t: torch.Tensor) -> torch.Tensor:
+    """(rows, d) bf16 -> (rows, split_stride(d)): zeros in the pad columns
+    (``t`` itself where there are none), the rows the bounded kernel gathers
+    and boxes by 16-byte copies."""
+    rows, d = t.shape
+    if split_stride(d) == d:
+        return t.contiguous()
+    out = torch.zeros((rows, split_stride(d)), dtype=torch.bfloat16, device=t.device)
+    out[:, :d] = t
+    return out
+
+
 def _check_k_d(k: int, d: int) -> None:
     if k < 1 or d < 1:
         raise ValueError(f"the kernels need k >= 1 and d >= 1, got k={k}, d={d}")
@@ -217,14 +245,11 @@ def assign_stats_cuda(
     sumsq = torch.empty((k,), dtype=torch.float32, device=dev)
     # the center tiles' winners, merged by launch 1's second kernel
     tile = torch.empty((n * lib.assign_stats_scratch(k),), dtype=torch.float32, device=dev)
-    cptr, celem = centers.data_ptr(), _build.ELEM[centers.dtype]
-    if x.dtype == torch.bfloat16 and centers.dtype == torch.float32:
-        parts = split_bf16x3(centers)
-        cptr, celem = parts.data_ptr(), _ELEM_SPLIT3
+    c, celem = center_operand(x, centers)
     with _build.device_lock(dev.index):
         chunks, buf, part, part_k = _scratch("assign_stats", n, k, d, dev, stream)
         err = lib.assign_stats(
-            x.data_ptr(), cptr, _build.ELEM[x.dtype], celem,
+            x.data_ptr(), c.data_ptr(), _build.ELEM[x.dtype], celem,
             wp, n, d, k, chunks,
             idx.data_ptr(), best_sim.data_ptr(), rowsq.data_ptr(), part,
             part_k, tile.data_ptr() or None, sums.data_ptr(), counts.data_ptr(),
@@ -289,11 +314,12 @@ def assign_stats_bounded_cuda(
     *,
     perm: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, ...]:
-    """(n, d), (k, d) f32; carried (n,) prev_idx int32, lo, hi f32; (k,)
-    drift[; (n,) w] -> (idx, best_sim, sums, counts, min_sim, sumsq, idx,
-    lo_out, hi_out, pruned). Contract of ``ref.assign_stats_bounded``, except
-    that hi_out of a row whose slab was skipped is that slab's cone bound: a
-    valid upper bound, at least the plain version's exact second value.
+    """(n, d), (k, d) f32, or (n, d) bf16 and (k, d) bf16 or f32; carried
+    (n,) prev_idx int32, lo, hi f32; (k,) drift[; (n,) w] -> (idx, best_sim,
+    sums, counts, min_sim, sumsq, idx, lo_out, hi_out, pruned). Contract of
+    ``ref.assign_stats_bounded``, except that hi_out of a row whose slab was
+    skipped is that slab's cone bound: a valid upper bound, at least the
+    plain version's exact second value. bf16 x as the module says.
 
     ``perm`` orders the centers into slabs (``ops.build_center_index``); it
     changes which slabs can be skipped, never a label.
@@ -304,8 +330,9 @@ def assign_stats_bounded_cuda(
     k = centers.shape[0]
     dev = x.device
     _check_k_d(k, d)
-    _build.require(x, "x", torch.float32, (n, d), dev)
-    _build.require(centers, "centers", torch.float32, (k, d), dev)
+    _build.require(x, "x", _build.ROWS, (n, d), dev)
+    _build.require(centers, "centers",
+                   _build.ROWS if x.dtype == torch.bfloat16 else torch.float32, (k, d), dev)
     wp = _weights(w, n, dev)
     for name, t, dtype in (("prev_idx", prev_idx, torch.int32), ("lo", lo, torch.float32),
                            ("hi", hi, torch.float32)):
@@ -314,12 +341,30 @@ def assign_stats_bounded_cuda(
     lib = _lib("assign_stats_bounded")
 
     # row prep: which carried assignments the deflated bounds prove settled
-    rownorm = torch.linalg.vector_norm(x, dim=1)
+    # (the norms in f32: vector_norm of bf16 rows rounds them to bf16)
+    if x.dtype == torch.float32:
+        rownorm = torch.linalg.vector_norm(x, dim=1)
+    else:
+        rownorm = torch.sqrt(sq_row_norms(x))
     ok, pidx, lo_adj, hi_adj = ref.deflate_bounds(prev_idx, lo, hi, rownorm, drift)
     pruned = ok & (lo_adj > hi_adj + ref.PRUNE_MARGIN)
     idx0 = torch.where(pruned, pidx, -1).to(torch.int32)
     cp, perm_p, reps, cone = slab_cones(centers, perm, lib.assign_stats_bounded_slab())
     ns = reps.shape[0]
+    cg, celem = centers, _build.ELEM[torch.float32]
+    if x.dtype == torch.bfloat16:
+        # the tensor cores' operands, rows padded to split_stride(d): the
+        # carried centers and the permuted ones as they are (bf16) or split
+        # (f32), the slab directions split, padded to the chunk of directions
+        rc = lib.assign_stats_bounded_rep_chunk()
+        reps_p = torch.zeros((-(-ns // rc) * rc, d), dtype=torch.float32, device=dev)
+        reps_p[:ns] = reps
+        reps = split_bf16x3(reps_p)
+        if centers.dtype == torch.bfloat16:
+            cg, cp = _padded_bf16(centers), _padded_bf16(cp.bfloat16())
+            celem = _build.ELEM[torch.bfloat16]
+        else:
+            cg, cp, celem = split_bf16x3(centers), split_bf16x3(cp), _ELEM_SPLIT3
 
     stream = _build.stream(x)
     idx = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -333,8 +378,8 @@ def assign_stats_bounded_cuda(
     with _build.device_lock(dev.index):
         chunks, buf, part, part_k = _scratch("assign_stats_bounded", n, k, d, dev, stream)
         err = lib.assign_stats_bounded(
-            x.data_ptr(), centers.data_ptr(), cp.data_ptr(), perm_p.data_ptr(),
-            reps.data_ptr(), cone.data_ptr(), idx0.data_ptr(), wp,
+            x.data_ptr(), cg.data_ptr(), cp.data_ptr(), perm_p.data_ptr(),
+            reps.data_ptr(), cone.data_ptr(), idx0.data_ptr(), _build.ELEM[x.dtype], celem, wp,
             n, d, k, ns, ref.PRUNE_MARGIN, chunks, idx.data_ptr(), best_sim.data_ptr(),
             sec.data_ptr(), rowsq.data_ptr(), part, part_k,
             sums.data_ptr(), counts.data_ptr(), min_sim.data_ptr(),

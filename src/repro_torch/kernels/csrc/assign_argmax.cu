@@ -22,16 +22,41 @@
 // over d in order, so idx and best_sim have the same bits as assign_stats'
 // on the same inputs. The TPU kernel held every center tile in VMEM; here
 // the centers (k * d * 4 = 3.3 MB at k = 400) stay in the 50 MB L2.
+//
+// bf16 x (the TPU kernel's bf16 mode, assign_argmax.py:46-51: bf16
+// operands, f32 sums): the tensor-core tile of assign_stats' bf16 launch 1
+// (assign_tile.cuh's launch_assign_tile_wg without the row norms), bf16
+// centers as they are or f32 centers as the three bf16 parts of the
+// wrapper's split, at the same computed width N for the same k. So idx and
+// best_sim have the bits of assign_stats' bf16 pass on the same inputs. At
+// k = 400 the work is 410 GFLOP of bf16 products (0.41 ms at 989 TFLOP/s;
+// three products a column for f32 centers, 1.24 ms) on 1.02 GB of x
+// (0.31 ms at 3.35 TB/s): the tensor cores bound it.
 
 #include "assign_tile.cuh"
 
 extern "C" int assign_argmax_scratch(int k) { return repro::assign_tile_scratch(k); }
 
 // scratch: n * assign_argmax_scratch(k) floats (null when that is 0).
-extern "C" int assign_argmax(const float* x, const float* centers, int n,
+// xelem, celem (csrc/tma.cuh): both kElemF32, or x kElemBf16 with bf16
+// centers (kElemBf16) or the (3, k, split_stride(d)) bf16 parts of f32
+// centers (kElemSplit3).
+extern "C" int assign_argmax(const void* x, const void* centers, int xelem, int celem, int n,
                              int d, int k, int* idx, float* best_sim,
                              float* scratch, void* stream) {
-  return repro::launch_assign_tile<false>(x, centers, n, k, d, idx, best_sim,
-                                          nullptr, scratch,
-                                          static_cast<cudaStream_t>(stream));
+  using repro::bf16;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (xelem == repro::kElemF32 && celem == repro::kElemF32)
+    return repro::launch_assign_tile<false>(static_cast<const float*>(x),
+                                            static_cast<const float*>(centers), n, k, d, idx,
+                                            best_sim, nullptr, scratch, st);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* cb = static_cast<const bf16*>(centers);
+  if (xelem == repro::kElemBf16 && celem == repro::kElemSplit3)
+    return repro::launch_assign_tile_wg<false, 3>(xb, cb, n, k, d, idx, best_sim, nullptr,
+                                                  scratch, st);
+  if (xelem == repro::kElemBf16 && celem == repro::kElemBf16)
+    return repro::launch_assign_tile_wg<false, 1>(xb, cb, n, k, d, idx, best_sim, nullptr,
+                                                  scratch, st);
+  return (int)cudaErrorInvalidValue;
 }

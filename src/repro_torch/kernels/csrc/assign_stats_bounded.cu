@@ -44,9 +44,36 @@
 // block owns its rows for the whole walk. Launches 2-3 are label_stats' deterministic fold with the extra
 // scalars (label_stats.cuh), as in assign_stats.cu; the TPU kernel's
 // ACC_BUDGET split existed only for VMEM and is not carried over.
+//
+// bf16 x (the TPU kernel's bf16 mode: bf16 x by bf16 centers, or by f32
+// centers, f32 sums): launch 1 is bounded_sweep_wg, on the tensor cores of
+// wgmma_tile.cuh. Labels and statistics must equal assign_stats' bf16 pass
+// for any bounds state, so every similarity it keeps is the bf16 tile's:
+// the same operands (bf16 centers as they are, f32 centers as the three
+// bf16 parts of the wrapper's split), the same k16 products a stage through
+// wg_stage into a fresh accumulator, the stages summed on the CUDA cores in
+// order. The tensor cores give an element the same bits whatever the tile
+// width N and wherever the row and column sit in the tile (checked on the
+// card: tests/test_torch_gpu.py's width probe), so a slab's 64 x 64
+// product has the bits of assign_stats' 128-wide tiles. A settled row's
+// similarity to its carried center comes from the same product: the row
+// pass gathers the block's carried centers (16-byte copies from the
+// wrapper's padded centers or parts) into B blocks of 128 rows, warpgroup g
+// multiplies its 64 rows by gathered rows 64g .. 64g + 63, and each row
+// reads its own column, the diagonal. The slab directions go through the
+// tensor cores too, as the three bf16 parts of the f32 directions (s is
+// then exact to the tensor cores' f32 sum, ~1e-7, far inside the 1e-4
+// prune margin); 32 directions a chunk. Row norms are the fmaf chains of
+// wg_row_sq, as in assign_stats' bf16 mode. A block is 8 consumer warps (a
+// warpgroup per 64 rows; a row's 64 slab columns sit in the 4 lanes of a
+// quad, which also own its state) and one producer; one block an SM.
+// What bounds it: a full sweep at BigK = 800 is 819 GFLOP of bf16 products
+// (0.83 ms at 989 TFLOP/s; three times that with f32 centers) on 1.02 GB of
+// x (0.31 ms); as in the f32 mode, a block streams its rows of x again for
+// every slab it sweeps, and the ring drains at every slab's vote.
 
-#include "assign_pipe.cuh"
 #include "label_stats.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -82,11 +109,13 @@ __device__ __forceinline__ void top2_push(float v, int o, float& b, int& bo, flo
   }
 }
 
-// Merge the triples of the 8 lanes of one row; every one of them ends with
-// the row's slab winner and second value.
+// Merge the triples of the kLanes consecutive lanes of one row (8 in the
+// f32 tile, a quad in the bf16 one); every one of them ends with the row's
+// slab winner and second value.
+template <int kLanes>
 __device__ __forceinline__ void row_top2(float& b, int& bo, float& s) {
 #pragma unroll
-  for (int off = 4; off > 0; off >>= 1) {
+  for (int off = kLanes / 2; off > 0; off >>= 1) {
     const float ob = __shfl_xor_sync(0xffffffffu, b, off);
     const int oo = __shfl_xor_sync(0xffffffffu, bo, off);
     const float os = __shfl_xor_sync(0xffffffffu, s, off);
@@ -172,7 +201,7 @@ __device__ __forceinline__ void sweep_slab(const PipeRing& ring, int& it, int nk
       for (int j = 0; j < JN; ++j)
         if (orig[j] >= 0) top2_push(acc[i][j], orig[j], lb, lo, ls);
     }
-    row_top2(lb, lo, ls);
+    row_top2<8>(lb, lo, ls);
     if (lb > kNeg) {  // the row had a candidate in this slab
       sc = fmaxf(fmaxf(sc, ls), fminf(b, lb));
       if (lb > b || (lb == b && lo < bi)) {
@@ -332,42 +361,329 @@ __global__ void __launch_bounds__((kWarps + 1) * 32, 2)
 
 static unsigned sweep_smem_set = 0;  // devices whose limit is raised
 
+// ------------------------------------------------- bf16 x: tensor cores
+
+constexpr int kWgConsumers = 256;  // two warpgroups; one more warp produces
+constexpr int kRepChunk = 32;      // slab directions a chunk (N of their product)
+
+// A stage: x's 128 rows, then one region for whichever B blocks the stage
+// carries: the row pass's P blocks of 128 gathered rows, a chunk's three
+// parts of 32 slab directions, or a slab's P blocks of 64 centers.
+template <int P>
+struct BoundedWgRing : PipeRing {
+  static constexpr int kRegion = P * kPipeRows * kWgRowBytes > 3 * kRepChunk * kWgRowBytes
+                                     ? P * kPipeRows * kWgRowBytes
+                                     : 3 * kRepChunk * kWgRowBytes;
+  static constexpr int kStage = kWgBlock + kRegion;
+  __device__ __forceinline__ unsigned char* xblk(int i) const {
+    return base + (i % stages) * kStage;
+  }
+  __device__ __forceinline__ unsigned char* bblk(int i) const { return xblk(i) + kWgBlock; }
+};
+template <int P>
+constexpr int kBoundedWgStages = P == 1 ? 5 : 3;
+
+__host__ __device__ __forceinline__ int rep_pitch(int ns) {
+  return (ns < kRepChunk ? ns : kRepChunk) | 1;
+}
+
+// the ring, its barriers, s_sh, then rsq_sh, the row state and idx0_sh
+template <int P>
+inline int bounded_wg_smem(int ns) {
+  return wg_ring_bytes<BoundedWgRing<P>>(kBoundedWgStages<P>) + (BM * rep_pitch(ns) + 5 * BM) * 4;
+}
+
+// cg: the carried centers' source, P matrices of (k, stride) bf16 (bf16
+// centers padded to the stride, or split_bf16x3's parts); cpp: P matrices
+// of (ns * 64, stride), the permuted centers likewise (pad slots zero);
+// rmap: the slab directions' three parts, (3 * nsr, stride), nsr = ns
+// padded to kRepChunk; pmap: cpp.
+template <int P>
+__global__ void __launch_bounds__(kWgConsumers + 32, 1)
+    bounded_sweep_wg(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap rmap,
+                     const __grid_constant__ CUtensorMap pmap, int xtma,
+                     const bf16* __restrict__ x, const bf16* __restrict__ cg,
+                     const int* __restrict__ perm, const float* __restrict__ cone,
+                     const int* __restrict__ idx0, int n, int k, int d, int ns, float margin,
+                     int* __restrict__ idx, float* __restrict__ best_sim,
+                     float* __restrict__ sec_out, float* __restrict__ rowsq) {
+  extern __shared__ unsigned char raw[];
+  BoundedWgRing<P> ring;
+  const int pitch = rep_pitch(ns);
+  float* s_sh = reinterpret_cast<float*>(wg_ring(raw, kBoundedWgStages<P>, ring));
+  float* rsq_sh = s_sh + BM * pitch;
+  const RowState rs{rsq_sh + BM, rsq_sh + 2 * BM, reinterpret_cast<int*>(rsq_sh + 3 * BM)};
+  int* idx0_sh = rs.bidx + BM;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int row0 = blockIdx.x * BM;
+  const int rows = min(BM, n - row0);
+  const int nk = (d + kWgCols - 1) / kWgCols;
+  const int stride = split_stride(d), nsr = (ns + kRepChunk - 1) / kRepChunk * kRepChunk;
+
+  if (t < BM) idx0_sh[t] = t < rows ? idx0[row0 + t] : -1;
+  if (t == 0) pipe_ring_init(ring, kWgConsumers / 32);
+  __syncthreads();
+  const bool any_settled = __syncthreads_or(t < rows && idx0_sh[t] >= 0);
+  const bool any_active = __syncthreads_or(t < rows && idx0_sh[t] < 0);
+
+  if (warp == kWgConsumers / 32) {  // producer: the same sweeps, in the same order
+    const CUtensorMap* xm = xtma ? &xmap : nullptr;
+    const uint32_t tx_x = xtma ? kWgBlock : 0;
+    int it = 0;
+    if (any_settled) {  // row pass: x and each row's carried center, gathered
+      for (int i = 0; i < nk; ++i, ++it) {
+        pipe_acquire(ring, it, tx_x, lane);
+        wg_load(ring.xblk(it), xm, x, n, d, row0, i * kWgCols, BM, ring.full_of(it), lane);
+        wg_gather<P>(ring.bblk(it), cg, idx0_sh, k, stride, i * kWgCols, lane);
+        wg_publish(ring, it, true);
+      }
+    }
+    if (any_active) {
+      for (int c0 = 0; c0 < ns; c0 += kRepChunk) {
+        for (int i = 0; i < nk; ++i, ++it) {  // the chunk's slab directions, three parts
+          pipe_acquire(ring, it, tx_x + 3 * kRepChunk * kWgRowBytes, lane);
+          wg_load(ring.xblk(it), xm, x, n, d, row0, i * kWgCols, BM, ring.full_of(it), lane);
+          if (lane == 0)
+#pragma unroll
+            for (int p = 0; p < 3; ++p)
+              tma_load_2d(ring.bblk(it) + p * kRepChunk * kWgRowBytes, &rmap, i * kWgCols,
+                          p * nsr + c0, ring.full_of(it));
+          wg_publish(ring, it, !xtma);
+        }
+        for (int slab = c0; slab < min(ns, c0 + kRepChunk); ++slab) {
+          if (!__syncthreads_or(0)) continue;  // the consumers' vote
+          for (int i = 0; i < nk; ++i, ++it) {
+            pipe_acquire(ring, it, tx_x + P * BN * kWgRowBytes, lane);
+            wg_load(ring.xblk(it), xm, x, n, d, row0, i * kWgCols, BM, ring.full_of(it), lane);
+            if (lane == 0)
+#pragma unroll
+              for (int p = 0; p < P; ++p)
+                tma_load_2d(ring.bblk(it) + p * BN * kWgRowBytes, &pmap, i * kWgCols,
+                            p * ns * BN + slab * BN, ring.full_of(it));
+            wg_publish(ring, it, !xtma);
+          }
+        }
+      }
+    }
+    pipe_drain(ring, it);
+    return;
+  }
+
+  // consumers: warpgroup g = t / 128 owns tile rows 64g .. 64g + 63; thread
+  // t < 128 owns row t's initial state and output, (t & 127) < 64 the norm
+  // of row nrow; each quad owns the state of its two fragment rows
+  const int g = t >> 7, nrow = g * 64 + (t & 127);
+  const bool norm_thread = (t & 127) < 64;
+  int it = 0;
+  float rsq = 0.f;
+  if (any_settled) {  // row pass: the diagonal of x's rows by their carried centers
+    float sd[32];
+    wg_sweep<64, P>(ring, it, nk, g * 64 * kWgRowBytes, kPipeRows * kWgRowBytes, sd,
+                    [&](const unsigned char* xb) {
+                      if (norm_thread) wg_row_sq(xb, nrow, rsq);
+                    });
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = wg_row(t, h);
+          if (r - g * 64 == wg_col(t, j, e) && idx0_sh[r] >= 0) rs.best[r] = sd[4 * j + 2 * h + e];
+        }
+    if (norm_thread) rsq_sh[nrow] = rsq;
+  }
+  if (t < BM) {
+    if (idx0_sh[t] < 0) rs.best[t] = kNeg;
+    rs.bidx[t] = idx0_sh[t];
+    rs.sec[t] = kNeg;
+  }
+  consumers_sync(kWgConsumers);
+
+  if (any_active) {
+    for (int c0 = 0; c0 < ns; c0 += kRepChunk) {
+      const int width = min(kRepChunk, ns - c0);
+      const bool fuse = !any_settled && c0 == 0;
+      float sr[kRepChunk / 2];
+      wg_sweep<kRepChunk, 3>(ring, it, nk, 0, kRepChunk * kWgRowBytes, sr,
+                             [&](const unsigned char* xb) {
+                               if (fuse && norm_thread) wg_row_sq(xb, nrow, rsq);
+                             });
+#pragma unroll
+      for (int j = 0; j < kRepChunk / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = wg_col(t, j, e);
+            if (c < width) s_sh[wg_row(t, h) * pitch + c] = sr[4 * j + 2 * h + e];
+          }
+      if (fuse && norm_thread) rsq_sh[nrow] = rsq;
+      consumers_sync(kWgConsumers);
+
+      for (int slab = c0; slab < c0 + width; ++slab) {
+        const float ap = cone[slab], an = cone[ns + slab], bm = cone[2 * ns + slab];
+        float ub[2];
+        int need = 0;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wg_row(t, h);
+          const float s = s_sh[r * pitch + slab - c0];
+          const float tt = sqrtf(fmaxf(rsq_sh[r] - s * s, 0.f));
+          ub[h] = fmaxf(ap * s, an * s) + bm * tt;
+          need |= r < rows && idx0_sh[r] < 0 && ub[h] >= rs.best[r] - margin;
+        }
+        if (__syncthreads_or(need)) {
+          float sv[32];
+          wg_sweep<BN, P>(ring, it, nk, 0, BN * kWgRowBytes, sv, [](const unsigned char*) {});
+          const int* ps = perm + slab * BN;
+          int orig[16];
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) orig[2 * j + e] = ps[wg_col(t, j, e)];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = wg_row(t, h);
+            float b = rs.best[r], sc = rs.sec[r];
+            int bi = rs.bidx[r];
+            float lb = kNeg, ls = kNeg;
+            int lo = -1;
+            if (r < rows && idx0_sh[r] < 0) {  // active
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 2; ++e)
+                  if (orig[2 * j + e] >= 0)
+                    top2_push(sv[4 * j + 2 * h + e], orig[2 * j + e], lb, lo, ls);
+            }
+            row_top2<4>(lb, lo, ls);  // a row's 64 slab columns sit in a quad
+            if (lb > kNeg) {  // the row had a candidate in this slab
+              sc = fmaxf(fmaxf(sc, ls), fminf(b, lb));
+              if (lb > b || (lb == b && lo < bi)) {
+                b = lb;
+                bi = lo;
+              }
+            }
+            __syncwarp();  // the row's lanes have read its state
+            if ((lane & 3) == 0) {
+              rs.best[r] = b;
+              rs.sec[r] = sc;
+              rs.bidx[r] = bi;
+            }
+          }
+        } else if ((lane & 3) == 0) {
+          // not searched: the cone bound caps every member of the slab
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = wg_row(t, h);
+            if (r < rows && idx0_sh[r] < 0) rs.sec[r] = fmaxf(rs.sec[r], ub[h]);
+          }
+        }
+        __syncwarp();  // the state written is seen by the row's lanes
+      }
+    }
+  }
+
+  consumers_sync(kWgConsumers);
+  if (t < rows) {
+    idx[row0 + t] = rs.bidx[t];
+    best_sim[row0 + t] = rs.best[t];
+    sec_out[row0 + t] = rs.sec[t];
+    rowsq[row0 + t] = rsq_sh[t];
+  }
+}
+
+static unsigned sweep_wg_smem_set[2] = {};  // per P == 3: devices whose limit is raised
+
+template <int P>
+int launch_bounded_wg(const bf16* x, const bf16* cg, const bf16* cpp, const int* perm,
+                      const bf16* reps, const float* cone, const int* idx0, int n, int d, int k,
+                      int ns, float margin, int* idx, float* best_sim, float* sec, float* rowsq,
+                      cudaStream_t st) {
+  const int smem = bounded_wg_smem<P>(ns);
+  int err = allow_smem(bounded_sweep_wg<P>, kStatsMaxSmem, sweep_wg_smem_set[P == 3]);
+  if (err != 0) return err;
+  const int stride = split_stride(d), nsr = (ns + kRepChunk - 1) / kRepChunk * kRepChunk;
+  CUtensorMap xmap{}, rmap{}, pmap{};
+  const bool xtma = wg_map(&xmap, x, n, d, BM, &err);
+  if (err != 0) return err;
+  // the padded operands are 16-byte rows at least kWgCols wide: the copy engine takes them
+  if (!wg_map(&rmap, reps, 3 * nsr, stride, kRepChunk, &err)) return err ? err : (int)cudaErrorInvalidValue;
+  if (!wg_map(&pmap, cpp, P * ns * BN, stride, BN, &err)) return err ? err : (int)cudaErrorInvalidValue;
+  bounded_sweep_wg<P><<<(n + BM - 1) / BM, kWgConsumers + 32, smem, st>>>(
+      xmap, rmap, pmap, xtma, x, cg, perm, cone, idx0, n, k, d, ns, margin, idx, best_sim, sec,
+      rowsq);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int assign_stats_bounded_slab() { return BN; }
+
+extern "C" int assign_stats_bounded_rep_chunk() { return kRepChunk; }
 
 extern "C" int assign_stats_bounded_chunks(int n, int k, int d) {
   return stats_chunks(n, k, d);
 }
 
-// cp: (ns * 64, d) permuted centers, zero pad rows; perm: (ns * 64,) original
-// id per slot, -1 on pad; reps: (ns, d); cone: (3, ns) a_pos, a_neg, b_max;
-// idx0: (n,) carried center of a settled row, -1 for an active one.
-// Scratch: rowsq holds n floats, part chunks * k * d, part_k chunks * 3 * k.
+// xelem, celem: kElemF32 both, or x kElemBf16 with centers kElemBf16 or
+// kElemSplit3 (csrc/tma.cuh).
+// f32: centers (k, d) (the row pass's carried centers); cp: (ns * 64, d)
+// permuted centers, zero pad rows; reps: (ns, d).
+// bf16 x (stride = split_stride(d), P = 1 for bf16 centers, 3 for f32
+// ones): centers: P matrices of (k, stride) bf16 (bf16 centers padded, or
+// split_bf16x3's parts); cp: P matrices of (ns * 64, stride), the permuted
+// centers likewise; reps: split_bf16x3's three parts of the directions
+// padded to nsr = ns rounded up to assign_stats_bounded_rep_chunk() rows,
+// (3, nsr, stride).
+// Both: perm: (ns * 64,) original id per slot, -1 on pad; cone: (3, ns)
+// a_pos, a_neg, b_max; idx0: (n,) carried center of a settled row, -1 for
+// an active one. Scratch: rowsq holds n floats, part chunks * k * d, part_k
+// chunks * 3 * k.
 extern "C" int assign_stats_bounded(
-    const float* x, const float* centers, const float* cp, const int* perm,
-    const float* reps, const float* cone, const int* idx0, const float* w,
-    int n, int d, int k, int ns, float margin, int chunks, int* idx,
+    const void* x, const void* centers, const void* cp, const int* perm,
+    const void* reps, const float* cone, const int* idx0, int xelem, int celem,
+    const float* w, int n, int d, int k, int ns, float margin, int chunks, int* idx,
     float* best_sim, float* sec, float* rowsq, float* part, float* part_k,
     float* sums, float* counts, float* min_sim, float* sumsq, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (xelem == kElemBf16) {
+    if (celem != kElemBf16 && celem != kElemSplit3) return (int)cudaErrorInvalidValue;
+    const bf16* xb = static_cast<const bf16*>(x);
+    if (n > 0) {
+      auto go = celem == kElemSplit3 ? &launch_bounded_wg<3> : &launch_bounded_wg<1>;
+      const int err = go(xb, static_cast<const bf16*>(centers), static_cast<const bf16*>(cp),
+                         perm, static_cast<const bf16*>(reps), cone, idx0, n, d, k, ns, margin,
+                         idx, best_sim, sec, rowsq, st);
+      if (err != 0) return err;
+    }
+    return launch_stats<true>(xb, idx, w, rowsq, best_sim, n, d, k, chunks, part, part_k, sums,
+                              counts, min_sim, sumsq, st);
+  }
+  if (xelem != kElemF32 || celem != kElemF32) return (int)cudaErrorInvalidValue;
+  const float* xf = static_cast<const float*>(x);
+  const float* cf = static_cast<const float*>(centers);
+  const float* cpf = static_cast<const float*>(cp);
+  const float* rf = static_cast<const float*>(reps);
   if (n > 0) {
     int err = allow_smem(bounded_sweep, kStatsMaxSmem, sweep_smem_set);
     if (err != 0) return err;
     CUtensorMap xmap{}, rmap{}, pmap{};
-    const bool tx = pipe_map(&xmap, x, n, d, BM, &err);
+    const bool tx = pipe_map(&xmap, xf, n, d, BM, &err);
     if (err != 0) return err;
-    const bool tr = pipe_map(&rmap, reps, ns, d, BN, &err);
+    const bool tr = pipe_map(&rmap, rf, ns, d, BN, &err);
     if (err != 0) return err;
-    const bool tp = pipe_map(&pmap, cp, ns * BN, d, BN, &err);
+    const bool tp = pipe_map(&pmap, cpf, ns * BN, d, BN, &err);
     if (err != 0) return err;
-    const int vec16 = d % 4 == 0 && reinterpret_cast<uintptr_t>(centers) % 16 == 0;
+    const int vec16 = d % 4 == 0 && reinterpret_cast<uintptr_t>(cf) % 16 == 0;
     bounded_sweep<<<(n + BM - 1) / BM, (kWarps + 1) * 32, bounded_smem(ns), st>>>(
-        xmap, rmap, pmap, tx && tr && tp, vec16, x, centers, cp, perm, reps, cone, idx0, n,
+        xmap, rmap, pmap, tx && tr && tp, vec16, xf, cf, cpf, perm, rf, cone, idx0, n,
         k, d, ns, margin, idx, best_sim, sec, rowsq);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  return launch_stats<true>(x, idx, w, rowsq, best_sim, n, d, k, chunks, part,
+  return launch_stats<true>(xf, idx, w, rowsq, best_sim, n, d, k, chunks, part,
                             part_k, sums, counts, min_sim, sumsq, st);
 }

@@ -236,14 +236,6 @@ inline int launch_assign_tile(const float* x, const float* centers, int n, int k
 
 // ------------------------------------------------- bf16 x: tensor cores
 
-// Row stride (elements) of the split centers' parts, (3, k, stride) bf16:
-// d padded to a multiple of 8 (16-byte rows, which the copy engine takes)
-// and to at least one stage's kWgCols columns; the pad columns are zeros.
-// kernels/assign_stats.py's split_stride is the same.
-__host__ __device__ constexpr int split_stride(int d) {
-  return d < kWgCols ? kWgCols : (d + 7) / 8 * 8;
-}
-
 // The center columns a bf16 tile computes for k centers: 16, 32 or 64 (one
 // tile), else 128 (tiles of 128 side by side).
 inline int wg_tile_n(int k) { return k > 64 ? 128 : k > 32 ? 64 : k > 16 ? 32 : 16; }

@@ -45,19 +45,28 @@
 // beats(). A lane starts at (-inf, c) and no -inf column ever replaces it, so
 // a row whose candidates are all -inf (and that has no other column) ends at
 // -inf and gets column 0, the lowest of its tied columns.
+//
+// A bf16 block (the TPU kernel upcasts a bf16 block in its body,
+// best_edge.py:40) is read as it lies: the same 16-byte loads, 8 bf16
+// values each, each converted to f32 in registers (exact), so the result
+// has the bits of the f32 kernel on the block's f32 upcast and the bound
+// halves (r*c*2 bytes: 25.0 MB, 7.5 us at 3,536 x 3,536).
 
 #include <algorithm>
 #include <cfloat>
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "tma.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr int kWarps = 16;                  // warps a block
 constexpr int kThreads = kWarps * 32;
-constexpr int kVec = 4;                     // float4 loads a lane a batch
+constexpr int kVec = 4;                     // 16-byte loads a lane a batch
 constexpr int kBatch = 32 * kVec;           // vectors a warp a batch
 constexpr int kMaxStaged = 232448 / 4;      // labels one block's shared memory holds
 constexpr float kNeg = -FLT_MAX;
@@ -70,11 +79,15 @@ __device__ __forceinline__ bool beats(float v, int j, float bv, int bj) {
   return v > bv || (v == bv && j < bj);
 }
 
+// Columns a 16-byte vector holds: 4 f32 or 8 bf16.
+template <typename T>
+constexpr int kPer = 16 / sizeof(T);
+
 // 16 bytes read once: not kept in L1.
-__device__ __forceinline__ float4 ld_stream(const float* p) {
-  float4 v;
-  asm volatile("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+__device__ __forceinline__ uint4 ld_stream(const void* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
                : "l"(p));
   return v;
 }
@@ -85,25 +98,46 @@ __device__ __forceinline__ float ld_stream1(const float* p) {
   return v;
 }
 
-// One row as the lanes read it: `head` scalar columns, then `nv` float4
-// vectors from column `head`, then `c - head - 4*nv` scalar columns.
+__device__ __forceinline__ float ld_stream1(const bf16* p) {
+  unsigned short v;
+  asm volatile("ld.global.nc.L1::no_allocate.u16 %0, [%1];\n" : "=h"(v) : "l"(p));
+  return __uint_as_float((unsigned)v << 16);
+}
+
+// Column u of a vector, as f32 (a bf16 value's bits are the top half of its
+// f32's, so the conversion is exact).
+template <typename T>
+__device__ __forceinline__ float column(const uint4& v, int u) {
+  const unsigned w = u / (kPer<T> / 4) == 0 ? v.x : u / (kPer<T> / 4) == 1 ? v.y
+                     : u / (kPer<T> / 4) == 2 ? v.z : v.w;
+  if constexpr (kPer<T> == 4) return __uint_as_float(w);
+  return __uint_as_float(u & 1 ? w & 0xffff0000u : w << 16);
+}
+
+// One row as the lanes read it: `head` scalar columns, then `nv` 16-byte
+// vectors from column `head`, then `c - head - kPer*nv` scalar columns.
+template <typename T>
 struct Row {
-  const float* p;
+  const T* p;
   int head, nv;
 };
 
-__device__ __forceinline__ Row row_view(const float* sim, int row, int c) {
-  const float* p = sim + (size_t)row * c;
-  const int head = min(c, (int)((0u - (unsigned)(reinterpret_cast<uintptr_t>(p) >> 2)) & 3u));
-  return {p, head, (c - head) >> 2};
+template <typename T>
+__device__ __forceinline__ Row<T> row_view(const T* sim, int row, int c) {
+  constexpr unsigned per = kPer<T>;
+  const T* p = sim + (size_t)row * c;
+  const int head = min(c, (int)((0u - (unsigned)(reinterpret_cast<uintptr_t>(p) / sizeof(T))) &
+                                (per - 1)));
+  return {p, head, (c - head) / (int)per};
 }
 
 // The lane's vectors of the batch that starts at vector q0.
-__device__ __forceinline__ void fetch(float4 (&buf)[kVec], const Row& w, int q0, int lane) {
+template <typename T>
+__device__ __forceinline__ void fetch(uint4 (&buf)[kVec], const Row<T>& w, int q0, int lane) {
 #pragma unroll
   for (int u = 0; u < kVec; ++u) {
     const int q = q0 + lane + 32 * u;
-    if (q < w.nv) buf[u] = ld_stream(w.p + w.head + 4 * q);
+    if (q < w.nv) buf[u] = ld_stream(w.p + w.head + kPer<T> * q);
   }
 }
 
@@ -117,17 +151,16 @@ __device__ __forceinline__ void take(float v, int l, int j, int lrow, float& bes
   }
 }
 
-__device__ __forceinline__ void scan(const float4 (&buf)[kVec], const Row& w, int q0, int lane,
+template <typename T>
+__device__ __forceinline__ void scan(const uint4 (&buf)[kVec], const Row<T>& w, int q0, int lane,
                                      const int* lab, int lrow, float& best, int& bj) {
 #pragma unroll
   for (int u = 0; u < kVec; ++u) {
     const int q = q0 + lane + 32 * u;
     if (q >= w.nv) break;
-    const int j = w.head + 4 * q;
-    take(buf[u].x, lab[j], j, lrow, best, bj);
-    take(buf[u].y, lab[j + 1], j + 1, lrow, best, bj);
-    take(buf[u].z, lab[j + 2], j + 2, lrow, best, bj);
-    take(buf[u].w, lab[j + 3], j + 3, lrow, best, bj);
+    const int j = w.head + kPer<T> * q;
+#pragma unroll
+    for (int e = 0; e < kPer<T>; ++e) take(column<T>(buf[u], e), lab[j + e], j + e, lrow, best, bj);
   }
 }
 
@@ -137,20 +170,21 @@ struct First {
   float hv, tv;
 };
 
-__device__ __forceinline__ First fetch_first(float4 (&buf)[kVec], const Row& w, const int* lr,
+template <typename T>
+__device__ __forceinline__ First fetch_first(uint4 (&buf)[kVec], const Row<T>& w, const int* lr,
                                              int row, int c, int lane) {
   First f;
   f.lrow = __ldg(lr + row);
   fetch(buf, w, 0, lane);
-  const int tail = w.head + 4 * w.nv;
+  const int tail = w.head + kPer<T> * w.nv;
   f.hv = lane < w.head ? ld_stream1(w.p + lane) : -INFINITY;
   f.tv = tail + lane < c ? ld_stream1(w.p + tail + lane) : -INFINITY;
   return f;
 }
 
-template <bool kStaged>
+template <bool kStaged, typename T>
 __global__ void __launch_bounds__(kThreads)
-    best_edge_rows(const float* __restrict__ sim, const int* __restrict__ lr,
+    best_edge_rows(const T* __restrict__ sim, const int* __restrict__ lr,
                    const int* __restrict__ lc, int r, int c,
                    int* __restrict__ best_j, float* __restrict__ best_s) {
   extern __shared__ __align__(16) int staged[];
@@ -158,8 +192,8 @@ __global__ void __launch_bounds__(kThreads)
   const int stride = gridDim.x * kWarps;
   int row = (threadIdx.x >> 5) * gridDim.x + blockIdx.x;
 
-  float4 a[kVec], b[kVec];
-  Row w{};
+  uint4 a[kVec], b[kVec];
+  Row<T> w{};
   First f{};
   if (row < r) {
     w = row_view(sim, row, c);
@@ -189,7 +223,7 @@ __global__ void __launch_bounds__(kThreads)
         if (i + 2 < nb) fetch(a, w, (i + 2) * kBatch, lane);
         scan(b, w, (i + 1) * kBatch, lane, lab, lrow, best, bj);
       }
-      const int tail = w.head + 4 * w.nv + lane;
+      const int tail = w.head + kPer<T> * w.nv + lane;
       if (tail < c) take(f.tv, lab[tail], tail, lrow, best, bj);
     }
     const int cur = row;
@@ -217,36 +251,40 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Per device: the SM count and the blocks an SM holds of each instantiation
-// (the staged one for the shared memory of the last c asked for).
+// Per device and element type: the SM count and the blocks an SM holds of
+// each instantiation (the staged one for the shared memory of the last c
+// asked for).
 struct Fit {
   int sms = 0, global_blocks = 0, staged_bytes = -1, staged_blocks = 0;
 };
 constexpr int kDevices = 32;
-Fit fits[kDevices];
-unsigned smem_allowed = 0;  // repro::allow_smem's bit per device
+Fit fits[2][kDevices];        // [bf16]
+unsigned smem_allowed[2] = {};  // [bf16]: repro::allow_smem's bit per device
 
+template <typename T>
 int blocks_per_sm(bool staged, int bytes, int& sms, int& blocks) {
+  constexpr int kind = sizeof(T) == 2;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   Fit local;
-  Fit& fit = dev < kDevices ? fits[dev] : local;
+  Fit& fit = dev < kDevices ? fits[kind][dev] : local;
   if (fit.sms == 0) {
     e = cudaDeviceGetAttribute(&fit.sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit.global_blocks,
-                                                        best_edge_rows<false>, kThreads, 0);
+                                                        best_edge_rows<false, T>, kThreads, 0);
     if (e != cudaSuccess) {
       fit.sms = 0;
       return (int)e;
     }
   }
   if (staged && fit.staged_bytes != bytes) {
-    const int err = repro::allow_smem(best_edge_rows<true>, kMaxStaged * 4, smem_allowed);
+    const int err =
+        repro::allow_smem(best_edge_rows<true, T>, kMaxStaged * 4, smem_allowed[kind]);
     if (err != 0) return err;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit.staged_blocks, best_edge_rows<true>,
-                                                      kThreads, bytes);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit.staged_blocks,
+                                                      best_edge_rows<true, T>, kThreads, bytes);
     if (e != cudaSuccess) return (int)e;
     fit.staged_bytes = bytes;
   }
@@ -255,16 +293,13 @@ int blocks_per_sm(bool staged, int bytes, int& sms, int& blocks) {
   return 0;
 }
 
-}  // namespace
-
-// r > 0 and c > 0: the wrapper answers the empty cases without a launch.
-extern "C" int best_edge(const float* sim, const int* lr, const int* lc, int r,
-                         int c, int* best_j, float* best_s, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <typename T>
+int launch(const T* sim, const int* lr, const int* lc, int r, int c, int* best_j,
+           float* best_s, cudaStream_t st) {
   const bool staged = c <= kMaxStaged;
   const int bytes = staged ? c * 4 : 0;
   int sms = 0, per_sm = 0;
-  const int err = blocks_per_sm(staged, bytes, sms, per_sm);
+  const int err = blocks_per_sm<T>(staged, bytes, sms, per_sm);
   if (err != 0) return err;
   // enough blocks an SM for the rows, the same number on every SM, and
   // never more blocks than rows
@@ -272,8 +307,22 @@ extern "C" int best_edge(const float* sim, const int* lr, const int* lc, int r,
   const long long per = std::min<long long>((r + wave - 1) / wave, std::max(per_sm, 1));
   const int grid = (int)std::min<long long>(sms * per, r);
   if (staged)
-    best_edge_rows<true><<<grid, kThreads, bytes, st>>>(sim, lr, lc, r, c, best_j, best_s);
+    best_edge_rows<true, T><<<grid, kThreads, bytes, st>>>(sim, lr, lc, r, c, best_j, best_s);
   else
-    best_edge_rows<false><<<grid, kThreads, 0, st>>>(sim, lr, lc, r, c, best_j, best_s);
+    best_edge_rows<false, T><<<grid, kThreads, 0, st>>>(sim, lr, lc, r, c, best_j, best_s);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// r > 0 and c > 0: the wrapper answers the empty cases without a launch.
+// elem: the block's element type, kElemF32 or kElemBf16 (csrc/tma.cuh).
+extern "C" int best_edge(const void* sim, int elem, const int* lr, const int* lc, int r,
+                         int c, int* best_j, float* best_s, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (elem == repro::kElemF32)
+    return launch(static_cast<const float*>(sim), lr, lc, r, c, best_j, best_s, st);
+  if (elem == repro::kElemBf16)
+    return launch(static_cast<const bf16*>(sim), lr, lc, r, c, best_j, best_s, st);
+  return (int)cudaErrorInvalidValue;
 }

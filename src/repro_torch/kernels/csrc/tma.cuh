@@ -16,7 +16,8 @@
 namespace repro {
 
 // Element type codes of the C entries' matrices (document rows f32 or bf16;
-// kElemSplit3: f32 centers as three bf16 parts, assign_stats' bf16 mode).
+// kElemSplit3: f32 centers as three bf16 parts, the bf16 mode of
+// assign_argmax, assign_stats and assign_stats_bounded).
 constexpr int kElemF32 = 0, kElemBf16 = 1, kElemSplit3 = 2;
 
 // ------------------------------------------------------------------ host

@@ -82,7 +82,18 @@ struct WgRing : PipeRing {
   __device__ __forceinline__ unsigned char* blk(int i, int b) const {
     return base + (i % stages) * kStage + (b ? kWgBlock + (b - 1) * kB : 0);
   }
+  // stage i's x block and its B region (wg_sweep's view of a ring)
+  __device__ __forceinline__ unsigned char* xblk(int i) const { return blk(i, 0); }
+  __device__ __forceinline__ unsigned char* bblk(int i) const { return blk(i, 1); }
 };
+
+// Row stride (elements) of the split centers' parts, (3, k, stride) bf16:
+// d padded to a multiple of 8 (16-byte rows, which the copy engine takes)
+// and to at least one stage's kWgCols columns; the pad columns are zeros.
+// kernels/assign_stats.py's split_stride is the same.
+__host__ __device__ constexpr int split_stride(int d) {
+  return d < kWgCols ? kWgCols : (d + 7) / 8 * 8;
+}
 
 // Dynamic shared memory of a Ring of `stages` stages and its barriers.
 template <typename Ring>
@@ -175,6 +186,27 @@ __device__ __forceinline__ void wg_load(unsigned char* dst, const CUtensorMap* m
       out[wg_at(r, c)] = gr < rows && col < d ? bits[(size_t)gr * d + col] : 0;
     }
   }
+}
+
+// Rows ids[0 .. 127] of P row-major (k, stride) bf16 matrices laid one
+// after another (stride a multiple of 8, at least kWgCols: the padded
+// centers or split_bf16x3's parts), columns [k0, k0 + kWgCols), into P
+// staged blocks of 128 rows one after another: 16-byte asynchronous copies
+// to the swizzled places. A row whose id is negative, and the columns past
+// the stride, are filled with zeros. The caller publishes the stage as
+// stored (wg_publish): the copies are generic-proxy writes, fenced into the
+// async proxy before wgmma reads them.
+template <int P>
+__device__ __forceinline__ void wg_gather(unsigned char* dst, const bf16* __restrict__ src,
+                                          const int* ids, int k, int stride, int k0, int lane) {
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    for (int e = lane; e < kPipeRows * 8; e += 32) {
+      const int r = e >> 3, c = e & 7, id = ids[r], col = k0 + 8 * c;
+      const bool in = id >= 0 && col < stride;
+      cp_async16(dst + p * kWgBlock + 2 * wg_at(r, 8 * c),
+                 src + (in ? ((size_t)p * k + id) * stride + col : 0), in ? 16 : 0);
+    }
 }
 
 // A producer lane's arrival on stage i's barrier: once its asynchronous
@@ -322,40 +354,65 @@ __device__ __forceinline__ int wg_row(int t, int h) {
 }
 __device__ __forceinline__ int wg_col(int t, int j, int e) { return 8 * j + 2 * (t & 3) + e; }
 
-// One warpgroup's 64 x N results over the whole ring: A is rows 64g ..
-// 64g + 63 of each stage's x block, B the stage's P B blocks (P = 3: the
-// lo, mid and hi parts of split f32 centers, summed into one accumulator,
-// the small parts first). Each stage's products go into a fresh accumulator
+// One stage's products of a warpgroup, issued and committed, not waited
+// for: acc = A (64 x kWgCols, descriptor a) . the P B blocks (N rows each,
+// `part_bytes` apart from b0)^T, a fresh accumulator (scale_d = 0 on the
+// first product), the parts in the order lo, mid, hi (P = 3: the small
+// parts first), each part's k16 steps in column order. Every kernel on
+// this tile issues a stage's products through here, so a similarity has
+// one sum order wherever it is computed.
+template <int N, int P>
+__device__ __forceinline__ void wg_stage(float (&acc)[N / 2], uint64_t a,
+                                         const unsigned char* b0, int part_bytes) {
+  wg_fence_acc(acc);
+  wg_fence();
+#pragma unroll
+  for (int p = P - 1; p >= 0; --p) {
+    const uint64_t b = wg_desc(b0 + p * part_bytes);
+#pragma unroll
+    for (int s = 0; s < kWgSteps; ++s)
+      Wgmma<N>::mma(acc, a + 2 * s, b + 2 * s, p == P - 1 && s == 0 ? 0 : 1);
+  }
+  wg_commit();
+}
+
+// One warpgroup's 64 x N results over one sweep of d: the nk stages of the
+// ring from stage `it` on (`it` ends past them, so a block may sweep d
+// several times in a row). A is rows 64g .. 64g + 63 of each stage's x
+// block (ring.xblk), B the stage's P B blocks of N rows, `part_bytes`
+// apart from byte `b_off` of its B region (ring.bblk; P = 3: the lo, mid
+// and hi parts of split f32 centers, summed into one accumulator, the
+// small parts first). Each stage's products go into a fresh accumulator
 // and are added into sum[] once they have landed. per_stage(x block) runs
 // on the CUDA cores while a stage's products are in flight, in stage order.
-template <int N, int P, int BR, typename PerStage>
-__device__ __forceinline__ void wg_mainloop(const WgRing<P, BR>& ring, int nk,
-                                            float (&sum)[N / 2], PerStage per_stage) {
+template <int N, int P, typename Ring, typename PerStage>
+__device__ __forceinline__ void wg_sweep(const Ring& ring, int& it, int nk, int b_off,
+                                         int part_bytes, float (&sum)[N / 2],
+                                         PerStage per_stage) {
   const int g = threadIdx.x >> 7, lane = threadIdx.x & 31;
   float acc[N / 2];
 #pragma unroll
   for (int j = 0; j < N / 2; ++j) acc[j] = sum[j] = 0.f;
-  for (int i = 0; i < nk; ++i) {
-    pipe_wait(ring, i);
-    const unsigned char* x = ring.blk(i, 0);
-    const uint64_t a = wg_desc(x + g * 64 * kWgRowBytes);
-    wg_fence_acc(acc);
-    wg_fence();
-#pragma unroll
-    for (int p = P - 1; p >= 0; --p) {
-      const uint64_t b = wg_desc(ring.blk(i, 1 + p));
-#pragma unroll
-      for (int s = 0; s < kWgSteps; ++s)
-        Wgmma<N>::mma(acc, a + 2 * s, b + 2 * s, p == P - 1 && s == 0 ? 0 : 1);
-    }
-    wg_commit();
+  for (int i = 0; i < nk; ++i, ++it) {
+    pipe_wait(ring, it);
+    const unsigned char* x = ring.xblk(it);
+    wg_stage<N, P>(acc, wg_desc(x + g * 64 * kWgRowBytes), ring.bblk(it) + b_off, part_bytes);
     per_stage(x);
     wg_wait_all();
     wg_fence_acc(acc);
-    pipe_release(ring, i, lane);
+    pipe_release(ring, it, lane);
 #pragma unroll
     for (int j = 0; j < N / 2; ++j) sum[j] += acc[j];
   }
+}
+
+// wg_sweep over a WgRing from its first stage, the B blocks as it lays
+// them out.
+template <int N, int P, int BR, typename PerStage>
+__device__ __forceinline__ void wg_mainloop(const WgRing<P, BR>& ring, int nk,
+                                            float (&sum)[N / 2], PerStage per_stage) {
+  int it = 0;
+  wg_sweep<N, P>(ring, it, nk, 0, WgRing<P, BR>::kB, sum, per_stage);
 }
 
 }  // namespace repro

@@ -5,19 +5,22 @@ CUDA device launches the hand-written kernel, and a failed build or launch
 raises. There is no fallback from the kernel to the plain version. Core
 code imports only this module, never the kernels directly.
 
-Document rows: on the card ``sim_best_edge``, ``label_stats`` and
-``assign_stats`` (and ``assign_stats_chunked``) take f32 or bf16 rows (bf16
-x of ``assign_stats`` with f32 or bf16 centers) as they are, with no f32
-copy, and return f32. On bf16 rows ``sim_best_edge`` and ``assign_stats``'
-nearest-center tile multiply on the tensor cores, the JAX kernels' contract
-(bf16 products exact, sums in f32 in the tensor cores' order): every output
+Document rows: on the card every op that takes them (``sim_best_edge``,
+``label_stats``, ``assign_argmax``, ``assign_stats``, ``assign_stats_bounded``
+and their chunked forms) takes f32 or bf16 rows (bf16 x of the three
+nearest-center ops with f32 or bf16 centers) as they are, with no f32 copy,
+and returns f32; other row types raise ``TypeError``. On bf16 rows every
+similarity is a tensor-core product, the JAX kernels' contract (bf16
+products exact, sums in f32 in the tensor cores' order): every output
 equals the f32 call on the upcast rows where all sums are exact in f32
 (integer-valued rows); on unit rows the similarities are within 1e-5 of it
-and an index may differ only at a near-tie. ``label_stats``, the row norms
-and ``assign_stats``' fold keep the f32 call's bits (sums, counts and sumsq
-wherever idx agrees). ``assign_argmax`` and ``assign_stats_bounded`` take
-f32 rows only and raise ``TypeError`` on any other. The plain versions take
-any float rows and accumulate in f32.
+and an index may differ only at a near-tie. ``assign_argmax`` has
+``assign_stats``' bits, and ``assign_stats_bounded``'s labels and
+statistics equal ``assign_stats``' for any bounds state, in both modes.
+``label_stats``, the row norms and the fold keep the f32 call's bits (sums,
+counts and sumsq wherever idx agrees). ``best_edge`` reads a bf16 block as
+it lies (the bits of its ``float()``). The plain versions take any float
+rows and accumulate in f32.
 
 ``launch_counts()`` reads each kernel wrapper's count of launches,
 ``bf16_launch_counts()`` the launches on bf16 rows among them, and
@@ -59,7 +62,8 @@ def launch_counts() -> dict[str, int]:
 
 
 def bf16_launch_counts() -> dict[str, int]:
-    """The launches on bf16 rows of the kernels that take them."""
+    """The launches on bf16 rows (``best_edge``: on a bf16 block) of the
+    kernels that take them."""
     from repro_torch.kernels import _build
 
     with _build.COUNT_LOCK:
@@ -67,6 +71,9 @@ def bf16_launch_counts() -> dict[str, int]:
             "sim_best_edge": _sim_best_edge_k.bf16_launches,
             "label_stats": _assign_stats_k.bf16_launches["label_stats"],
             "assign_stats": _assign_stats_k.bf16_launches["assign_stats"],
+            "assign_argmax": _assign_argmax_k.bf16_launches,
+            "assign_stats_bounded": _assign_stats_k.bf16_launches["assign_stats_bounded"],
+            "best_edge": _best_edge_k.bf16_launches,
         }
 
 
@@ -77,8 +84,10 @@ def reset_launch_counts() -> None:
         _sim_best_edge_k.launches = 0
         _sim_best_edge_k.bf16_launches = 0
         _assign_argmax_k.launches = 0
+        _assign_argmax_k.bf16_launches = 0
         _component_reduce_k.launches = 0
         _best_edge_k.launches = 0
+        _best_edge_k.bf16_launches = 0
         _flash_decode_k.launches = 0
         for name in _assign_stats_k.launches:
             _assign_stats_k.launches[name] = 0
@@ -103,7 +112,7 @@ def assign_argmax(
     x: torch.Tensor, centers: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(n,d),(k,d) -> ((n,) best center idx, ties -> lowest; (n,) best
-    similarity). On the card: f32 rows only."""
+    similarity). On the card x may be bf16, with f32 or bf16 centers."""
     if _on_card(x):
         return _assign_argmax_k.assign_argmax_cuda(x.contiguous(), centers.contiguous())
     return ref.assign_argmax(x, centers)
@@ -217,12 +226,14 @@ def best_edge(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row best cross-component edge of an already-built (r, c)
     similarity block (the single-link / Borůvka inner step): ((r,) int32
-    column, ties -> lowest, -1 if none; (r,) f32 similarity, NEG if none)."""
-    args = (sim.float().contiguous(), labels_row.to(torch.int32).contiguous(),
-            labels_col.to(torch.int32).contiguous())
+    column, ties -> lowest, -1 if none; (r,) f32 similarity, NEG if none).
+    On the card a bf16 block is read as it is; other types go in as f32."""
+    lr = labels_row.to(torch.int32).contiguous()
+    lc = labels_col.to(torch.int32).contiguous()
     if _on_card(sim):
-        return _best_edge_k.best_edge_cuda(*args)
-    return ref.best_edge(*args)
+        block = sim if sim.dtype == torch.bfloat16 else sim.float()
+        return _best_edge_k.best_edge_cuda(block.contiguous(), lr, lc)
+    return ref.best_edge(sim.float().contiguous(), lr, lc)
 
 
 # ---------------------------------------------------------------- fused sim+edge

@@ -649,25 +649,23 @@ def test_bf16_assign_stats_holds_no_f32_copy_of_x(card):
 
 
 def test_bf16_rows_refused_where_not_ported(card):
-    """assign_argmax and assign_stats_bounded take f32 rows only; f16 and f64
-    rows, a bf16 row matrix beside an f32 one in sim_best_edge and f32 rows
-    with bf16 centers in assign_stats raise TypeError in all five
-    wrappers."""
+    """Only f32 and bf16 rows are ported: f16 and f64 rows, a bf16 row
+    matrix beside an f32 one in sim_best_edge, and f32 rows with bf16
+    centers in assign_stats, assign_argmax and assign_stats_bounded raise
+    TypeError in every wrapper."""
     rng = np.random.default_rng(5)
     x = _bf16_rows(rng, (64, 40), card)
     lab = interop.labels(rng.integers(0, 3, size=64), card)
     b = ops.bounds_identity(64, card)
     zero = torch.zeros((4,), device=card)
     with pytest.raises(TypeError):
-        assign_argmax_cuda(x, x[:4].float())
-    with pytest.raises(TypeError):
-        assign_argmax_cuda(x.float(), x[:4].contiguous())
-    with pytest.raises(TypeError):
-        assign_stats_bounded_cuda(x, x[:4].float(), b.idx, b.lo, b.hi, zero)
-    with pytest.raises(TypeError):
         sim_best_edge_cuda(x, x.float(), lab, lab)
-    with pytest.raises(TypeError):  # f32 rows take f32 centers only
-        assign_stats_cuda(x.float(), x[:4].contiguous())
+    cb = x[:4].contiguous()
+    for call in (lambda: assign_stats_cuda(x.float(), cb),  # f32 rows take f32 centers only
+                 lambda: assign_argmax_cuda(x.float(), cb),
+                 lambda: assign_stats_bounded_cuda(x.float(), cb, b.idx, b.lo, b.hi, zero)):
+        with pytest.raises(TypeError):
+            call()
     for dtype in (torch.float16, torch.float64):
         xd = x.to(dtype)
         cd = xd[:4].contiguous()
@@ -676,9 +674,310 @@ def test_bf16_rows_refused_where_not_ported(card):
                      lambda: assign_stats_cuda(xd, cd),
                      lambda: assign_stats_cuda(x, cd),
                      lambda: assign_argmax_cuda(xd, cd),
-                     lambda: assign_stats_bounded_cuda(xd, cd, b.idx, b.lo, b.hi, zero)):
+                     lambda: assign_argmax_cuda(x, cd),
+                     lambda: assign_stats_bounded_cuda(xd, cd, b.idx, b.lo, b.hi, zero),
+                     lambda: assign_stats_bounded_cuda(x, cd, b.idx, b.lo, b.hi, zero),
+                     lambda: best_edge_cuda(xd, lab, lab[:40].contiguous())):
             with pytest.raises(TypeError):
                 call()
+
+
+# ------------------------------------------- bf16 rows: the two-pass and bounded routes
+#
+# assign_argmax and assign_stats_bounded on bf16 x run the tile of
+# assign_stats' bf16 pass: assign_argmax has its bits (idx, best_sim), and
+# the bounded pass equals it on every output but hi and the carry for any
+# bounds state. Both hold only if the tensor cores give a product the same
+# bits whatever the tile's width N and wherever the row and column sit: the
+# width probe checks that first. best_edge reads a bf16 block as it lies.
+
+
+@pytest.mark.parametrize("centers_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [130, 2048])
+def test_bf16_tile_width_probe(card, d, centers_dtype):
+    """One bf16 row by one center gives the same bits at every computed
+    width N of the tile (k = 1 .. 16: N = 16, 17 .. 32: 32, 33 .. 64: 64,
+    more: 128 a tile) and at every column of it: each probe center sits
+    alone among zero centers (similarity 0 < its own), at the first and the
+    last column of each width and inside the second 128-column tile."""
+    rng = np.random.default_rng(d + (centers_dtype == torch.float32))
+    x = torch.nn.functional.normalize(
+        torch.from_numpy(np.abs(rng.normal(size=(300, d))).astype(np.float32)), dim=1).to(card)
+    x = x.bfloat16()
+    probes = torch.nn.functional.normalize(
+        torch.from_numpy(np.abs(rng.normal(size=(3, d))).astype(np.float32)), dim=1).to(card)
+    probes = probes.to(centers_dtype)
+    if centers_dtype == torch.float32:
+        _three_parts(probes)
+    for q in range(probes.shape[0]):
+        want = None
+        for k, j in ((1, 0), (16, 15), (17, 0), (32, 31), (33, 5), (64, 63), (65, 64),
+                     (128, 127), (129, 128), (300, 255), (300, 299)):
+            centers = torch.zeros((k, d), dtype=centers_dtype, device=card)
+            centers[j] = probes[q]
+            idx, sim = assign_argmax_cuda(x, centers)
+            assert (idx == j).all(), (k, j)
+            if want is None:
+                want = sim
+            _same_bits((sim,), (want,))
+            _same_bits((sim,), (assign_stats_cuda(x, centers)[1],))
+
+
+def bf16_argmax_gate(gate, x, centers):
+    """Gate ``gate`` (with (c)) of assign_argmax on bf16 x against its f32
+    mode on the upcast inputs, and its bits against assign_stats' bf16
+    pass. Returns (max |best_sim - the f32 mode's|, near-tie index
+    differences)."""
+    xf, cf = x.float(), centers.float()
+    got = _twice(assign_argmax_cuda, x, centers)
+    _same_bits(got, assign_stats_cuda(x, centers)[:2])
+    if gate == "integer":
+        _same_bits(got, assign_argmax_cuda(xf, cf))
+        return 0.0, 0
+    if gate == "rows_at":
+        for shift in ROW_SHIFTS:
+            moved = assign_argmax_cuda(_shifted(x, shift), centers)
+            _same_bits((moved[0][shift:], moved[1][shift:]), got)
+        return 0.0, 0
+    assert gate == "unit", gate
+    want = assign_argmax_cuda(xf, cf)
+    ties = _near_ties("assign_argmax bf16", got[0], want[0], want[1],
+                      lambda rows, cols: (xf[rows] * cf[cols]).sum(1))
+    return _close("assign_argmax bf16 best_sim", got[1], want[1], 0.0, SIM_TOL), ties
+
+
+@pytest.mark.parametrize("gate", BF16_STATS_GATES)
+@pytest.mark.parametrize("centers_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,k,d,offset", BF16_STATS_CASES)
+def test_bf16_assign_argmax_equals_f32_mode(card, n, k, d, offset, centers_dtype, gate):
+    """assign_argmax on bf16 x (bf16 centers, or f32 ones with all three
+    split parts in use) under gate (a), (b) or (e), each with (c), and bit
+    for bit equal to assign_stats' bf16 pass on the same inputs."""
+    rng = np.random.default_rng(n + k + d + offset + 3)
+    rows = _bf16_ints if gate == "integer" else _bf16_rows
+    x = rows(rng, (n, d), card, offset)
+    if centers_dtype == torch.float32:
+        centers = (_split_exact_rows if gate == "integer" else _unit_rows)(rng, (k, d), card)
+        _three_parts(centers)
+    else:
+        centers = rows(rng, (k, d), card)
+    if k > 65:
+        centers[65] = centers[1]  # a tie across center tiles
+    bf16_argmax_gate(gate, x, centers)
+
+
+def bounded_case(rng, n, k, d, card, centers_dtype, kind, offset=0):
+    """Rows near their centers, so carried bounds prune: integer rows
+    (entries in {-4, ..., 5}) near integer centers, or unit rows 0.1 off
+    unit centers; in bf16, at ``offset`` elements into their allocation.
+    Equal centers on both sides of every 64-center slab edge, the last
+    center equal to the first (an empty cluster), weights 0-2. f32 centers
+    of unit rows carry all three split parts."""
+    lab = rng.integers(0, k, size=n)
+    if kind == "integer":
+        c = rng.integers(-4, 5, size=(k, d)).astype(np.float32)
+    else:
+        c = rng.normal(size=(k, d)).astype(np.float32)
+        c /= np.linalg.norm(c, axis=1, keepdims=True)
+    for b in range(64, k, 64):
+        c[b] = c[b - 1]
+    if k > 1:
+        c[k - 1] = c[0]
+    if kind == "integer":
+        x = c[lab] + rng.integers(-1, 2, size=(n, d))
+    else:
+        x = c[lab] + 0.1 * rng.normal(size=(n, d)) / np.sqrt(d)
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+    x = _at_offset(interop.data(x, card).bfloat16(), offset)
+    centers = interop.data(c, card)
+    centers = centers.bfloat16() if centers_dtype == torch.bfloat16 else centers
+    return x, centers, _ints(rng, (n,), 0, 2, card)
+
+
+def check_bounded_bf16(x, centers, bounds, drift, w, perm=None):
+    """The bounded bf16 pass against assign_stats' bf16 pass on the same
+    inputs: every output but hi and the carry bit for bit; hi an upper bound
+    on the exact second value (the plain version's full sweep of the upcast
+    inputs), less the bf16 sums' SIM_TOL. Returns the bounded pass's
+    outputs."""
+    got = _twice(lambda: assign_stats_bounded_cuda(x, centers, *bounds, drift, w, perm=perm))
+    _same_bits(got[:6], assign_stats_cuda(x, centers, w))
+    _same_bits(got[6:8], got[:2])  # the carry: idx, lo = best_sim
+    exact = ref.assign_stats_bounded(x.float(), centers.float(),
+                                     *ops.bounds_identity(x.shape[0], x.device), drift, w)[8]
+    assert (got[8] >= exact - SIM_TOL - 1e-5 * exact.abs()).all()
+    return got
+
+
+BOUNDED_K = (1, 16, 17, 63, 64, 65, 128, 129, 400, 800)
+# (n, d, offset): odd d, d off 8 and 32 (plain stores), a base off 16
+# bytes, n off the 128-row block
+BOUNDED_SHAPES = [(300, 257, 0), (1000, 130, 0), (129, 40, 1), (1000, 2048, 1), (127, 96, 0)]
+
+
+@pytest.mark.parametrize("kind", ["integer", "unit"])
+@pytest.mark.parametrize("centers_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,d,offset", BOUNDED_SHAPES)
+def test_bf16_bounded_equals_unbounded(card, n, d, offset, centers_dtype, kind):
+    """The bounded pass on bf16 x equals assign_stats' bf16 pass on every
+    output but hi and the carry, bit for bit, for every k of BOUNDED_K:
+    under the sentinel bounds; under the bounds it carries after two
+    centers move (settled rows take their similarity from the row pass's
+    diagonal); with every fifth row invalidated; and in a slab order that
+    puts duplicate centers on either side of slab edges (the center
+    index). Integer rows also equal the plain version on the upcast
+    inputs."""
+    rng = np.random.default_rng(n + d + offset + (kind == "unit") + 2 * (
+        centers_dtype == torch.float32))
+    for k in BOUNDED_K:
+        x, centers, w = bounded_case(rng, n, k, d, card, centers_dtype, kind, offset)
+        zero = torch.zeros((k,), device=card)
+        b0 = ops.bounds_identity(n, card)
+        first = check_bounded_bf16(x, centers, b0, zero, w)
+        assert not first[9].any()
+        if kind == "integer":
+            want = ref.assign_stats_bounded(x.float(), centers.float(), *b0, zero, w)
+            _check_bounded(first, want, k)
+        moved = centers.clone()
+        moved[0, 0] += 1 if kind == "integer" else 0.01
+        moved[k // 2, d - 1] -= 1 if kind == "integer" else 0.01
+        drift = torch.linalg.vector_norm(moved.float() - centers.float(), dim=1)
+        stale = torch.zeros((n,), dtype=torch.bool, device=card)
+        stale[::5] = True
+        carried = ops.Bounds(first[6], first[7], first[8])
+        for bounds in (carried, ops.bounds_invalidate(carried, stale)):
+            for perm in (None, ops.build_center_index(moved).perm):
+                got = check_bounded_bf16(x, moved, bounds, drift, w, perm)
+                if k > 1:
+                    assert got[9].any(), (k, "no row was pruned: the row pass went untested")
+                assert not got[9][bounds.idx < 0].any()
+
+
+@pytest.mark.parametrize("centers_dtype", [torch.bfloat16, torch.float32])
+def test_bf16_bounded_all_rows_pruned(card, centers_dtype):
+    """A block whose rows are all settled sweeps nothing and still writes
+    every row, on bf16 x."""
+    rng = np.random.default_rng(9)
+    c = 4 * np.eye(20, 24)
+    x = c[rng.integers(0, 20, size=300)] + rng.integers(-1, 2, size=(300, 24))
+    x = interop.data(x, card).bfloat16()
+    centers = interop.data(c, card).to(centers_dtype)
+    zero = torch.zeros((20,), device=card)
+    first = check_bounded_bf16(x, centers, ops.bounds_identity(300, card), zero, None)
+    again = check_bounded_bf16(x, centers, ops.Bounds(first[6], first[7], first[8]), zero, None)
+    assert again[9].all()
+
+
+# (r, c): every alignment of a bf16 row start (c = 4,097 to 4,104), labels
+# past what shared memory stages, rows around the persistent grid
+BF16_BEST_EDGE_CASES = [(300, 270), (1, 129), (33, 1), (2000, 2000), (0, 5), (5, 0), (7, 4097),
+                        (7, 4098), (7, 4099), (7, 4100), (7, 4101), (7, 4103), (7, 4104),
+                        (5, 70_001), (131, 257), (20_000, 257)]
+
+
+@pytest.mark.parametrize("r,c", BF16_BEST_EDGE_CASES)
+def test_bf16_best_edge_equals_its_float(card, r, c):
+    """best_edge on a bf16 block is torch.equal to the kernel on the block's
+    float(): every alignment of a bf16 row start (c = 4,097 to 4,104), the
+    labels past what shared memory stages, pad rows and columns (-1), ties
+    from integer blocks, and one element past a 16-byte boundary."""
+    rng = np.random.default_rng(r + c + 1)
+    lr = interop.labels(rng.integers(-1, 5, size=r), card)
+    lc = interop.labels(rng.integers(-1, 5, size=c), card)
+    for sim in (_ints(rng, (r, c), -3, 3, card), interop.data(rng.normal(size=(r, c)), card)):
+        sb = sim.bfloat16()
+        got = _twice(best_edge_cuda, sb, lr, lc)
+        _same_bits(got, best_edge_cuda(sb.float(), lr, lc))
+        _equal(got, ref.best_edge(sb.float(), lr, lc))
+        if r and c:
+            _same_bits(best_edge_cuda(_at_offset(sb, 1), lr, lc), got)
+
+
+def test_bf16_best_edge_nan_inf_and_ties(card):
+    """NaN and -inf rows and signed zeros, as test_best_edge_ties_and_signed_zeros
+    holds them in f32: the bf16 block gives the bits of its float()."""
+    sim = torch.randn((5, 1003), generator=torch.Generator().manual_seed(5)).to(card)
+    sim[0] = sim[1] = -torch.inf
+    sim[1, 777] = -3.0e38  # a bf16 value below every other, above -inf
+    sim[2:, 333] = sim[2:, 555] = torch.nan
+    sim[4, :] = 0.0
+    sim[4, 10] = -0.0
+    sb = sim.bfloat16()
+    lr = torch.tensor([0, 0, 0, -1, 0], dtype=torch.int32, device=card)
+    lc = torch.ones((1003,), dtype=torch.int32, device=card)
+    got, want = best_edge_cuda(sb, lr, lc), best_edge_cuda(sb.float(), lr, lc)
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0, equal_nan=True)
+    assert got[0].tolist() == [0, 777, 333, -1, 0]
+
+
+@pytest.mark.parametrize("kernel", ["assign_argmax", "assign_stats_bounded"])
+def test_bf16_routes_hold_no_f32_copy_of_x(card, kernel):
+    """At the 1 GB shape (n = 250,000, d = 2,048) one bf16 call of
+    ops.assign_argmax (k = 400, f32 centers) or of ops.assign_stats_bounded
+    (BigK = 800, sentinel bounds and the center index) raises the peak
+    device memory by less than n * d * 2 bytes: no f32 copy of x."""
+    n, d = 250_000, 2048
+    k = 400 if kernel == "assign_argmax" else 800
+    g = torch.Generator(device=card).manual_seed(1)
+    x = torch.nn.functional.normalize(torch.rand((n, d), generator=g, device=card), dim=1)
+    x = x.bfloat16()
+    centers = x[:k].float()
+
+    def call():
+        if kernel == "assign_argmax":
+            return ops.assign_argmax(x, centers)
+        return ops.assign_stats_bounded(x, centers, ops.bounds_identity(n, card),
+                                        torch.zeros((k,), device=card), index=index)
+
+    index = ops.build_center_index(centers)
+    call()  # the build and the fold's workspace
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    out = call()
+    torch.cuda.synchronize()
+    assert ops.bf16_launch_counts()[kernel] == 1
+    assert torch.cuda.max_memory_allocated() - base < n * d * 2
+    assert out[1].dtype == torch.float32 and out[1].shape == (n,)
+
+
+def test_bf16_bkc_and_kmeans_routes_on_card(card):
+    """bf16 documents through BKC's three routes and K-Means' three routes
+    on the card: the routes equal each other bit for bit (every similarity
+    is the one tile's, every sum the one fold's), launches on bf16 rows
+    counted, and the card agrees with the port's plain path on the CPU on
+    the same bf16 rows (agreement >= 99.9 %, RSS within 1e-4)."""
+    from repro_torch.core.bkc import bkc_fit
+    from repro_torch.core.kmeans import kmeans_fit
+
+    x = _loose_blobs(1500, 96, 8, 5).bfloat16()
+    init = x[interop.index(np.random.default_rng(3).choice(1500, 80, replace=False), "cpu")]
+    xc, ic = x.to(card), init.to(card)
+    want = bkc_fit(x, init, 80, 8)
+    ops.reset_launch_counts()
+    got = {name: bkc_fit(xc, ic, 80, 8, **kw) for name, kw in (
+        ("fused", {}), ("two_pass", {"fused": False}), ("bounded", {"bounded": True}))}
+    on_bf16 = ops.bf16_launch_counts()
+    assert on_bf16["assign_argmax"] >= 2 and on_bf16["assign_stats_bounded"] == 2
+    for res in got.values():
+        for field in ("group_of_mc", "assignment", "threshold", "centers", "best_sim"):
+            assert torch.equal(getattr(res, field), getattr(got["fused"], field)), field
+    res = got["two_pass"]
+    assert (res.assignment.cpu() == want.assignment).float().mean() >= 0.999
+    torch.testing.assert_close(res.rss.cpu(), want.rss, rtol=1e-4, atol=0)
+
+    kinit = x[:8].float()
+    kwant = kmeans_fit(x, kinit, 8, tol=0.0)
+    runs = {name: kmeans_fit(xc, kinit.to(card), 8, tol=0.0, **kw) for name, kw in (
+        ("fused", {}), ("two_pass", {"fused": False}), ("bounded", {"bounded": True}))}
+    for res in runs.values():
+        assert torch.equal(res.assignment, runs["fused"].assignment)
+        assert torch.equal(res.centers, runs["fused"].centers)
+        assert res.iterations == runs["fused"].iterations
+    assert (runs["bounded"].assignment.cpu() == kwant.assignment).float().mean() >= 0.999
+    torch.testing.assert_close(runs["bounded"].rss.cpu(), kwant.rss, rtol=1e-4, atol=0)
 
 
 def test_bf16_buckshot_card_matches_cpu(card):
