@@ -134,7 +134,24 @@ Phases, in order; any failure raises and exits non-zero:
      paths; and the merge-only driver (synthetic_merge_rounds) at s =
      4,194,304, merge='comp' against 'point': rounds, the s - 1 valid edges
      (w by its bits) and the cut at k = 3 equal, wall time and peak memory
-     of each, no kernel launched. Then the public
+     of each, no kernel launched. Then the distributed routes on the
+     collection in bf16 (phase_distributed_bf16) over a NCCL group of world
+     size 1: the sampled rows bf16 and equal to the bf16 rows at their ids;
+     Buckshot with hac="boruvka" and "replicated", bounded and not, labels
+     and centers equal to the resident bf16 buckshot_fit from the same ids
+     (RSS within 1e-5 relative); kmeans_distributed at k = 400 from bf16
+     initial centers, bounded equal to unbounded and both to the resident
+     kmeans_fit; bkc_distributed (k = 400, BigK = 800) fused and bounded,
+     groups, labels and threshold equal to the resident bf16 bkc_fit; every
+     Borůvka mode and the row gather on the bf16 sample, expanded edges
+     equal to the resident boruvka_mst bit for bit; the launches on bf16
+     rows of sim_best_edge, label_stats, assign_stats and
+     assign_stats_bounded; warm wall times beside the resident fits and the
+     f32 distributed fit, peak memory, and the dtype and bytes each
+     collective sent; then 4 gloo ranks on this host's CPU
+     (python -m repro_torch.distrib.selftest --bf16): every route on bf16
+     shards of exact rows equal to the f32 shards bit for bit, the wire
+     carrying bf16 (the card host's torch release). Then the public
      ops.best_edge and ops.flash_decode at the phase 3 shapes. Then the
      streaming paths: the collection's tf-idf rows held in host memory as a
      CorpusStream of 8 chunks of 32,768 rows, through kmeans_fit_stream
@@ -2573,7 +2590,187 @@ def phase_distributed(x, card: str, dev):
             phase_merge_only(mesh, axes, card, dev)
         finally:
             dist.destroy_process_group()
-    return counts, err, timing
+    return counts, err, timing, t_warm
+
+
+def phase_distributed_bf16(x, card: str, dev, f32_warm: float) -> dict:
+    """The distributed resident routes on the 1 GB collection in bf16 (the
+    rows phases 2-4 round from x) over NCCL at world size 1, each against
+    the resident bf16 fit on the card from the same draw; every Borůvka
+    mode and the row gather on the bf16 sample against the resident
+    boruvka_mst; then 4 gloo ranks on this host's CPU through
+    ``repro_torch.distrib.selftest --bf16``. ``f32_warm``: the warm wall of
+    phase_distributed's f32 fit. Returns the launches on bf16 rows of the
+    phase's runs, summed (each run's counters set to 0 just before it)."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.common import l2_normalize
+    from repro_torch.core import sampling
+    from repro_torch.core.bkc import bkc_fit
+    from repro_torch.core.buckshot import buckshot_fit
+    from repro_torch.core.hac import boruvka_mst
+    from repro_torch.core.kmeans import kmeans_fit
+    from repro_torch.distrib import cluster as dc
+    from repro_torch.distrib.hac_parallel import boruvka_mst_distributed
+    from repro_torch.distrib.selftest import format_wire, wire_log
+    from repro_torch.distrib.sharding import make_flat_mesh
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    n, d = x.shape
+    xb = x.bfloat16()
+    s = sampling.buckshot_sample_size(n, K)
+    w = torch.ones((n,), device=dev)
+    on_bf16 = collections.Counter()
+
+    def run(fn, *args, **kw):
+        """One warm, counted, wire-logged call after a cold one; its result,
+        warm seconds, peak memory above its start and wire."""
+        fn(*args, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        with wire_log() as wire:
+            res, sec = sync_time(fn, *args, **kw)
+        on_bf16.update(ops.bf16_launch_counts())
+        return res, sec, torch.cuda.max_memory_allocated() - base, format_wire(wire)
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    with tempfile.TemporaryDirectory() as tmp:
+        nccl_world_1(tmp)
+        try:
+            mesh, axes = make_flat_mesh(), ("data",)
+            sidx = dc.sample_indices_distributed(mesh, axes, w, s, SEED).long()
+            rows, t_rows, _, wire = run(dc.sample_rows_distributed, mesh, axes, xb, w, s, SEED)
+            if not (rows.dtype == torch.bfloat16
+                    and torch.equal(rows.view(torch.int16), xb[sidx].view(torch.int16))):
+                raise AssertionError(f"sample_rows_distributed bf16: {rows.dtype} rows, not the "
+                                     f"bf16 rows at the ids")
+            log(f"phase 4 distributed bf16 sample (NCCL, world size 1, {card}): s={s} d={d}: "
+                f"bf16 rows equal xb[ids] bit for bit in {t_rows:.4f} s warm; wire {wire} "
+                f"(the row sum: {s * d * 2:,} B bf16 against {s * d * 4:,} B in f32)")
+
+            # Buckshot, both phase-1 flavours, bounded and not, against the
+            # resident bf16 fit from the same ids
+            want, t_res, _, _ = run(buckshot_fit, xb, sidx, K)
+            for hac in ("boruvka", "replicated"):
+                def fit(bounded=False):
+                    return dc.buckshot_distributed(mesh, axes, xb, w, K, SEED, sample_size=s,
+                                                   hac=hac, bounded=bounded)
+
+                res, t_d, peak, wire = run(fit)
+                check_result(f"buckshot_distributed bf16 {hac}", res, n, d)
+                rel = abs(res.rss.item() - want.kmeans.rss.item()) / abs(want.kmeans.rss.item())
+                if not (torch.equal(res.assignment, want.kmeans.assignment)
+                        and torch.equal(res.centers, want.kmeans.centers) and rel <= 1e-5):
+                    raise AssertionError(f"buckshot_distributed bf16 {hac}: differs from the "
+                                         f"resident bf16 fit (rss rel {rel})")
+                bnd, t_b, _, _ = run(fit, True)
+                if not torch.equal(bnd.assignment, res.assignment):
+                    raise AssertionError(f"buckshot_distributed bf16 {hac}: bounded differs")
+                log(f"phase 4 distributed bf16 buckshot hac={hac!r} (NCCL, world size 1): warm "
+                    f"{t_d:.4f} s, bounded {t_b:.4f} s (resident bf16 buckshot_fit {t_res:.4f} "
+                    f"s; the f32 distributed fit {f32_warm:.4f} s); labels and centers equal "
+                    f"the resident bf16 fit, rss rel {rel:.2e}; bounded labels equal; peak "
+                    f"{peak:,} B above the fit's start; wire {wire}")
+            profile_run("buckshot_distributed bf16", lambda: dc.buckshot_distributed(
+                mesh, axes, xb, w, K, SEED, sample_size=s, hac="boruvka"))
+
+            # K-Means at k = 400 from bf16 initial centers
+            pick = sampling.sample_indices(n, BIG_K, torch.Generator().manual_seed(SEED), dev)
+            init = l2_normalize(xb[pick])
+            ku, t_ku, peak, wire = run(dc.kmeans_distributed, mesh, axes, xb, w,
+                                       init[:BKC_K], BKC_K)
+            kb, t_kb, _, _ = run(dc.kmeans_distributed, mesh, axes, xb, w, init[:BKC_K], BKC_K,
+                                 bounded=True)
+            kr, t_kr, _, _ = run(kmeans_fit, xb, init[:BKC_K], BKC_K)
+            for name, other in (("bounded", kb), ("resident kmeans_fit", kr)):
+                if not (torch.equal(other.assignment, ku.assignment)
+                        and torch.equal(other.centers, ku.centers)
+                        and other.iterations == ku.iterations):
+                    raise AssertionError(f"kmeans_distributed bf16 k={BKC_K}: {name} differs")
+            log(f"phase 4 distributed bf16 kmeans k={BKC_K} (bf16 initial centers): unbounded "
+                f"{t_ku:.4f} s, bounded {t_kb:.4f} s warm (resident {t_kr:.4f} s); "
+                f"{ku.iterations} iterations, labels and centers equal bounded, unbounded and "
+                f"resident; peak {peak:,} B; wire of the unbounded fit {wire}")
+
+            # BKC: groups and threshold through bkc_distributed's own job 2
+            group_centers = dc._group_centers
+            seen = []
+
+            def capture(mc, k):
+                seen.append(group_centers(mc, k))
+                return seen[-1]
+
+            for bounded in (False, True):
+                want_b, t_rb, _, _ = run(bkc_fit, xb, init, BIG_K, BKC_K, bounded=bounded)
+                dc._group_centers = capture
+                try:
+                    got, t_b, peak, wire = run(dc.bkc_distributed, mesh, axes, xb, w, init,
+                                               BIG_K, BKC_K, bounded=bounded)
+                finally:
+                    dc._group_centers = group_centers
+                _, groups, threshold = seen[-1]
+                if not (torch.equal(groups, want_b.group_of_mc)
+                        and torch.equal(threshold, want_b.threshold)
+                        and torch.equal(got.assignment, want_b.assignment)
+                        and torch.equal(got.centers, want_b.centers)):
+                    raise AssertionError(f"bkc_distributed bf16 bounded={bounded}: differs from "
+                                         f"the resident bf16 bkc_fit")
+                log(f"phase 4 distributed bf16 bkc k={BKC_K} BigK={BIG_K} bounded={bounded}: "
+                    f"{t_b:.4f} s warm (resident {t_rb:.4f} s); groups, labels, centers and "
+                    f"threshold {threshold.item()!r} equal the resident bf16 fit; peak {peak:,} "
+                    f"B; wire {wire} (the micro-clusters' f32 cf1: {BIG_K * d * 4:,} B)")
+
+            # every Borůvka mode and the row gather on the bf16 sample
+            xs1 = l2_normalize(rows)
+            ref_edges = boruvka_mst(xs1)
+            lines = []
+            for name, kw in (("sharded", {}), ("bcast", {"sweep": "bcast"}),
+                             ("point", {"merge": "point"}), ("no-overlap", {"overlap": False}),
+                             ("row gather", {"pre_reduce": False})):
+                edges, t_e, _, wire = run(boruvka_mst_distributed, mesh, axes, xs1,
+                                          compact=False, **kw)
+                m = edges.u.shape[0]
+                for f, got in edges._asdict().items():
+                    if not torch.equal(bits(got), bits(getattr(ref_edges, f)[:m])):
+                        raise AssertionError(f"boruvka_mst_distributed bf16 {name}: {f} differs")
+                if ref_edges.valid[m:].any():
+                    raise AssertionError(f"boruvka_mst_distributed bf16 {name}: stopped early")
+                lines.append(f"{name} {m // s} rounds {t_e:.4f} s, wire {wire}")
+            log(f"phase 4 distributed bf16 Borůvka on the bf16 sample (s={s}): expanded edges "
+                f"equal resident boruvka_mst bit for bit: {'; '.join(lines)}")
+        finally:
+            dist.destroy_process_group()
+    for name in ("sim_best_edge", "label_stats", "assign_stats", "assign_stats_bounded"):
+        if on_bf16[name] == 0:
+            raise AssertionError(f"distributed bf16: {name} never launched on bf16 rows: "
+                                 f"{dict(on_bf16)}")
+    log(f"phase 4 distributed bf16 launches on bf16 rows (warm runs, summed): {dict(on_bf16)}")
+    del xb
+    torch.cuda.empty_cache()
+
+    # 4 gloo ranks on this host's CPU: the card host's torch carries bf16
+    t = time.perf_counter()
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.distrib.selftest", "--bf16",
+                          "--world", "4", "--timeout", "240"], capture_output=True, text=True,
+                         timeout=300, env=env)
+    if out.returncode != 0 or "SELFTEST OK: bf16" not in out.stdout:
+        raise AssertionError(f"distributed selftest --bf16 on gloo failed:\n{out.stdout}\n"
+                             f"{out.stderr[-4000:]}")
+    log(f"phase 4 distributed bf16 gloo (4 ranks on this host's CPU, torch {torch.__version__}, "
+        f"{time.perf_counter() - t:.1f} s): " + " | ".join(out.stdout.strip().splitlines()))
+    log(f"phase 4 distributed bf16 took {time.perf_counter() - t0:.1f} s")
+    return dict(on_bf16)
 
 
 def row_gather(mesh, axes, xs, ref_edges, card: str) -> None:
@@ -5447,8 +5644,9 @@ def main() -> int:
     del f32_bkc
     # the kernel distributed Buckshot brings; its main-path parity and
     # timing come from the three-shard fold's rounds
-    dist_counts, err, times["component_best_edge"] = phase_distributed(x, card, dev)
+    dist_counts, err, times["component_best_edge"], f32_warm = phase_distributed(x, card, dev)
     counts["component_best_edge"] = dist_counts["component_best_edge"]
+    phase_distributed_bf16(x, card, dev, f32_warm)
     errs["component_best_edge"] = max(errs["component_best_edge"], err)
     # the two kernels' own path: their public ops at the phase 3 shapes
     op_counts = phase_ops_stream_kernels(l2_normalize(x[sidx]), dev)

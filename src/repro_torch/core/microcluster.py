@@ -103,8 +103,15 @@ def pair_similarity(mc: MicroClusters) -> tuple[torch.Tensor, torch.Tensor]:
 
     Returns (pair_sim (K,K), escape (K,K) bool). Diagonal excluded; invalid
     (empty) micro-clusters are isolated.
+
+    The cosines are an f32 product, also of bf16 centers (the sampled bf16
+    documents). The JAX package writes a bf16 product, but under its
+    ``jax.jit`` XLA's excess-precision rewrite drops the product's rounding
+    to bf16, so the reference's pair values are those of the f32 product;
+    a bf16 product here put the threshold up to 2^-8 away.
     """
-    cos = mc.centers @ mc.centers.T  # centers are unit-norm documents
+    c = mc.centers.float()
+    cos = c @ c.T  # centers are unit-norm documents
     pair = cos - mc.min_sim[:, None] - mc.min_sim[None, :]
     pair = torch.clamp(pair, min=0.0)
     escape = (pair == 0.0) & (cos >= torch.minimum(mc.min_sim[:, None], mc.min_sim[None, :]))

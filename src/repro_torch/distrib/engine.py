@@ -15,6 +15,12 @@ task + combiner) plus a per-output reduction kind (the shuffle+reduce):
                             (pod, data) mesh the passes run per tier,
                             innermost first (``_component_reduce``).
 
+Every leaf travels in its own dtype, bf16 included, over NCCL and gloo
+alike: the only bf16 sum is ``sample_rows_distributed``'s one-owner row
+sum, a row plus zeros, which is exact in bf16 (a -0.0 entry comes back
++0.0, as from the JAX package's psum). torch 2.11's and 2.13's gloo both
+carry bf16 (``python -m repro_torch.distrib.selftest --bf16``).
+
 Reduce kinds may sit at any PREFIX of the output tree of dicts: one kind
 covers the whole subtree below it ('component' sees its w/row/col triple
 together). Every reduce runs per mesh axis over ``mesh.get_group(axis)``,

@@ -2,7 +2,8 @@
 
 The system has no model weights: its state is the data and the fit (x or
 token counts, ``sample_idx``, initial or fitted centers, labels). Data is
-f32, labels int32, and indices that torch uses to index are int64. Each
+f32 (bf16 where the source is bf16: document rows in bf16), labels int32,
+and indices that torch uses to index are int64. Each
 function puts its tensor on the CUDA device unless ``device`` names another
 (``"cpu"``, as the tests pass); with no card, ``device=None`` raises.
 """
@@ -16,8 +17,14 @@ from repro_torch.common import resolve_device
 
 
 def data(a, device: str | torch.device | None = None) -> torch.Tensor:
-    """f32 tensor of a numpy (or JAX, via ``np.asarray``) float array."""
-    return torch.from_numpy(np.array(a, dtype=np.float32)).to(resolve_device(device))
+    """f32 tensor of a numpy (or JAX, via ``np.asarray``) float array; a bf16
+    array (numpy names its dtype "bfloat16", as JAX's bf16 arrays give it)
+    becomes a bf16 tensor. Both go through f32, which holds every bf16 value
+    exactly. The dtype is told by its name: numpy has no bf16 of its own."""
+    t = torch.from_numpy(np.array(a, dtype=np.float32))
+    if getattr(getattr(a, "dtype", None), "name", None) == "bfloat16":
+        t = t.bfloat16()
+    return t.to(resolve_device(device))
 
 
 def labels(a, device: str | torch.device | None = None) -> torch.Tensor:
@@ -31,5 +38,7 @@ def index(a, device: str | torch.device | None = None) -> torch.Tensor:
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """Host numpy copy of a tensor, on any device."""
-    return t.detach().cpu().numpy()
+    """Host numpy copy of a tensor, on any device; a bf16 tensor's values
+    come back as f32 (exact), since numpy has no bf16."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -211,12 +211,12 @@ def test_bkc_fit_bf16_matches_jax(corpus_bf16, blobs_bf16, data, big_k, k, route
     """bf16 x with bf16 initial centers (the sampled documents): pass 1 on
     bf16 centers, pass 2 on the f32 centers of the groups, as in the JAX
     package. Groups and labels equal, centers within 1e-6, RSS within 1e-4;
-    every route gives the fused route's answer. The threshold lies within a
-    bf16 step (2^-8 relative) of the JAX package's: both packages take the
-    centers' cosines as a bf16 product (bf16 centers), which the two
-    libraries round from f32 sums taken in different orders, so one cosine
-    may land one bf16 step apart and move the bisection's end by part of a
-    step (0 on the tf-idf rows, whose pair values are all 0)."""
+    every route gives the fused route's answer. The threshold is held within
+    1e-6 relative (measured: equal bits in both cases). The JAX package's
+    pair matrix is jitted, and XLA's excess precision drops the bf16
+    rounding of the centers' cosines, so its pair values are those of the
+    f32 product; the port takes the f32 product. With the bf16 product the
+    "blobs" threshold read 0.42873648 against 0.43017671 (2^-8 apart)."""
     jx, x = corpus_bf16 if data == "tfidf" else blobs_bf16
     rows = np.random.default_rng(7).choice(x.shape[0], big_k, replace=False)
     jinit = jx[jnp.asarray(rows)]
@@ -224,7 +224,7 @@ def test_bkc_fit_bf16_matches_jax(corpus_bf16, blobs_bf16, data, big_k, k, route
     want = jbkc.bkc_fit(jx, jinit, big_k, k, **route)
     np.testing.assert_array_equal(_np(got.group_of_mc), np.asarray(want.group_of_mc))
     np.testing.assert_array_equal(_np(got.assignment), np.asarray(want.assignment))
-    np.testing.assert_allclose(_np(got.threshold), np.asarray(want.threshold), rtol=2**-8, atol=0)
+    np.testing.assert_allclose(_np(got.threshold), np.asarray(want.threshold), rtol=1e-6, atol=0)
     np.testing.assert_allclose(_np(got.centers), np.asarray(want.centers), atol=CENTER_ATOL)
     np.testing.assert_allclose(_np(got.best_sim), np.asarray(want.best_sim), atol=SIM_TOL)
     np.testing.assert_allclose(got.rss.item(), float(want.rss), rtol=SUM_RTOL)

@@ -1204,9 +1204,11 @@ def test_sharded_candidates_two_calls_pick_the_same_winners(card, b, cap):
     assert torch.equal(got["tcomp"], by_tcomp[2])
 
 
-def test_boruvka_distributed_nccl_world_1_matches_resident(card, tmp_path):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_boruvka_distributed_nccl_world_1_matches_resident(card, tmp_path, dtype):
     """World-size-1 NCCL group from a FileStore: every mode's expanded edges
-    equal the resident boruvka_mst bit for bit on the card."""
+    equal the resident boruvka_mst bit for bit on the card, on f32 rows and
+    on bf16 rows (sim_best_edge's bf16 mode: the launches counted apart)."""
     import torch.distributed as dist
 
     from repro_torch.core.hac import boruvka_mst
@@ -1214,7 +1216,7 @@ def test_boruvka_distributed_nccl_world_1_matches_resident(card, tmp_path):
     from repro_torch.distrib.sharding import make_flat_mesh
 
     rng = np.random.default_rng(5)
-    xs = interop.data(rng.normal(size=(500, 64)), card)
+    xs = interop.data(rng.normal(size=(500, 64)), card).to(dtype)
     want = boruvka_mst(xs)
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
@@ -1231,6 +1233,81 @@ def test_boruvka_distributed_nccl_world_1_matches_resident(card, tmp_path):
                                    (w.view(torch.int32) if w.dtype == torch.float32 else w)[:n])
             assert not want.valid[n:].any()
             assert ops.launch_counts()["component_best_edge"] > 0
+            launched = ops.launch_counts()["sim_best_edge"]
+            assert launched > 0 and ops.bf16_launch_counts()["sim_best_edge"] == (
+                launched if dtype == torch.bfloat16 else 0)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_cluster_fits_distributed_bf16_nccl_world_1_equal_single_device(card, tmp_path):
+    """bf16 documents through kmeans_distributed (bf16 initial centers),
+    bkc_distributed and buckshot_distributed (both phase-1 flavours), each
+    bounded and not, over a NCCL group of one rank: labels, centers,
+    iterations, and BKC's groups and threshold equal the single-device bf16
+    fits on the card; the sampled rows are bf16 and equal x[ids]; the four
+    row kernels launch on bf16 rows."""
+    import torch.distributed as dist
+
+    from repro_torch.core.bkc import bkc_fit
+    from repro_torch.core.buckshot import buckshot_fit
+    from repro_torch.core.kmeans import kmeans_fit
+    from repro_torch.distrib import cluster as dc
+    from repro_torch.distrib.sharding import make_flat_mesh
+
+    n, k, big_k, s, seed = 1500, 8, 80, 110, 4
+    x = _loose_blobs(n, 96, k, 5).bfloat16().to(card)
+    w = torch.ones(n, device=card)
+    pick = interop.index(np.random.default_rng(3).choice(n, big_k, replace=False), card)
+    init = x[pick]
+    seen = []
+    group_centers = dc._group_centers
+
+    def capture(mc, kk):  # bkc_distributed's groups and threshold
+        seen.append(group_centers(mc, kk))
+        return seen[-1]
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh, axes = make_flat_mesh(), ("data",)
+        ops.reset_launch_counts()
+        for bounded in (False, True):
+            got = dc.kmeans_distributed(mesh, axes, x, w, init[:k], k, bounded=bounded)
+            want = kmeans_fit(x, init[:k], k, bounded=bounded)
+            assert torch.equal(got.assignment, want.assignment)
+            assert torch.equal(got.centers, want.centers)
+            assert got.iterations == want.iterations and got.centers.dtype == torch.float32
+            torch.testing.assert_close(got.rss, want.rss, rtol=1e-6, atol=0)
+
+            seen.clear()
+            dc._group_centers = capture
+            try:
+                got = dc.bkc_distributed(mesh, axes, x, w, init, big_k, k, bounded=bounded)
+            finally:
+                dc._group_centers = group_centers
+            want = bkc_fit(x, init, big_k, k, bounded=bounded)
+            _, groups, threshold = seen[0]
+            assert torch.equal(groups, want.group_of_mc)
+            assert torch.equal(threshold, want.threshold)
+            assert torch.equal(got.assignment, want.assignment)
+            assert torch.equal(got.centers, want.centers)
+
+            ids = dc.sample_indices_distributed(mesh, axes, w, s, seed).long()
+            rows = dc.sample_rows_distributed(mesh, axes, x, w, s, seed)
+            assert rows.dtype == torch.bfloat16
+            assert torch.equal(rows.view(torch.int16), x[ids].view(torch.int16))
+            want = buckshot_fit(x, ids, k, bounded=bounded)
+            for hac in ("replicated", "boruvka"):
+                got = dc.buckshot_distributed(mesh, axes, x, w, k, seed, sample_size=s,
+                                              hac=hac, bounded=bounded)
+                assert torch.equal(got.assignment, want.kmeans.assignment), hac
+                assert torch.equal(got.centers, want.kmeans.centers), hac
+                torch.testing.assert_close(got.rss, want.kmeans.rss, rtol=1e-5, atol=0)
+        on_bf16 = ops.bf16_launch_counts()
+        for name in ("sim_best_edge", "label_stats", "assign_stats", "assign_stats_bounded"):
+            assert on_bf16[name] > 0, on_bf16
     finally:
         dist.destroy_process_group()
 

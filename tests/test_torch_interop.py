@@ -67,3 +67,48 @@ def test_interop_cpu_tensor_owns_its_memory():
     got = interop.data(a, "cpu")
     a[0] = 99.0
     assert got.tolist() == [1.0, 2.0, 3.0]
+
+
+BF16_SOURCES = {
+    # bf16 values: integers, halves, a subnormal-free spread, signed zero
+    "jax": jnp.array([[1.5, -2.25, 0.0], [-0.0, 3.0, 7.125], [1e-3, -65504.0, 2.0**-20]],
+                     dtype=jnp.bfloat16),
+    "jax_row": jnp.array([0.333, -1.0, 250.0], dtype=jnp.bfloat16),
+    "numpy": np.asarray(jnp.array([[0.1, 0.2], [0.3, -0.4]], dtype=jnp.bfloat16)),
+    "empty": jnp.zeros((0, 4), dtype=jnp.bfloat16),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(BF16_SOURCES))
+def test_interop_data_carries_bf16_as_bf16(kind):
+    """A bf16 source (its numpy dtype is named "bfloat16") becomes a bf16
+    tensor with the same values, bits included, and ``to_numpy`` gives them
+    back as f32."""
+    a = BF16_SOURCES[kind]
+    got = interop.data(a, "cpu")
+    assert got.dtype == torch.bfloat16 and got.device.type == "cpu"
+    want = np.array(a, dtype=np.float32)
+    assert tuple(got.shape) == want.shape
+    back = interop.to_numpy(got)
+    assert back.dtype == np.float32
+    np.testing.assert_array_equal(back.view(np.int32), want.view(np.int32))
+    # the bits of the bf16 source itself: its high 16 bits of the f32
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                  np.asarray(a).view(np.int16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.int64, torch.bool])
+def test_interop_to_numpy_keeps_other_dtypes(dtype):
+    """Only bf16 is widened: f32, int32, int64 and bool tensors come back in
+    their own dtype."""
+    t = torch.tensor([[0, 1, 2], [3, 0, 5]]).to(dtype)
+    got = interop.to_numpy(t)
+    assert got.dtype == torch.empty((), dtype=dtype).numpy().dtype
+    np.testing.assert_array_equal(got, t.numpy())
+
+
+def test_interop_to_numpy_of_bf16_tensor_is_f32():
+    t = torch.tensor([0.1, -3.0, 1e30], dtype=torch.bfloat16)
+    got = interop.to_numpy(t)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, t.float().numpy())
