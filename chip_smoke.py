@@ -102,8 +102,10 @@ Phases, in order; any failure raises and exits non-zero:
      bf16 rows 6b, 4b and 7b (phase_timing_bf16_routes): assign_argmax at
      k = 400 (f32 centers, bf16 beside), the bounded pass at BigK = 800 (a
      full sweep with bf16 centers, then f32 centers, the index and carried
-     settings), best_edge on the 3,536 x 3,536 bf16 block, each beside its
-     f32 row, a library call on bf16 operands and its bound.
+     settings, each with the blocks of its launch 1 that worked, row pass
+     and walk, held to what the bounds ask for), best_edge on the
+     3,536 x 3,536 bf16 block, each beside its f32 row, a library call on
+     bf16 operands and its bound.
   4. Paths at full size on the ~1 GB collection (n = 250,000, d = 2,048,
      50 topics), each with its launch counters set to 0 just before and read
      just after: tf-idf on the card, Buckshot with k = 50 (s = 3,536) and the
@@ -117,7 +119,7 @@ Phases, in order; any failure raises and exits non-zero:
      K-Means and bounded Buckshot on the collection in bf16 (routes and
      bounded runs bit-identical to each other, agreement and RSS against
      the f32 BKC recorded, assign_argmax and assign_stats_bounded launched
-     on bf16 rows); then distributed Buckshot (k = 50, s = 3,536)
+     on bf16 rows, the bounded and unbounded runs' warm walls); then distributed Buckshot (k = 50, s = 3,536)
      through the multi-device engine over a NCCL group of world size 1 made
      from a FileStore: the distributed sample (s distinct real rows, equal to
      x at their ids), the sharded Borůvka phase 1 and distributed K-Means,
@@ -320,6 +322,7 @@ from __future__ import annotations
 
 import atexit
 import collections
+import inspect
 import json
 import statistics
 import subprocess
@@ -2039,9 +2042,27 @@ def phase_timing_bf16_routes(xb, xs, state_b, c800f, f32_rows, dev):
             (xb, c1, bnd.idx, bnd.lo, bnd.hi, drift), None, 4, 3),
     }
     del first
+    # the blocks of launch 1 that worked (row pass, walk), where the tree's
+    # wrapper counts them
+    counted = "blocks" in inspect.signature(assign_stats_bounded_cuda).parameters
+    nblk = -(-n // 128)
     for name, (args, perm, nb, p) in settings.items():
         kk = args[1].shape[0]
-        active = n - int(assign_stats_bounded_cuda(*args, perm=perm)[9].sum())
+        blocks = torch.zeros((2, nblk), dtype=torch.int32, device=dev)
+        extra = {"blocks": blocks} if counted else {}
+        active = n - int(assign_stats_bounded_cuda(*args, perm=perm, **extra)[9].sum())
+        worked = "not counted by this tree"
+        if counted:  # row pass: the blocks holding a carried row; walk: the active rows'
+            carried = (args[2] >= 0) & (args[2] < kk)
+            want = torch.stack([
+                torch.nn.functional.pad(carried, (0, nblk * 128 - n)).view(nblk, 128).any(1),
+                torch.arange(nblk, device=dev) < -(-active // 128)]).int()
+            if not torch.equal(blocks, want):
+                raise AssertionError(f"assign_stats_bounded_bf16 {name}: blocks that worked "
+                                     f"{blocks.sum(1).tolist()}, the design's "
+                                     f"{want.sum(1).tolist()}")
+            worked = (f"row pass {int(want[0].sum())}, walk {int(want[1].sum())} of {nblk} "
+                      f"blocks each")
         ms = event_ms(lambda: assign_stats_bounded_cuda(*args, perm=perm), 5)
         plain = event_ms(lambda: ref.assign_stats_bounded_scatter(*args), 3)
         lib = event_ms(lambda: xb @ c800b[:kk].T, 5)
@@ -2051,8 +2072,8 @@ def phase_timing_bf16_routes(xb, xs, state_b, c800f, f32_rows, dev):
             f"plain {plain:.4f} ms, library {lib:.4f} ms (x @ centers.T, bf16 operands), bound "
             f"{bnd_ms[0]:.4f} ms ({bnd_ms[1]}; {p} bf16 product{'s' if p > 1 else ''} a column "
             f"over the active rows, 4*n*d f32 flops), {100 * bnd_ms[0] / ms:.1f} % of it, pruned "
-            f"share {1 - active / n:.4f} (f32 rows, sentinel: "
-            f"{f32_rows['assign_stats_bounded']['ms']:.4f} ms)")
+            f"share {1 - active / n:.4f}, launch 1's working blocks: {worked} (f32 rows, "
+            f"sentinel: {f32_rows['assign_stats_bounded']['ms']:.4f} ms)")
         if name == "sentinel, bf16 centers":  # the table row: a full sweep, BKC's first pass
             rows["assign_stats_bounded_bf16"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                                      bound=bnd_ms)
@@ -2098,7 +2119,8 @@ def phase_bf16_bkc_path(x, truth, n_topics, f32_bkc, dev):
     bounded route's, bit for bit); agreement and RSS against the f32 BKC of
     phase_bkc_path (recorded); bounded against unbounded K-Means at k = 400
     (centers, labels and iterations bit-identical); bounded Buckshot against
-    unbounded (labels equal). Each must launch assign_stats_bounded on bf16
+    unbounded (labels equal); the K-Means and Buckshot pairs again, warm,
+    for the walls beside each other. Each must launch assign_stats_bounded on bf16
     rows, the two-pass route assign_argmax. Returns the launches on bf16
     rows of the bounded BKC run (assign_stats_bounded) and the two-pass run
     (assign_argmax)."""
@@ -2156,24 +2178,31 @@ def phase_bf16_bkc_path(x, truth, n_topics, f32_bkc, dev):
 
     kb, t_kb, kc, kbf = run(kmeans, xb, BKC_K, torch.Generator().manual_seed(SEED), bounded=True)
     ku, t_ku, _, _ = run(kmeans, xb, BKC_K, torch.Generator().manual_seed(SEED), bounded=False)
+    # warm: the same fits again, their kernels built and their buffers held
+    _, w_kb, _, _ = run(kmeans, xb, BKC_K, torch.Generator().manual_seed(SEED), bounded=True)
+    _, w_ku, _, _ = run(kmeans, xb, BKC_K, torch.Generator().manual_seed(SEED), bounded=False)
     if not (torch.equal(kb.centers, ku.centers) and torch.equal(kb.assignment, ku.assignment)
             and kb.iterations == ku.iterations):
         raise AssertionError("bf16 bounded and unbounded K-Means differ")
     if kbf["assign_stats_bounded"] != kb.iterations + 1:
         raise AssertionError(f"bf16 bounded kmeans did not run its kernel on bf16 rows: {kbf}")
     log(f"phase 4 kmeans bf16 k={BKC_K}: bounded {t_kb:.4f} s, unbounded {t_ku:.4f} s (cold); "
+        f"warm: bounded {w_kb:.4f} s, unbounded {w_ku:.4f} s; "
         f"{kb.iterations} iterations, centers and labels bit-identical (0 differences); rss "
         f"{kb.rss.item()!r}, purity {purity(kb.assignment, BKC_K):.6f}; launches {kc}, on bf16 "
         f"rows {kbf}")
 
     bb, t_bb, bc, bbf = run(buckshot, xb, K, torch.Generator().manual_seed(SEED), bounded=True)
     bu, t_bu, _, _ = run(buckshot, xb, K, torch.Generator().manual_seed(SEED))
+    _, w_bb, _, _ = run(buckshot, xb, K, torch.Generator().manual_seed(SEED), bounded=True)
+    _, w_bu, _, _ = run(buckshot, xb, K, torch.Generator().manual_seed(SEED))
     if not torch.equal(bb.kmeans.assignment, bu.kmeans.assignment):
         raise AssertionError("bf16 bounded Buckshot differs from the unbounded run")
     if bbf["assign_stats_bounded"] < 1:
         raise AssertionError(f"bf16 bounded Buckshot did not run its kernel on bf16 rows: {bbf}")
-    log(f"phase 4 buckshot bf16 bounded: {t_bb:.4f} s (unbounded {t_bu:.4f} s), labels equal the "
-        f"unbounded run; launches {bc}, on bf16 rows {bbf}")
+    log(f"phase 4 buckshot bf16 bounded: {t_bb:.4f} s (unbounded {t_bu:.4f} s); warm: bounded "
+        f"{w_bb:.4f} s, unbounded {w_bu:.4f} s; labels equal the unbounded run; launches {bc}, "
+        f"on bf16 rows {bbf}")
     del xb
     torch.cuda.empty_cache()
     log(f"phase 4 bf16 routes took {time.perf_counter() - t0:.1f} s")

@@ -38,7 +38,6 @@ from ctypes import c_void_p as P
 
 import torch
 
-from repro_torch.common import sq_row_norms
 from repro_torch.kernels import ref
 
 launches = {"label_stats": 0, "assign_stats": 0, "assign_stats_bounded": 0}
@@ -59,9 +58,9 @@ _SIGNATURES = {
     "assign_stats_bounded": {
         "assign_stats_bounded_slab": [],
         "assign_stats_bounded_rep_chunk": [],
+        "assign_stats_bounded_rows": [P, P, P, I, I, I, I, P, P, P, P, P, P],
         "assign_stats_bounded_chunks": [I, I, I],
-        "assign_stats_bounded": [P, P, P, P, P, P, P, I, I, P, I, I, I, I, F, I]
-        + [P] * 11,
+        "assign_stats_bounded": [P] * 10 + [I, I, P, I, I, I, I, F, I] + [P] * 11,
     },
 }
 
@@ -303,6 +302,38 @@ def slab_cones(
     return cp, perm_p, reps.contiguous(), cone.contiguous()
 
 
+def settled_rows(
+    prev_idx: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, rownorm: torch.Tensor,
+    drift: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bounded pass's row prep, in plain tensor code: which carried
+    assignments the deflated bounds prove settled, given the rows' f32
+    norms. Returns ((n,) int32 idx0, the carried center of a settled row
+    and -1 for an active one; the (n,) bool pruned mask; the deflated hi)."""
+    ok, pidx, lo_adj, hi_adj = ref.deflate_bounds(prev_idx, lo, hi, rownorm, drift)
+    pruned = ok & (lo_adj > hi_adj + ref.PRUNE_MARGIN)
+    return torch.where(pruned, pidx, -1).to(torch.int32), pruned, hi_adj
+
+
+def active_rows(idx0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rows a bounded pass must search (``idx0 < 0``), listed for the
+    bf16 walk without a host read: a cumsum places each active row, a
+    scatter writes it there. Returns ((n,) int32 rows whose first ``count``
+    entries are the active rows in ascending order, the settled ones after
+    them; (1,) int64 ``count``), both on idx0's device."""
+    n = idx0.shape[0]
+    dev = idx0.device
+    active = idx0 < 0
+    pos = torch.cumsum(active, 0)  # an active row's place in the list, from 1
+    count = pos[-1:] if n else torch.zeros((1,), dtype=torch.int64, device=dev)
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    # a settled row goes after the list, in order: every place written once
+    dest = torch.where(active, pos - 1, count + ids - pos)
+    rows = torch.empty((n,), dtype=torch.int32, device=dev)
+    rows.scatter_(0, dest, ids)
+    return rows, count
+
+
 def assign_stats_bounded_cuda(
     x: torch.Tensor,
     centers: torch.Tensor,
@@ -313,6 +344,7 @@ def assign_stats_bounded_cuda(
     w: torch.Tensor | None = None,
     *,
     perm: torch.Tensor | None = None,
+    blocks: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """(n, d), (k, d) f32, or (n, d) bf16 and (k, d) bf16 or f32; carried
     (n,) prev_idx int32, lo, hi f32; (k,) drift[; (n,) w] -> (idx, best_sim,
@@ -322,7 +354,11 @@ def assign_stats_bounded_cuda(
     plain version's exact second value. bf16 x as the module says.
 
     ``perm`` orders the centers into slabs (``ops.build_center_index``); it
-    changes which slabs can be skipped, never a label.
+    changes which slabs can be skipped, never a label. ``blocks``, a zeroed
+    (2, ceil(n / 128)) int32 tensor on x's device, takes on bf16 x a 1 for
+    each block of launch 1 that worked: row 0 the row pass's (the 128-row
+    blocks holding a row with a carried center), row 1 the walk's (one a
+    128 active rows, in list order).
     """
     from repro_torch.kernels import _build
 
@@ -338,21 +374,27 @@ def assign_stats_bounded_cuda(
                            ("hi", hi, torch.float32)):
         _build.require(t, name, dtype, (n,), dev)
     _build.require(drift, "drift", torch.float32, (k,), dev)
+    if blocks is not None:
+        _build.require(blocks, "blocks", torch.int32, (2, -(-n // 128)), dev)
     lib = _lib("assign_stats_bounded")
 
-    # row prep: which carried assignments the deflated bounds prove settled
-    # (the norms in f32: vector_norm of bf16 rows rounds them to bf16)
-    if x.dtype == torch.float32:
-        rownorm = torch.linalg.vector_norm(x, dim=1)
-    else:
-        rownorm = torch.sqrt(sq_row_norms(x))
-    ok, pidx, lo_adj, hi_adj = ref.deflate_bounds(prev_idx, lo, hi, rownorm, drift)
-    pruned = ok & (lo_adj > hi_adj + ref.PRUNE_MARGIN)
-    idx0 = torch.where(pruned, pidx, -1).to(torch.int32)
     cp, perm_p, reps, cone = slab_cones(centers, perm, lib.assign_stats_bounded_slab())
     ns = reps.shape[0]
+    stream = _build.stream(x)
+    idx = torch.empty((n,), dtype=torch.int32, device=dev)
+    best_sim = torch.empty((n,), dtype=torch.float32, device=dev)
+    sec = torch.empty((n,), dtype=torch.float32, device=dev)
+    sums = torch.empty((k, d), dtype=torch.float32, device=dev)
+    counts = torch.empty((k,), dtype=torch.float32, device=dev)
+    min_sim = torch.empty((k,), dtype=torch.float32, device=dev)
+    sumsq = torch.empty((k,), dtype=torch.float32, device=dev)
+    work = None if blocks is None else blocks.data_ptr()
     cg, celem = centers, _build.ELEM[torch.float32]
-    if x.dtype == torch.bfloat16:
+    listed = count = None
+    if x.dtype == torch.float32:
+        rowsq = torch.empty((n,), dtype=torch.float32, device=dev)
+        rownorm = torch.linalg.vector_norm(x, dim=1)
+    else:
         # the tensor cores' operands, rows padded to split_stride(d): the
         # carried centers and the permuted ones as they are (bf16) or split
         # (f32), the slab directions split, padded to the chunk of directions
@@ -365,21 +407,25 @@ def assign_stats_bounded_cuda(
             celem = _build.ELEM[torch.bfloat16]
         else:
             cg, cp, celem = split_bf16x3(centers), split_bf16x3(cp), _ELEM_SPLIT3
-
-    stream = _build.stream(x)
-    idx = torch.empty((n,), dtype=torch.int32, device=dev)
-    best_sim = torch.empty((n,), dtype=torch.float32, device=dev)
-    sec = torch.empty((n,), dtype=torch.float32, device=dev)
-    rowsq = torch.empty((n,), dtype=torch.float32, device=dev)
-    sums = torch.empty((k, d), dtype=torch.float32, device=dev)
-    counts = torch.empty((k,), dtype=torch.float32, device=dev)
-    min_sim = torch.empty((k,), dtype=torch.float32, device=dev)
-    sumsq = torch.empty((k,), dtype=torch.float32, device=dev)
+        # launch 1a: every carried row's similarity to its center, and the
+        # norms (f32 fmaf chains over the bf16 rows) the deflation reads
+        rowsq = torch.zeros((n,), dtype=torch.float32, device=dev)
+        err = lib.assign_stats_bounded_rows(
+            x.data_ptr(), cg.data_ptr(), prev_idx.data_ptr(), celem, n, d, k, idx.data_ptr(),
+            best_sim.data_ptr(), sec.data_ptr(), rowsq.data_ptr(), work, stream,
+        )
+        _build.check(err, "assign_stats_bounded")
+        rownorm = torch.sqrt(rowsq)
+    idx0, pruned, hi_adj = settled_rows(prev_idx, lo, hi, rownorm, drift)
+    if x.dtype == torch.bfloat16:
+        listed, count = active_rows(idx0)
     with _build.device_lock(dev.index):
         chunks, buf, part, part_k = _scratch("assign_stats_bounded", n, k, d, dev, stream)
         err = lib.assign_stats_bounded(
             x.data_ptr(), cg.data_ptr(), cp.data_ptr(), perm_p.data_ptr(),
-            reps.data_ptr(), cone.data_ptr(), idx0.data_ptr(), _build.ELEM[x.dtype], celem, wp,
+            reps.data_ptr(), cone.data_ptr(), idx0.data_ptr(),
+            None if listed is None else listed.data_ptr(),
+            None if count is None else count.data_ptr(), work, _build.ELEM[x.dtype], celem, wp,
             n, d, k, ns, ref.PRUNE_MARGIN, chunks, idx.data_ptr(), best_sim.data_ptr(),
             sec.data_ptr(), rowsq.data_ptr(), part, part_k,
             sums.data_ptr(), counts.data_ptr(), min_sim.data_ptr(),

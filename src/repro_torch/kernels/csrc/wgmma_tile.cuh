@@ -188,26 +188,41 @@ __device__ __forceinline__ void wg_load(unsigned char* dst, const CUtensorMap* m
   }
 }
 
-// Rows ids[0 .. 127] of P row-major (k, stride) bf16 matrices laid one
-// after another (stride a multiple of 8, at least kWgCols: the padded
-// centers or split_bf16x3's parts), columns [k0, k0 + kWgCols), into P
-// staged blocks of 128 rows one after another: 16-byte asynchronous copies
-// to the swizzled places. A row whose id is negative, and the columns past
-// the stride, are filled with zeros. The caller publishes the stage as
-// stored (wg_publish): the copies are generic-proxy writes, fenced into the
-// async proxy before wgmma reads them.
-template <int P>
-__device__ __forceinline__ void wg_gather(unsigned char* dst, const bf16* __restrict__ src,
-                                          const int* ids, int k, int stride, int k0, int lane) {
+// A producer lane's share of a gather of 128 rows by id into a staged
+// block: chunk lane % 8 (8 columns, 16 bytes) of rows lane / 8 + 4m, m <
+// 32, the rows' ids held in registers from one stage to the next, so a
+// stage issues its 32 copies a part back to back (with each id read from
+// shared memory before its copy, the gather ran at about half the rate on
+// an H100: PERF.md section 6, row 4b).
+struct GatherRows {
+  int id[32];
+  __device__ __forceinline__ GatherRows(const int* ids, int lane) {
 #pragma unroll
-  for (int p = 0; p < P; ++p)
-    for (int e = lane; e < kPipeRows * 8; e += 32) {
-      const int r = e >> 3, c = e & 7, id = ids[r], col = k0 + 8 * c;
-      const bool in = id >= 0 && col < stride;
-      cp_async16(dst + p * kWgBlock + 2 * wg_at(r, 8 * c),
-                 src + (in ? ((size_t)p * k + id) * stride + col : 0), in ? 16 : 0);
-    }
-}
+    for (int m = 0; m < 32; ++m) id[m] = ids[(lane >> 3) + 4 * m];
+  }
+  // Columns [k0, k0 + kWgCols) of the rows of P row-major (k, stride) bf16
+  // matrices laid one after another (stride a multiple of 8: the padded
+  // centers, split_bf16x3's parts, or x itself with d % 8 == 0 on a
+  // 16-byte base), into P staged blocks of 128 rows one after another:
+  // 16-byte asynchronous copies to the swizzled places. A row whose id is
+  // negative, and the columns past `cols`, are filled with zeros. The
+  // caller publishes the stage as stored: the copies are generic-proxy
+  // writes, fenced into the async proxy before wgmma reads them.
+  template <int P>
+  __device__ __forceinline__ void copy(unsigned char* dst, const bf16* __restrict__ src, int k,
+                                       int stride, int cols, int k0, int lane) const {
+    const int c = lane & 7, col = k0 + 8 * c;
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int m = 0; m < 32; ++m) {
+        const int r = (lane >> 3) + 4 * m;
+        const bool in = id[m] >= 0 && col < cols;
+        cp_async16(dst + p * kWgBlock + 2 * wg_at(r, 8 * c),
+                   src + (in ? ((size_t)p * k + id[m]) * stride + col : 0), in ? 16 : 0);
+      }
+  }
+};
 
 // A producer lane's arrival on stage i's barrier: once its asynchronous
 // copies land or, after plain stores, fenced into the async proxy through

@@ -868,6 +868,117 @@ def test_bf16_bounded_all_rows_pruned(card, centers_dtype):
     assert again[9].all()
 
 
+# --------------------------------- bf16 bounded pass: the row pass and the compacted walk
+#
+# On bf16 x launch 1 is a row pass over blocks of 128 consecutive rows (only
+# blocks holding a row with a carried center work; it gives the norms the
+# deflation reads) and a walk over the active rows, listed in order and cut
+# into blocks of 128, which sweeps slabs in pairs. Here the
+# settled rows are chosen row by row: integer rows near integer centers
+# whose gaps clear the margin, carried bounds from the plain version's full
+# sweep (exact), so at zero drift every row is settled until invalidated.
+
+
+def compact_case(rng, n, k, d, card, centers_dtype, offset=0):
+    """bf16 integer rows (at ``offset`` elements into their allocation) near
+    integer centers, weights 0-2, and the carried bounds of the plain full
+    sweep: every row settles at zero drift."""
+    c = rng.integers(-4, 5, size=(k, d)).astype(np.float32)
+    x = c[rng.integers(0, k, size=n)] + rng.integers(-1, 2, size=(n, d))
+    x = _at_offset(interop.data(x, card).bfloat16(), offset)
+    centers = interop.data(c, card).to(centers_dtype)
+    w = _ints(rng, (n,), 0, 2, card)
+    full = ref.assign_stats_bounded(x.float(), centers.float(), *ops.bounds_identity(n, card),
+                                    torch.zeros((k,), device=card), w)
+    return x, centers, w, ops.Bounds(full[6], full[7], full[8])
+
+
+def check_compacted(x, centers, w, bounds, drift, perm=None):
+    """check_bounded_bf16, integer rows equal to the plain version (hi
+    exact where pruned or k <= 64), and the blocks of launch 1 that worked:
+    the row pass's = the 128-row blocks holding a row with a carried center,
+    the walk's = ceil(active rows / 128). Returns the pass's outputs."""
+    n, k = x.shape[0], centers.shape[0]
+    got = check_bounded_bf16(x, centers, bounds, drift, w, perm)
+    _check_bounded(got, ref.assign_stats_bounded(x.float(), centers.float(), *bounds, drift, w), k)
+    nb = -(-n // 128)
+    blocks = torch.zeros((2, nb), dtype=torch.int32, device=x.device)
+    again = assign_stats_bounded_cuda(x, centers, *bounds, drift, w, perm=perm, blocks=blocks)
+    _same_bits(again, got)
+    carried = torch.nn.functional.pad((bounds.idx >= 0) & (bounds.idx < k), (0, nb * 128 - n))
+    assert torch.equal(blocks[0].bool(), carried.view(nb, 128).any(1))
+    active = n - int(got[9].sum())
+    assert torch.equal(blocks[1].bool(), torch.arange(nb, device=x.device) < -(-active // 128))
+    return got
+
+
+COMPACT_PATTERNS = ["one_per_block", "active_128", "active_129", "runs_across_borders",
+                    "all_active", "all_settled"]
+# (n, d, offset): x by the copy engine and 16-byte gathers; d < 64 (plain
+# stores, 16-byte gathers with zeros past d); d < 64 and a base off 16
+# bytes (plain stores, 2-byte gathers); d off 8 (the same)
+COMPACT_SHAPES = [(1000, 64, 0), (300, 40, 0), (300, 40, 1), (700, 130, 0)]
+
+
+@pytest.mark.parametrize("pattern", COMPACT_PATTERNS)
+@pytest.mark.parametrize("centers_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,d,offset", COMPACT_SHAPES)
+def test_bf16_bounded_compacted_walk(card, n, d, offset, centers_dtype, pattern):
+    """The bounded bf16 pass at BigK = 800 with the active rows laid out
+    against the 128-row blocks: one per block, exactly 128 and 129 active
+    rows at random, runs across block borders, all active, all settled;
+    every output but hi equal to assign_stats' bf16 pass and (integer rows)
+    to the plain version, the working blocks those the design asks for."""
+    rng = np.random.default_rng(n + d + offset + COMPACT_PATTERNS.index(pattern) + 10 * (
+        centers_dtype == torch.float32))
+    k = 800
+    x, centers, w, carried = compact_case(rng, n, k, d, card, centers_dtype, offset)
+    stale = np.zeros(n, dtype=bool)
+    if pattern == "one_per_block":
+        stale[37::128] = True
+    elif pattern in ("active_128", "active_129"):
+        stale[rng.choice(n, int(pattern[-3:]), replace=False)] = True
+    elif pattern == "runs_across_borders":
+        for b in range(128, n + 128, 128):
+            stale[max(0, b - 5):b + 3] = True
+    elif pattern == "all_active":
+        stale[:] = True
+    stale = torch.from_numpy(stale).to(card)
+    bounds = ops.bounds_invalidate(carried, stale)
+    zero = torch.zeros((k,), device=card)
+    for perm in (None, ops.build_center_index(centers.float()).perm):
+        got = check_compacted(x, centers, w, bounds, zero, perm)
+        assert torch.equal(got[9], ~stale)  # every row not invalidated is settled
+
+
+@pytest.mark.parametrize("centers_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [1, 17, 64, 65, 129, 800, 4200])
+def test_bf16_bounded_walk_pairs(card, k, centers_dtype):
+    """The walk's pairs of slabs: one slab (k <= 64: hi exact), a pair
+    (65), a last pair of one slab (129, 800), more than one chunk of 32
+    slab directions (4,200: 66 slabs, the last chunk 2); under the sentinel
+    (a full sweep), carried bounds after two centers move with every fifth
+    row invalidated, and through the center index."""
+    rng = np.random.default_rng(k + 2 * (centers_dtype == torch.float32))
+    n, d = 300, 64
+    x, centers, w, _ = compact_case(rng, n, k, d, card, centers_dtype)
+    zero = torch.zeros((k,), device=card)
+    first = check_compacted(x, centers, w, ops.bounds_identity(n, card), zero)
+    assert not first[9].any()
+    moved = centers.clone()
+    moved[0, 0] += 1
+    moved[k // 2, d - 1] -= 1
+    drift = torch.linalg.vector_norm(moved.float() - centers.float(), dim=1)
+    stale = torch.zeros((n,), dtype=torch.bool, device=card)
+    stale[::5] = True
+    bounds = ops.bounds_invalidate(ops.Bounds(first[6], first[7], first[8]), stale)
+    for perm in (None, ops.build_center_index(moved.float()).perm):
+        got = check_compacted(x, moved, w, bounds, drift, perm)
+        if k > 1:
+            assert got[9].any()
+        assert not got[9][stale].any()
+
+
 # (r, c): every alignment of a bf16 row start (c = 4,097 to 4,104), labels
 # past what shared memory stages, rows around the persistent grid
 BF16_BEST_EDGE_CASES = [(300, 270), (1, 129), (33, 1), (2000, 2000), (0, 5), (5, 0), (7, 4097),
