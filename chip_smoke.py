@@ -1118,6 +1118,20 @@ def phase_parity_bf16(xb, xsb, dev):
     del xf, a, want
     torch.cuda.empty_cache()
 
+    # the 1 GB bf16 fold of assign_stats (f32 centers, the weights above)
+    # against its in-order model, bit for bit: eager ops on the card, each
+    # multiply and add its own operation (never fused)
+    t1 = time.perf_counter()
+    (idx1, best1, *stats), rowsq, chunks = gates._assign_stats_with_rowsq(xb, c_f32, w)
+    want = ref.fold_in_order(xb, idx1, K, chunks, w, rowsq, best1)
+    for name, got, v in zip(("sums", "counts", "min_sim", "sumsq"), stats,
+                            (want[0], want[1], want[3], want[2])):
+        gates._fold_bits_equal(f"assign_stats bf16 {n}x{d} fold {name}", got, v)
+    log(f"phase 2 parity bf16: assign_stats' fold at {n}x{d} (k={K}, {chunks} chunks) equals "
+        f"ref.fold_in_order bit for bit ({time.perf_counter() - t1:.1f} s)")
+    del idx1, best1, stats, rowsq, want
+    torch.cuda.empty_cache()
+
     # memory: a hidden f32 copy of x would add n * d * 4 bytes
     centers = c_f32
     torch.cuda.synchronize()
@@ -1190,7 +1204,8 @@ def phase_timing_bf16(xb, xsb, f32_rows, dev):
         "label_stats_bf16": dict(
             ms=event_ms(ls_call, 50),
             cold_ms=event_ms_cold(ls_call, 30),
-            profiled_ms=profiled_kernel_ms(ls_call, 20, ("stats_fold", "stats_reduce")),
+            profiled_ms=profiled_kernel_ms(ls_call, 20, ("stats_classes", "stats_sort",
+                                                          "stats_fold", "stats_reduce")),
             plain_ms=event_ms(lambda: ref.label_stats_scatter(xsb, labels, K), 50),
             library_ms=event_ms(
                 lambda: torch.zeros((K, d), dtype=xsb.dtype, device=dev).index_add_(0, lib_idx, xsb), 50),
@@ -1234,7 +1249,63 @@ def phase_timing_bf16(xb, xsb, f32_rows, dev):
         f"alone, profiled: {bc['profiled_ms']:.4f} ms, plain {bc['plain_ms']:.4f} ms, library "
         f"{bc['library_ms']:.4f} ms (x @ centers.T, bf16 centers, on tensor cores), bound "
         f"{bc['bound'][0]:.4f} ms ({bc['bound'][1]})")
+    rows.update(timing_fold_bf16(xb, dev))
     log(f"phase 3 timing bf16 took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def timing_fold_bf16(xb, dev):
+    """The fold alone on bf16 rows at the 1 GB shape, label_stats over
+    nearest-center labels (the labels a K-Means or BKC pass folds) for k = 50
+    and k = BigK = 800: back to back, its kernels alone (profiled), the
+    plain version, index_add_ into bf16 sums and the bound (x read once,
+    labels, the sums written). Where the tree has ref.fold_in_order, the
+    call is held to it bit for bit (max_abs_err 0.0). Only public wrappers
+    otherwise: an older tree is timed the same way (``--kernels``)."""
+    import torch
+
+    from repro_torch.kernels import assign_stats as ak
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.assign_argmax import assign_argmax_cuda
+    from repro_torch.kernels.assign_stats import label_stats_cuda
+
+    n, d = xb.shape
+    g = torch.Generator().manual_seed(7)
+    rows = {}
+    for k in (K, BIG_K):
+        lab = assign_argmax_cuda(xb, xb[torch.randperm(n, generator=g)[:k].to(dev)])[0]
+        sizes = torch.bincount(lab.long(), minlength=k)
+
+        def call():
+            return label_stats_cuda(xb, lab, k)
+
+        err = float("nan")
+        if hasattr(ref, "fold_in_order"):
+            chunks = ak._chunks("label_stats", n, k, d, dev.index or 0)
+            got, want = call(), ref.fold_in_order(xb, lab, k, chunks)
+            for name, a, b in zip(("sums", "counts"), got, want):
+                if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                    raise AssertionError(f"label_stats bf16 fold k={k} {name}: not the bits of "
+                                         "ref.fold_in_order")
+            err = max((a - b).abs().max().item() for a, b in zip(got, want))
+            del got, want
+        r = dict(
+            ms=event_ms(call, 20),
+            profiled_ms=profiled_kernel_ms(call, 5, ("stats_classes", "stats_sort", "stats_fold",
+                                                     "stats_reduce")),
+            plain_ms=event_ms(lambda: ref.label_stats_scatter(xb, lab, k), 5),
+            library_ms=event_ms(lambda: torch.zeros((k, d), dtype=xb.dtype, device=dev)
+                                .index_add_(0, lab.long(), xb), 20),
+            bound=bound_ms(2.0 * n * d, n * d * 2 + n * 4 + k * d * 4 + k * 4),
+            max_abs_err=err,
+        )
+        rows[f"label_stats_bf16_fold_k{k}"] = r
+        log(f"phase 3 timing label_stats_bf16 fold at n={n} d={d} k={k} (largest label "
+            f"{int(sizes.max())} rows, top 5 {sizes.sort(descending=True).values[:5].tolist()}): "
+            f"kernel {r['ms']:.4f} ms back to back (its kernels alone, profiled: "
+            f"{r['profiled_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, index_add_ into bf16 "
+            f"sums {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}): "
+            f"{r['bound'][0] / r['ms']:.1%} of it; against ref.fold_in_order max abs err {err}")
     return rows
 
 
@@ -5739,6 +5810,15 @@ def main() -> int:
     for name in ("sim_best_edge", "label_stats", "assign_stats", "assign_argmax",
                  "assign_stats_bounded", "best_edge"):
         replaces[f"{name}_bf16"] = replaces[name]
+    # the bf16 fold alone at the 1 GB shape (launches: every bf16 fold of the
+    # main path, one per label_stats, assign_stats and bounded call)
+    folds = sum(counts.get(f"{name}_bf16", 0)
+                for name in ("label_stats", "assign_stats", "assign_stats_bounded"))
+    for k in (K, BIG_K):
+        name = f"label_stats_bf16_fold_k{k}"
+        replaces[name] = ("src/repro_torch/kernels/csrc/label_stats.cuh",
+                          "src/repro/kernels/assign_stats.py:614")
+        counts[name], errs[name] = folds, times[name]["max_abs_err"]
     kernels = []
     for name, (source, tpu) in replaces.items():
         r = times[name]

@@ -47,10 +47,12 @@ bf16_launches = {"label_stats": 0, "assign_stats": 0, "assign_stats_bounded": 0}
 _SIGNATURES = {
     "label_stats": {
         "label_stats_chunks": [I, I, I],
+        "label_stats_lists": [I, I, I],
         "label_stats": [P, I, P, P, I, I, I, I, P, P, P, P, P],
     },
     "assign_stats": {
         "assign_stats_chunks": [I, I, I],
+        "assign_stats_lists": [I, I, I],
         "assign_stats_scratch": [I],
         "assign_stats_split_stride": [I],
         "assign_stats": [P, P, I, I, P, I, I, I, I] + [P] * 11,
@@ -60,6 +62,7 @@ _SIGNATURES = {
         "assign_stats_bounded_rep_chunk": [],
         "assign_stats_bounded_rows": [P, P, P, I, I, I, I, P, P, P, P, P, P],
         "assign_stats_bounded_chunks": [I, I, I],
+        "assign_stats_bounded_lists": [I, I, I],
         "assign_stats_bounded": [P] * 10 + [I, I, P, I, I, I, I, F, I] + [P] * 11,
     },
 }
@@ -98,22 +101,34 @@ def _chunks(name: str, n: int, k: int, d: int, device: int) -> int:
         return getattr(_lib(name), f"{name}_chunks")(n, k, d)
 
 
+def partials_size(name: str, n: int, k: int, d: int, chunks: int, bf16: bool) -> int:
+    """Floats of the fold's scratch: (chunks, k, d) sums and (chunks, 3, k)
+    scalars, then, for bf16 x, from the next multiple of 32 floats, the
+    lists of the bf16 route (``csrc/label_stats.cuh``, ``stats_lists_at``)."""
+    size = chunks * k * (d + 3)
+    if not bf16:
+        return size
+    return -(-size // 32) * 32 + getattr(_lib(name), f"{name}_lists")(n, k, chunks)
+
+
 # per device: the stream it was last used on and the fold's partials buffer
 _workspace: dict[int, tuple[int, torch.Tensor]] = {}
 
 
-def _scratch(name: str, n: int, k: int, d: int, dev: torch.device, stream: int):
-    """The fold's partials: (chunks, k, d) sums, then (chunks, 3, k) scalars,
-    in one buffer per device. Returns (chunks, buf, part, part_k); the
-    caller holds the device's lock and ``buf`` until its launch is enqueued.
+def _scratch(name: str, x: torch.Tensor, k: int, stream: int):
+    """The fold's partials (``partials_size``) in one buffer per device.
+    Returns (chunks, buf, part, part_k); the caller holds the device's lock
+    and ``buf`` until its launch is enqueued.
 
     The buffer lives until a call on another stream, or a larger call,
     replaces it: calls on one stream run in order, so each reuses it. It is
     allocated on the stream of the call, and PyTorch's caching allocator
     hands a freed block out again only to that stream, so a fold enqueued
     there before it is replaced is safe."""
+    n, d = x.shape
+    dev = x.device
     chunks = _chunks(name, n, k, d, dev.index)
-    size = chunks * k * (d + 3)
+    size = partials_size(name, n, k, d, chunks, x.dtype == torch.bfloat16)
     held = _workspace.get(dev.index)
     if held is None or held[0] != stream or held[1].numel() < size:
         _workspace.pop(dev.index, None)
@@ -206,7 +221,7 @@ def label_stats_cuda(
     sums = torch.empty((k, d), dtype=torch.float32, device=dev)
     counts = torch.empty((k,), dtype=torch.float32, device=dev)
     with _build.device_lock(dev.index):
-        chunks, buf, part, part_k = _scratch("label_stats", n, k, d, dev, stream)
+        chunks, buf, part, part_k = _scratch("label_stats", x, k, stream)
         err = lib.label_stats(
             x.data_ptr(), _build.ELEM[x.dtype], idx.data_ptr(), wp, n, d, k, chunks, part, part_k,
             sums.data_ptr(), counts.data_ptr(), stream,
@@ -246,7 +261,7 @@ def assign_stats_cuda(
     tile = torch.empty((n * lib.assign_stats_scratch(k),), dtype=torch.float32, device=dev)
     c, celem = center_operand(x, centers)
     with _build.device_lock(dev.index):
-        chunks, buf, part, part_k = _scratch("assign_stats", n, k, d, dev, stream)
+        chunks, buf, part, part_k = _scratch("assign_stats", x, k, stream)
         err = lib.assign_stats(
             x.data_ptr(), c.data_ptr(), _build.ELEM[x.dtype], celem,
             wp, n, d, k, chunks,
@@ -420,7 +435,7 @@ def assign_stats_bounded_cuda(
     if x.dtype == torch.bfloat16:
         listed, count = active_rows(idx0)
     with _build.device_lock(dev.index):
-        chunks, buf, part, part_k = _scratch("assign_stats_bounded", n, k, d, dev, stream)
+        chunks, buf, part, part_k = _scratch("assign_stats_bounded", x, k, stream)
         err = lib.assign_stats_bounded(
             x.data_ptr(), cg.data_ptr(), cp.data_ptr(), perm_p.data_ptr(),
             reps.data_ptr(), cone.data_ptr(), idx0.data_ptr(),

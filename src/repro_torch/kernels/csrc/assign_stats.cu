@@ -32,9 +32,11 @@
 // order, so idx and best_sim are within 1e-5 of the f32 mode on x.float()
 // (a near-tie may pick the other center) and equal to it on
 // integer-valued rows. The row norms stay the f32 mode's fmaf chains, and
-// launches 2-3 are the f32 mode's fold on the bf16 rows (each element
-// converted exactly): wherever idx agrees, sums, counts and sumsq keep the
-// f32 mode's bits and min_sim is best_sim's. The tile then reads x at half
+// the fold is label_stats.cuh's bf16 route (the classes, the lists, the
+// fold, the reduce), whose adds are the f32 mode's (each element converted
+// exactly):
+// wherever idx agrees, sums, counts and sumsq keep the f32 mode's bits and
+// min_sim is best_sim's. The tile then reads x at half
 // the bytes and is bound by that read (0.31 ms at k = 50); the fold reads x
 // a second time.
 
@@ -43,6 +45,10 @@
 
 extern "C" int assign_stats_chunks(int n, int k, int d) {
   return repro::stats_chunks(n, k, d);
+}
+
+extern "C" int assign_stats_lists(int n, int k, int chunks) {
+  return repro::stats_list_ints(n, k, chunks);
 }
 
 extern "C" int assign_stats_scratch(int k) { return repro::assign_tile_scratch(k); }
@@ -74,8 +80,9 @@ int run(const void* xv, const void* cv, const float* w, int n, int d, int k, int
 
 }  // namespace
 
-// Scratch: rowsq holds n floats, part chunks * k * d, part_k chunks * 3 * k,
-// tile n * assign_stats_scratch(k) (null when that is 0). xelem, celem: the
+// Scratch: rowsq holds n floats, part chunks * k * d, part_k chunks * 3 * k
+// (then, for bf16 x, the fold's lists: label_stats.cu says where), tile
+// n * assign_stats_scratch(k) (null when that is 0). xelem, celem: the
 // element types of x and the centers (kElemF32, kElemBf16, kElemSplit3):
 // both f32, or x bf16 with bf16 centers or with the (3, k,
 // assign_stats_split_stride(d)) bf16 parts of f32 centers.

@@ -824,6 +824,10 @@ extern "C" int assign_stats_bounded_slab() { return BN; }
 
 extern "C" int assign_stats_bounded_rep_chunk() { return kRepChunk; }
 
+extern "C" int assign_stats_bounded_lists(int n, int k, int chunks) {
+  return stats_list_ints(n, k, chunks);
+}
+
 extern "C" int assign_stats_bounded_chunks(int n, int k, int d) {
   return stats_chunks(n, k, d);
 }
@@ -865,7 +869,8 @@ extern "C" int assign_stats_bounded_rows(const void* x, const void* centers, con
 // Both: perm: (ns * 64,) original id per slot, -1 on pad; cone: (3, ns)
 // a_pos, a_neg, b_max; idx0: (n,) carried center of a settled row, -1 for
 // an active one. Scratch: rowsq holds n floats, part chunks * k * d, part_k
-// chunks * 3 * k.
+// chunks * 3 * k (then, for bf16 x, the fold's lists: label_stats.cu says
+// where).
 extern "C" int assign_stats_bounded(
     const void* x, const void* centers, const void* cp, const int* perm,
     const void* reps, const float* cone, const int* idx0, const int* list,

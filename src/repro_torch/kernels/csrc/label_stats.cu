@@ -20,9 +20,15 @@
 // is read once whatever k (label_stats.cuh). A second launch adds the chunk
 // partials in chunk order. A null w is weight 1: no fill of ones per call.
 //
-// bf16 x (the JAX kernel upcasts x in its body): a stage holds half the
-// bytes, the floor halves (4.4 us at Buckshot's phase-1 shape), and the
-// sums and totals have the bits of the f32 launch on x.float().
+// bf16 x (the JAX kernel upcasts x in its body): the floor halves (0.31 ms
+// at the 1 GB shape, 4.4 us at Buckshot's phase-1 shape). The f32 route's
+// 128-row stages would carry half their bytes and every column tile would
+// sort the same labels again, so bf16 rows take a route of their own
+// (label_stats.cuh): from 65,536 rows one launch deals the labels to the
+// consumer warps by their share of a sample, one lists each stage's rows
+// by warp once, the fold streams 256-row stages (an f32 stage's bytes)
+// beside those lists, and the reduce follows, the order of adds unchanged,
+// so the sums and totals have the bits of the f32 launch on x.float().
 
 #include "label_stats.cuh"
 
@@ -30,7 +36,14 @@ extern "C" int label_stats_chunks(int n, int k, int d) {
   return repro::stats_chunks(n, k, d);
 }
 
-// Scratch: part holds chunks * k * d floats, part_k chunks * 3 * k. elem:
+// Ints of the bf16 route's lists, which follow the partials in the scratch.
+extern "C" int label_stats_lists(int n, int k, int chunks) {
+  return repro::stats_list_ints(n, k, chunks);
+}
+
+// Scratch: part holds chunks * k * d floats, part_k chunks * 3 * k; for bf16
+// x, from part + chunks * k * (d + 3) rounded up to a multiple of 32 floats,
+// label_stats_lists ints. elem:
 // x's element type (kElemF32 or kElemBf16, csrc/tma.cuh).
 extern "C" int label_stats(const void* x, int elem, const int* idx, const float* w,
                            int n, int d, int k, int chunks, float* part,

@@ -255,6 +255,82 @@ def label_stats_scatter(
     return segment_sum(xf, idx, k), segment_sum(wf, idx, k)
 
 
+def fold_rows_per_chunk(n: int, chunks: int) -> int:
+    """Rows of each of the fold's ``chunks`` row chunks (the last may hold
+    fewer): ceil(n / chunks) rounded up to a multiple of 128, as
+    ``csrc/label_stats.cuh``'s ``launch_stats`` cuts them."""
+    per = -(-n // chunks)
+    return -(-per // 128) * 128
+
+
+def fold_in_order(
+    x: torch.Tensor,
+    idx: torch.Tensor,
+    k: int,
+    chunks: int,
+    w: torch.Tensor | None = None,
+    rowsq: torch.Tensor | None = None,
+    sim: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None, torch.Tensor | None]:
+    """The kernels' fold (``csrc/label_stats.cuh``), add for add: (sums,
+    counts, sumsq, min_sim), the last two None without ``rowsq``, ``sim``.
+
+    Rows with a label in [0, k) and a weight other than 0 (a null ``w``
+    weighs 1) fold into their label. Within each row chunk
+    (``fold_rows_per_chunk``) a label's rows are added in row order from 0,
+    ``acc + w * x`` (``acc + x`` without ``w``) with the product rounded to
+    f32 before the add; counts add ``w``, sumsq ``w * rowsq``, and min_sim
+    keeps the lowest ``sim`` of the rows with w > 0. The chunk partials are
+    then added in chunk order from 0 (min_sim: the lowest; BIG where the
+    count is 0). Plain tensor code for tests and ``chip_smoke.py``: step j
+    adds every label's j-th row of a chunk at once, multiply and add as two
+    operations (never fused), on x's device; bf16 rows are upcast exactly."""
+    n, d = x.shape
+    dev = x.device
+    lab = idx.long()
+    own = (lab >= 0) & (lab < k)
+    if w is not None:
+        own &= w != 0
+    wf = torch.ones((n,), device=dev) if w is None else w.float()
+    rpc = fold_rows_per_chunk(n, chunks)
+    sums = torch.zeros((k, d), device=dev)
+    counts = torch.zeros((k,), device=dev)
+    sumsq = torch.zeros((k,), device=dev)
+    mins = torch.full((k,), BIG, device=dev)
+    for c in range(chunks):
+        r0 = min(n, c * rpc)
+        r1 = min(n, r0 + rpc)
+        rows = r0 + torch.nonzero(own[r0:r1]).flatten()
+        labs, order = torch.sort(lab[rows], stable=True)  # each label's rows in row order
+        rows = rows[order]
+        _, run = torch.unique_consecutive(labs, return_counts=True)
+        rank = torch.arange(rows.numel(), device=dev) - torch.repeat_interleave(
+            torch.cumsum(run, 0) - run, run)
+        rank, order = torch.sort(rank, stable=True)  # step j: every label's j-th row
+        rows, labs = rows[order], labs[order]
+        part = torch.zeros((k, d), device=dev)
+        pc = torch.zeros((k,), device=dev)
+        psq = torch.zeros((k,), device=dev)
+        pmin = torch.full((k,), BIG, device=dev)
+        at = 0
+        for m in torch.bincount(rank).tolist():
+            r, lj = rows[at:at + m], labs[at:at + m]  # distinct labels
+            at += m
+            xj, wj = x[r].float(), wf[r]
+            part[lj] = part[lj] + (xj if w is None else wj[:, None] * xj)
+            pc[lj] = pc[lj] + wj
+            if rowsq is not None:
+                psq[lj] = psq[lj] + (rowsq[r] if w is None else wj * rowsq[r])
+            if sim is not None:
+                pmin[lj] = torch.where(wj > 0, torch.fmin(pmin[lj], sim[r]), pmin[lj])
+        sums = sums + part
+        counts = counts + pc
+        sumsq = sumsq + psq
+        mins = torch.fmin(mins, pmin)
+    return (sums, counts, None if rowsq is None else sumsq,
+            None if sim is None else torch.where(counts > 0, mins, BIG))
+
+
 def best_edge(
     sim: torch.Tensor, labels_row: torch.Tensor, labels_col: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -13,6 +13,8 @@ centers/labels, 16 or 32 columns of d).
 
 from __future__ import annotations
 
+import zlib
+
 import numpy as np
 import pytest
 import torch
@@ -1804,7 +1806,8 @@ def _label_stats_delayed(x, idx, k, w):
     lib = _build.library("label_stats_delay", ak._SIGNATURES["label_stats"])
     n, d = x.shape
     chunks = lib.label_stats_chunks(n, k, d)
-    part = torch.empty((chunks * k * (d + 3),), dtype=torch.float32, device=x.device)
+    size = ak.partials_size("label_stats", n, k, d, chunks, x.dtype == torch.bfloat16)
+    part = torch.empty((size,), dtype=torch.float32, device=x.device)
     sums = torch.empty((k, d), dtype=torch.float32, device=x.device)
     counts = torch.empty((k,), dtype=torch.float32, device=x.device)
     err = lib.label_stats(
@@ -1817,21 +1820,134 @@ def _label_stats_delayed(x, idx, k, w):
     return sums, counts
 
 
-@pytest.mark.parametrize("k", [1000, 2000, 4200])  # label tiles of 1,000-1,050: 3 stages
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("k", [1000, 2000, 4200])  # label tiles of 1,000-1,050: 3 stages (f32)
 @pytest.mark.parametrize("weighted", [False, True])
-def test_label_stats_sorters_with_later_stages_landing_first(card, k, weighted):
+def test_label_stats_sorters_with_later_stages_landing_first(card, k, weighted, dtype):
     """Each sorter warp must wait on every phase of the ring slots it owns:
     with a three-stage ring a sorter that took alternate stages would find
     a later stage's copies landed and read a slot whose copies had not.
-    The debug build lands them in that order on every odd stage."""
+    The debug build lands them in that order on every odd stage; on bf16
+    rows (the bf16 route: no sorter warps, four stages here) the consumers
+    must likewise wait on each slot's own phase."""
     rng = np.random.default_rng(k + weighted)
     n, d = 60_000, 256
-    x = _ints(rng, (n, d), -3, 3, card)
+    x = _ints(rng, (n, d), -3, 3, card).to(dtype)
     idx = interop.labels(rng.integers(-1, k + 1, size=n), card)
     w = _ints(rng, (n,), 0, 2, card) if weighted else None
     want = ref.label_stats(x, idx, k, w)
     for _ in range(2):
         _equal(_label_stats_delayed(x, idx, k, w), want)
+
+
+# ------------------------------------------------------ the fold's order of adds
+
+
+def _fold_bits_equal(name, got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (
+        f"{name}: {int((got.view(torch.int32) != want.view(torch.int32)).sum())} elements differ")
+
+
+def _fold_chunks(name, n, k, d):
+    from repro_torch.kernels import assign_stats as ak
+
+    return ak._chunks(name, n, k, d, torch.cuda.current_device())
+
+
+def _assign_stats_with_rowsq(x, centers, w):
+    """assign_stats_cuda through its C entry, also returning the row norms
+    launch 1 hands the fold (the wrapper keeps them to itself)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import assign_stats as ak
+
+    n, d = x.shape
+    k = centers.shape[0]
+    dev = x.device
+    lib = _build.library("assign_stats", ak._SIGNATURES["assign_stats"])
+    chunks = _fold_chunks("assign_stats", n, k, d)
+    part = torch.empty((ak.partials_size("assign_stats", n, k, d, chunks,
+                                         x.dtype == torch.bfloat16),), device=dev)
+    idx = torch.empty((n,), dtype=torch.int32, device=dev)
+    best, rowsq = (torch.empty((n,), device=dev) for _ in range(2))
+    sums = torch.empty((k, d), device=dev)
+    counts, min_sim, sumsq = (torch.empty((k,), device=dev) for _ in range(3))
+    tile = torch.empty((n * lib.assign_stats_scratch(k),), device=dev)
+    c, celem = ak.center_operand(x, centers)
+    err = lib.assign_stats(
+        x.data_ptr(), c.data_ptr(), _build.ELEM[x.dtype], celem,
+        None if w is None else w.data_ptr(), n, d, k, chunks, idx.data_ptr(), best.data_ptr(),
+        rowsq.data_ptr(), part.data_ptr(), part.data_ptr() + 4 * chunks * k * d,
+        tile.data_ptr() or None, sums.data_ptr(), counts.data_ptr(), min_sim.data_ptr(),
+        sumsq.data_ptr(), _build.stream(x),
+    )
+    _build.check(err, "assign_stats")
+    return (idx, best, sums, counts, min_sim, sumsq), rowsq, chunks
+
+
+# (n, k, d, offset): n across the 128- and 256-row stages and the chunk
+# borders ("border": the last chunk one row long, "border-1": one row
+# short), label tiles (k = 1,600 on f32), d with odd column tiles and off
+# the copy engine (d = 31), x 1 or 37 elements into its allocation; from
+# 65,536 rows the bf16 route deals the labels to its warps by a sample (per
+# label tile: k = 2,000 has two in both modes)
+FOLD_ORDER_CASES = [(255, 50, 2048, 0), (256, 50, 2048, 1), (257, 800, 2048, 0),
+                    ("border", 50, 2048, 0), ("border-1", 800, 2048, 37),
+                    ("border", 800, 96, 0), ("border-1", 1, 130, 0), (3000, 1, 31, 0),
+                    (4097, 1600, 130, 0), (2000, 1600, 96, 37), (5000, 50, 31, 1),
+                    (6000, 800, 130, 1), (70_000, 800, 96, 0), (100_000, 50, 64, 1),
+                    (70_000, 2000, 64, 0)]
+
+
+def _fold_rows(case_n, name, k, d):
+    """n of a case: as given, or placed on a chunk border of the card's plan
+    at 40,000 rows (the chunk count is the card's for the n returned)."""
+    if isinstance(case_n, int):
+        return case_n
+    n0 = 40_000
+    c = _fold_chunks(name, n0, k, d)
+    r = ref.fold_rows_per_chunk(n0, c)
+    return (c - 1) * r + 1 if case_n == "border" else c * r - 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel", ["label_stats", "assign_stats"])
+@pytest.mark.parametrize("n,k,d,offset", FOLD_ORDER_CASES)
+def test_fold_equals_its_in_order_model(card, n, k, d, offset, kernel, dtype):
+    """The fold of label_stats and of assign_stats on float rows (unit rows,
+    f32 or rounded to bf16; float weights with zeros and negatives; labels
+    outside [0, k), a quarter of the rows in one cluster) equals
+    ref.fold_in_order at the card's chunk count bit for bit: each label's
+    rows of a chunk added in row order, the chunks in chunk order.
+    assign_stats' fold is held on its own labels, best similarities and row
+    norms."""
+    rng = np.random.default_rng(zlib.crc32(repr((n, k, d, offset)).encode()))
+    n = _fold_rows(n, kernel, k, d)
+    x = _at_offset(_unit_rows(rng, (n, d), card).to(dtype), offset)
+    w = torch.from_numpy(np.where(rng.random(n) < 0.1, 0.0, rng.uniform(-0.5, 2.0, n))
+                         .astype(np.float32)).to(card)
+    fields = ("sums", "counts", "sumsq", "min_sim")
+    if kernel == "label_stats":
+        lab = rng.integers(-2, k + 2, size=n)
+        lab[rng.random(n) < 0.25] = min(1, k - 1)  # a large cluster: runs of one label
+        idx = interop.labels(lab, card)
+        chunks = _fold_chunks("label_stats", n, k, d)
+        for wi in (w, None):
+            got = label_stats_cuda(x, idx, k, wi)
+            want = ref.fold_in_order(x, idx, k, chunks, wi)
+            for name, g, v in zip(fields, got, want):
+                _fold_bits_equal(f"label_stats {name} w={wi is not None}", g, v)
+        return
+    centers = _unit_rows(rng, (k, d), card)  # f32: split into three bf16 parts for bf16 x
+    (idx, best, sums, counts, min_sim, sumsq), rowsq, chunks = _assign_stats_with_rowsq(
+        x, centers, w)
+    for name, g, v in zip(("idx", "best_sim", "sums", "counts", "min_sim", "sumsq"),
+                          (idx, best, sums, counts, min_sim, sumsq),
+                          assign_stats_cuda(x, centers, w)):
+        _fold_bits_equal(f"assign_stats {name} through its C entry", g, v)
+    want = ref.fold_in_order(x, idx, k, chunks, w, rowsq, best)
+    for name, g, v in zip(fields, (sums, counts, sumsq, min_sim), want):
+        _fold_bits_equal(f"assign_stats {name}", g, v)
 
 
 # ------------------------------------------------------ the online service
