@@ -68,9 +68,11 @@ Phases, in order; any failure raises and exits non-zero:
      memory by less than n * d * 2 bytes (an f32 copy of x would add
      n * d * 4). Then the bf16 two-pass and bounded routes
      (phase_parity_bf16_routes): the tile-width probe (one product's bits at
-     N = 16, 32, 64, 128 and at every column), assign_argmax under gates
-     (a), (b), (e) with (c) and bit for bit equal to assign_stats' bf16
-     pass, the bounded pass equal to assign_stats' bf16 pass on every output
+     N = 16, 32, 64, 128 and at every column, and at a narrowed last center
+     tile, k = 128 t + r), assign_argmax under gates (a), (b), (e) with (c)
+     and bit for bit equal to assign_stats' bf16 pass (also at its own
+     plan's seams, and at 1 GB for k = 800 with bf16 centers and k = 400
+     with f32 centers), the bounded pass equal to assign_stats' bf16 pass on every output
      but hi and the carry (k in {1, 16, 17, 63, 64, 65, 128, 129, 400, 800},
      sentinel, carried and invalidated bounds, duplicate centers across slab
      edges, a center index), best_edge on bf16 blocks torch.equal to its
@@ -100,7 +102,8 @@ Phases, in order; any failure raises and exits non-zero:
      assign_stats is timed with bf16 centers too, each center type beside a
      library call, the f32 centers' a stand-in on bf16 centers); then the
      bf16 rows 6b, 4b and 7b (phase_timing_bf16_routes): assign_argmax at
-     k = 400 (f32 centers, bf16 beside), the bounded pass at BigK = 800 (a
+     k = 400 (f32 centers, bf16 beside) and at BigK = 800 with bf16 centers
+     (the two-pass BKC's first launch, profiled alone), the bounded pass at BigK = 800 (a
      full sweep with bf16 centers, then f32 centers, the index and carried
      settings, each with the blocks of its launch 1 that worked, row pass
      and walk, held to what the bounds ask for), best_edge on the
@@ -1928,6 +1931,17 @@ def phase_parity_bf16_routes(x, xb, xs, state, dev):
                     gates.test_bf16_assign_argmax_equals_f32_mode(dev, *case, cdt, gate)
                 except AssertionError as e:
                     raise AssertionError(f"assign_argmax bf16 gate {gate} {cdt} {case}") from e
+    # assign_argmax's own plan: the narrowed (and folded) last center tile
+    for d in (130, 2048):
+        for cdt in cdts:
+            gates.test_bf16_tile_width_probe_narrowed_tail(dev, d, cdt)
+    for case in gates.ARGMAX_PLAN_CASES:
+        for cdt in cdts:
+            for gate in gates.BF16_STATS_GATES:
+                try:
+                    gates.test_bf16_assign_argmax_plan_equals_assign_stats(dev, *case, cdt, gate)
+                except AssertionError as e:
+                    raise AssertionError(f"assign_argmax bf16 plan gate {gate} {cdt} {case}") from e
     for case in gates.BOUNDED_SHAPES:
         for cdt in cdts:
             gates.test_bf16_bounded_all_rows_pruned(dev, cdt)
@@ -1943,7 +1957,9 @@ def phase_parity_bf16_routes(x, xb, xs, state, dev):
     log(f"phase 2 parity bf16 routes: tests/test_torch_gpu.py's gates passed: the tile-width "
         f"probe (N = 16, 32, 64, 128 and every column give one product's bits, bf16 and f32 "
         f"centers, d = 130 and 2,048); assign_argmax on {len(gates.BF16_STATS_CASES)} cases x "
-        f"bf16/f32 centers x {gates.BF16_STATS_GATES}, bit for bit equal to assign_stats; the "
+        f"bf16/f32 centers x {gates.BF16_STATS_GATES}, bit for bit equal to assign_stats, and "
+        f"at its plan's seams ({len(gates.ARGMAX_PLAN_CASES)} cases, the probe at k = 128 t + r); "
+        f"the "
         f"bounded pass equal to assign_stats on every output but hi and the carry on "
         f"{len(gates.BOUNDED_SHAPES)} shapes (odd d, d off 8 and 32, a base off 16 bytes, n off "
         f"the block) x k in {gates.BOUNDED_K} x bf16/f32 centers x integer/unit rows, sentinel, "
@@ -1971,15 +1987,22 @@ def phase_parity_bf16_routes(x, xb, xs, state, dev):
     torch.cuda.empty_cache()
     if max(sims.values()) > SIM_TOL:
         raise AssertionError(f"assign_argmax bf16 moved past SIM_TOL from its f32 mode: {sims}")
+    # the two-pass BKC's launches at 1 GB, pass 1 (k = BigK, the bf16
+    # documents as centers) and pass 2 (k = 400, f32 centers), bit for bit
+    # equal to assign_stats' bf16 pass
+    for centers in (c800b, c400):
+        a = assign_argmax_cuda(xb, centers)
+        check_equal(f"assign_argmax bf16 k={centers.shape[0]} {centers.dtype} vs assign_stats "
+                    f"bf16", a, assign_stats_cuda(xb, centers)[:2])
     xf = xb.float()
-    a = assign_argmax_cuda(xb, c400)
-    want = ref.assign_argmax(xb, c400)
-    ties["assign_argmax plain"] = check_argmax(
-        "assign_argmax bf16", a[0], a[1], want[0], want[1],
-        lambda rows, cols: (xf[rows] * c400[cols]).sum(1))
-    errs["assign_argmax_bf16"] = check_close("assign_argmax bf16 best_sim", a[1], want[1], 0.0,
-                                             SIM_TOL)
-    del a, want
+    for name, centers in (("assign_argmax_bf16", c400), ("assign_argmax_bf16_k800", c800b)):
+        a = assign_argmax_cuda(xb, centers)
+        want = ref.assign_argmax(xb, centers)
+        cf = centers.float()
+        ties[f"{name} plain"] = check_argmax(
+            name, a[0], a[1], want[0], want[1], lambda rows, cols: (xf[rows] * cf[cols]).sum(1))
+        errs[name] = check_close(f"{name} best_sim", a[1], want[1], 0.0, SIM_TOL)
+    del a, want, cf
 
     # the bounded pass: BKC's first pass (bf16 documents, the index) and the
     # carried bounds after one K-Means step, equal to assign_stats bit for bit
@@ -2047,7 +2070,9 @@ def phase_parity_bf16_routes(x, xb, xs, state, dev):
         rises[name] = torch.cuda.max_memory_allocated() - base
     log(f"phase 2 parity bf16 routes: main shapes ({n}x{d} bf16): assign_argmax k={BKC_K} (f32 "
         f"and bf16 centers) passed gates (unit, rows_at, integer), largest |similarity - the f32 "
-        f"mode's| {sims}; assign_stats_bounded BigK={BIG_K} (bf16 documents, index) and carried "
+        f"mode's| {sims}; assign_argmax k={BIG_K} (bf16 documents) and k={BKC_K} (f32 centers) "
+        f"equal to assign_stats' bf16 pass bit for bit; assign_stats_bounded BigK={BIG_K} (bf16 "
+        f"documents, index) and carried "
         f"after one step at k={BKC_K} (pruned share {share:.4f}) equal to assign_stats bit for "
         f"bit; best_edge on the {s}x{s} bf16 blocks (rounds 1, 2) equal to its float(); against "
         f"the plain versions max abs err {errs}, near-tie index differences {ties}; peak device "
@@ -2060,7 +2085,8 @@ def phase_parity_bf16_routes(x, xb, xs, state, dev):
 
 def phase_timing_bf16_routes(xb, xs, state_b, c800f, f32_rows, dev):
     """Phase 3 of rows 6b, 4b and 7b beside their f32 rows: assign_argmax at
-    k = 400 with f32 centers (BKC's second pass; bf16 centers beside it),
+    k = 400 with f32 centers (BKC's second pass; bf16 centers beside it) and
+    at BigK = 800 with bf16 centers (its first two-pass pass, profiled alone),
     the bounded pass at BigK = 800, sentinel bounds, identity order (a full
     sweep) with bf16 centers (BKC's first pass; f32 centers beside it, and
     the index and carried settings after), best_edge on the 3,536 x 3,536
@@ -2099,6 +2125,28 @@ def phase_timing_bf16_routes(xb, xs, state_b, c800f, f32_rows, dev):
             f"operands), bound {r['bound'][0]:.4f} ms ({r['bound'][1]}; {p} bf16 product"
             f"{'s' if p > 1 else ''} a column at 989 TFLOP/s), {100 * r['bound'][0] / r['ms']:.1f} "
             f"% of it")
+    # the path's first launch: BKC's first two-pass pass, k = BigK, the
+    # sampled bf16 documents as centers; profiled alone (its tile kernel
+    # and the merge of its center tiles' winners, under either tree's names)
+    k = BIG_K
+
+    def argmax800():
+        return assign_argmax_cuda(xb, c800b)
+
+    r = dict(
+        ms=event_ms(argmax800, 10),
+        plain_ms=event_ms(lambda: ref.assign_argmax(xb, c800b), 5),
+        library_ms=event_ms(lambda: xb @ c800b.T, 10),
+        profiled_ms=profiled_kernel_ms(argmax800, 10,
+                                       ("argmax_wg", "assign_tile_wg", "assign_merge")),
+        bound=bound_ms(0.0, am_bytes + k * d * 2, bf16_flops=2.0 * n * k * d),
+    )
+    rows["assign_argmax_bf16_k800"] = r
+    log(f"phase 3 timing assign_argmax_bf16_k800 (bf16 centers, k={k}): kernel {r['ms']:.4f} ms, "
+        f"alone (profiled) {r['profiled_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+        f"{r['library_ms']:.4f} ms (x @ centers.T, bf16 operands), bound {r['bound'][0]:.4f} ms "
+        f"({r['bound'][1]}; 1 bf16 product a column at 989 TFLOP/s), "
+        f"{100 * r['bound'][0] / r['ms']:.1f} % of it")
     k = BIG_K
     b = _sentinel(n, dev)
     zero = torch.zeros(k, device=dev)
@@ -5810,6 +5858,10 @@ def main() -> int:
     for name in ("sim_best_edge", "label_stats", "assign_stats", "assign_argmax",
                  "assign_stats_bounded", "best_edge"):
         replaces[f"{name}_bf16"] = replaces[name]
+    # bf16 assign_argmax at k = BigK, the two-pass BKC's first launch (its
+    # launches are assign_argmax_bf16's: one at each k)
+    replaces["assign_argmax_bf16_k800"] = replaces["assign_argmax"]
+    counts["assign_argmax_bf16_k800"] = counts["assign_argmax_bf16"]
     # the bf16 fold alone at the 1 GB shape (launches: every bf16 fold of the
     # main path, one per label_stats, assign_stats and bounded call)
     folds = sum(counts.get(f"{name}_bf16", 0)

@@ -768,6 +768,77 @@ def test_bf16_assign_argmax_equals_f32_mode(card, n, k, d, offset, centers_dtype
     bf16_argmax_gate(gate, x, centers)
 
 
+# (n, k, d, offset) around assign_argmax's own bf16 plan (kernels/
+# assign_argmax.py tile_plan): the last center tile narrowed to 16 (k = 129,
+# 144, 400), 32 (800) or 64 (1,600) columns, computed in the block of the
+# tile before it for bf16 centers; n off the row tiles of 128 and 192 rows
+# (n = 1, 129, 257, 1,000, 3,000); d = 96, 130 and 40 and bases off 16
+# bytes, which the copy engine does not take.
+ARGMAX_PLAN_CASES = [(1, 129, 2048, 0), (129, 144, 96, 0), (257, 400, 130, 0),
+                     (1000, 400, 2048, 1), (3000, 800, 2048, 0), (257, 800, 40, 37),
+                     (1000, 1600, 96, 0), (129, 1600, 2048, 0), (3000, 400, 40, 0),
+                     (1000, 144, 2048, 37)]
+
+
+@pytest.mark.parametrize("gate", BF16_STATS_GATES)
+@pytest.mark.parametrize("centers_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,k,d,offset", ARGMAX_PLAN_CASES)
+def test_bf16_assign_argmax_plan_equals_assign_stats(card, n, k, d, offset, centers_dtype, gate):
+    """assign_argmax on bf16 x at its plan's seams under gate (a), (b) or
+    (e), each with (c), and bit for bit equal to assign_stats' bf16 pass:
+    center 128 = center 127, center 384 = center 1 (a tie across the
+    narrowed last tile at k = 400), rows 128 and 192 = row 0 (one row in
+    two row tiles of 128 rows, or of 192 for f32 centers' parts)."""
+    rng = np.random.default_rng(n + k + d + offset + 4)
+    rows = _bf16_ints if gate == "integer" else _bf16_rows
+    x = rows(rng, (n, d), card, offset)
+    if centers_dtype == torch.float32:
+        centers = (_split_exact_rows if gate == "integer" else _unit_rows)(rng, (k, d), card)
+        _three_parts(centers)
+    else:
+        centers = rows(rng, (k, d), card)
+    centers[128] = centers[127]
+    if k > 384:
+        centers[384] = centers[1]
+    for r in (128, 192):
+        if n > r:
+            x[r] = x[0]
+    bf16_argmax_gate(gate, x, centers)
+
+
+@pytest.mark.parametrize("centers_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [130, 2048])
+def test_bf16_tile_width_probe_narrowed_tail(card, d, centers_dtype):
+    """The width probe at k = 128 t + r: one bf16 row by one center has the
+    bits of the one-tile call (k = 1) at the first and the last column of a
+    narrowed last tile (16, 32 or 64 wide; with bf16 centers of 16 or 32
+    computed beside the tile before it) and in the full tile before it, and
+    equals assign_stats' bf16 pass there."""
+    rng = np.random.default_rng(d + 2 * (centers_dtype == torch.float32) + 5)
+    x = torch.nn.functional.normalize(
+        torch.from_numpy(np.abs(rng.normal(size=(300, d))).astype(np.float32)), dim=1).to(card)
+    x = x.bfloat16()
+    probes = torch.nn.functional.normalize(
+        torch.from_numpy(np.abs(rng.normal(size=(3, d))).astype(np.float32)), dim=1).to(card)
+    probes = probes.to(centers_dtype)
+    if centers_dtype == torch.float32:
+        _three_parts(probes)
+    for q in range(probes.shape[0]):
+        one = torch.zeros((1, d), dtype=centers_dtype, device=card)
+        one[0] = probes[q]
+        want = assign_argmax_cuda(x, one)[1]
+        for t in (1, 2, 3, 6):
+            for r in (1, 16, 17, 32, 33, 64):
+                k = 128 * t + r
+                for j in (128 * t, k - 1, 128 * t - 1):
+                    centers = torch.zeros((k, d), dtype=centers_dtype, device=card)
+                    centers[j] = probes[q]
+                    idx, sim = assign_argmax_cuda(x, centers)
+                    assert (idx == j).all(), (k, j)
+                    _same_bits((sim,), (want,))
+                    _same_bits((sim,), (assign_stats_cuda(x, centers)[1],))
+
+
 def bounded_case(rng, n, k, d, card, centers_dtype, kind, offset=0):
     """Rows near their centers, so carried bounds prune: integer rows
     (entries in {-4, ..., 5}) near integer centers, or unit rows 0.1 off
