@@ -76,7 +76,10 @@ Phases, in order; any failure raises and exits non-zero:
      but hi and the carry (k in {1, 16, 17, 63, 64, 65, 128, 129, 400, 800},
      sentinel, carried and invalidated bounds, duplicate centers across slab
      edges, a center index), best_edge on bf16 blocks torch.equal to its
-     float(), on the edge cases and at the main shapes (k = 400 and BigK =
+     float(), on the edge cases (its int16 label staging: labels past the
+     int16 range and below -1 at every row alignment, c at the staged
+     limits, masked columns beside -inf, signed zeros, NaN at a vector's
+     ends) and at the main shapes (k = 400 and BigK =
      800 on the 1 GB collection in bf16, the round-1 and round-2 blocks),
      and one bf16 call of assign_argmax and of assign_stats_bounded raising
      the peak device memory by less than n * d * 2 bytes.
@@ -107,8 +110,9 @@ Phases, in order; any failure raises and exits non-zero:
      full sweep with bf16 centers, then f32 centers, the index and carried
      settings, each with the blocks of its launch 1 that worked, row pass
      and walk, held to what the bounds ask for), best_edge on the
-     3,536 x 3,536 bf16 block, each beside its f32 row, a library call on
-     bf16 operands and its bound.
+     3,536 x 3,536 bf16 block (round 1's labels, and the same past the int16
+     range, each with the label path it took), each beside its f32 row, a
+     library call on bf16 operands and its bound.
   4. Paths at full size on the ~1 GB collection (n = 250,000, d = 2,048,
      50 topics), each with its launch counters set to 0 just before and read
      just after: tf-idf on the card, Buckshot with k = 50 (s = 3,536) and the
@@ -1954,6 +1958,23 @@ def phase_parity_bf16_routes(x, xb, xs, state, dev):
     for r, c in be_cases:
         gates.test_bf16_best_edge_equals_its_float(dev, r, c)
     gates.test_bf16_best_edge_nan_inf_and_ties(dev)
+    # the labels' int16 staging: each kind of labels at every row alignment,
+    # c at the staged limits, masked columns beside -inf, signed zeros, NaN
+    # at a vector's first and last column
+    for kind in gates.BF16_LABEL_KINDS:
+        for c in range(4097, 4105):
+            try:
+                gates.test_bf16_best_edge_label_ranges(dev, c, kind)
+            except AssertionError as e:
+                raise AssertionError(f"best_edge bf16 labels {kind} c = {c}") from e
+    for c in (gates.BF16_STAGED_WIDE, gates.BF16_STAGED_WIDE + 1, gates.BF16_STAGED_NARROW,
+              gates.BF16_STAGED_NARROW + 1):
+        for kind in ("narrow", "wide"):
+            gates.test_bf16_best_edge_staged_limits(dev, c, kind)
+    gates.test_bf16_best_edge_masked_beside_neg_inf(dev)
+    for c in (4097, 4100, 4104):
+        gates.test_bf16_best_edge_signed_zero_ties(dev, c)
+    gates.test_bf16_best_edge_nan_in_vector_lanes(dev)
     log(f"phase 2 parity bf16 routes: tests/test_torch_gpu.py's gates passed: the tile-width "
         f"probe (N = 16, 32, 64, 128 and every column give one product's bits, bf16 and f32 "
         f"centers, d = 130 and 2,048); assign_argmax on {len(gates.BF16_STATS_CASES)} cases x "
@@ -1964,7 +1985,10 @@ def phase_parity_bf16_routes(x, xb, xs, state, dev):
         f"{len(gates.BOUNDED_SHAPES)} shapes (odd d, d off 8 and 32, a base off 16 bytes, n off "
         f"the block) x k in {gates.BOUNDED_K} x bf16/f32 centers x integer/unit rows, sentinel, "
         f"carried and invalidated bounds, identity and index order, all rows settled; best_edge "
-        f"on {len(be_cases)} bf16 blocks and NaN/-inf rows torch.equal to its float()")
+        f"on {len(be_cases)} bf16 blocks and NaN/-inf rows torch.equal to its float(), and its "
+        f"labels ({', '.join(gates.BF16_LABEL_KINDS)} at c = 4,097 to 4,104; c at the staged "
+        f"limits {gates.BF16_STAGED_WIDE:,} and {gates.BF16_STAGED_NARROW:,} and one past; "
+        f"masked columns beside -inf, signed zeros, NaN at a vector's ends) with its bits")
 
     n, d = xb.shape
     c400, c800b, index, bnd, c1, drift = state_b = bkc_state_bf16(x, xb, state, dev)
@@ -2090,7 +2114,10 @@ def phase_timing_bf16_routes(xb, xs, state_b, c800f, f32_rows, dev):
     the bounded pass at BigK = 800, sentinel bounds, identity order (a full
     sweep) with bf16 centers (BKC's first pass; f32 centers beside it, and
     the index and carried settings after), best_edge on the 3,536 x 3,536
-    bf16 block with the L2 flushed by a 512 MB write (by a read beside it).
+    bf16 block with the L2 flushed by a 512 MB write (by a read beside it),
+    with round 1's labels (int16 staged) and the same numbered from 40,000
+    (past the int16 range: two halves staged), each call's label path from
+    the wrapper's bf16_label_path where the tree has it.
     c800f: bkc_state's BigK f32 centers (full significands).
     The library calls: x @ centers.T on bf16 operands (the bf16 centers: no
     bf16-by-f32 product in torch), torch.max(sim, 1) on the bf16 block. The
@@ -2098,6 +2125,7 @@ def phase_timing_bf16_routes(xb, xs, state_b, c800f, f32_rows, dev):
     products a column), bf16 bytes."""
     import torch
 
+    from repro_torch.kernels import best_edge as be_module
     from repro_torch.kernels import ref
     from repro_torch.kernels.assign_argmax import assign_argmax_cuda
     from repro_torch.kernels.assign_stats import assign_stats_bounded_cuda
@@ -2217,6 +2245,21 @@ def phase_timing_bf16_routes(xb, xs, state_b, c800f, f32_rows, dev):
         bound=bound_ms(0.0, s * s * 2 + 2 * s * 4 + s * 8),
     )
     rows["best_edge_bf16"] = r
+    # the same block with labels past the int16 range (the components of
+    # round 1, numbered from 40,000): the kernel's wide-label path
+    wide = ids + 40_000
+    want = best_edge_cuda(sb, ids, ids)
+    got = best_edge_cuda(sb, wide, wide)
+    check_equal("best_edge bf16 wide labels", got, want)
+
+    def wide_call():
+        return best_edge_cuda(sb, wide, wide)
+
+    rw = dict(ms=event_ms_cold(wide_call, 30),
+              clean_ms=event_ms_cold(wide_call, 30, flush_by="read"),
+              profiled_ms=profiled_kernel_ms(wide_call, 20, ("best_edge_rows",)))
+    path = getattr(be_module, "bf16_label_path", None)
+    paths = ("not reported by this tree",) * 2 if path is None else (path(ids), path(wide))
     f = f32_rows[f"best_edge {s}x{s}"]
     log(f"phase 3 timing best_edge_bf16 {s}x{s} (L2 flushed before each call): kernel "
         f"{r['ms']:.4f} ms after a 512 MB write (f32 block {f['ms']:.4f}), "
@@ -2225,7 +2268,10 @@ def phase_timing_bf16_routes(xb, xs, state_b, c800f, f32_rows, dev):
         f"(profiled) {r['profiled_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms; library "
         f"torch.max(sim, dim=1) on the bf16 block {r['library_ms']:.4f} ms after the write, "
         f"{r['library_clean_ms']:.4f} ms after the read; bound {r['bound'][0]:.4f} ms "
-        f"({r['bound'][1]}: {s}*{s}*2 B read; f32 {f['bound'][0]:.4f})")
+        f"({r['bound'][1]}: {s}*{s}*2 B read; f32 {f['bound'][0]:.4f}); labels "
+        f"0..{s - 1}: {paths[0]}; labels {40_000}..{40_000 + s - 1}: {paths[1]}, "
+        f"{rw['ms']:.4f} ms after the write ({100 * r['bound'][0] / rw['ms']:.1f} %), "
+        f"{rw['clean_ms']:.4f} ms after the read, alone {rw['profiled_ms']:.4f} ms")
     log(f"phase 3 timing bf16 routes took {time.perf_counter() - t0:.1f} s")
     return rows
 

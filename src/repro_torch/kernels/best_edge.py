@@ -3,8 +3,13 @@ already-built similarity block, the best column in another component.
 
 Counterpart of the JAX package's ``kernels/best_edge.py``. ``launches``
 counts the calls that launched the kernel, ``bf16_launches`` those of them
-on a bf16 block, which the kernel reads as it lies (each value converted to
-f32 in registers, exactly): the bits of the call on the block's ``float()``.
+on a bf16 block, which the kernel reads as it lies: the bits of the call on
+the block's ``float()``. On a bf16 block the kernel stages the column labels
+in shared memory as int16 when every one lies in the int16 range (negative
+labels as -1) and the block has at most ``BF16_STAGED_NARROW`` columns, as
+their low and high halves when one does not and it has at most
+``BF16_STAGED_WIDE``, and otherwise reads them from global memory; it finds
+which while it stages (``bf16_label_path`` says which, for a report).
 """
 
 from __future__ import annotations
@@ -21,6 +26,22 @@ bf16_launches = 0
 
 # C entry: pointers and the stream as c_void_p, sizes and the element code as c_int
 _SIGNATURES = {"best_edge": [P, I, P, P, I, I, P, P, P]}
+
+# the columns a block stages for a bf16 block (csrc/best_edge.cu:
+# kMaxStagedWide, kMaxStaged16)
+BF16_STAGED_WIDE, BF16_STAGED_NARROW = 58_104, 116_216
+
+
+def bf16_label_path(labels_col: torch.Tensor) -> str:
+    """How the kernel reads the labels of a bf16 block's columns (reads the
+    labels back: for reports, not for the call)."""
+    c = labels_col.numel()
+    narrow = c == 0 or int(labels_col.max()) <= 32_767
+    if narrow and c <= BF16_STAGED_NARROW:
+        return "int16 staged"
+    if c <= BF16_STAGED_WIDE:
+        return "int16 halves staged"
+    return "int32 global"
 
 
 def best_edge_cuda(

@@ -36,6 +36,7 @@ from repro.kernels.best_edge import best_edge_pallas
 from repro.text import pipeline as jpipeline
 from repro_torch import interop
 from repro_torch.kernels import ops
+from repro_torch.kernels.best_edge import BF16_STAGED_NARROW, BF16_STAGED_WIDE, bf16_label_path
 
 jbkc, jb, jk = (sys.modules[f"repro.core.{m}"] for m in ("bkc", "buckshot", "kmeans"))
 tbkc, tb, tk = (sys.modules[f"repro_torch.core.{m}"] for m in ("bkc", "buckshot", "kmeans"))
@@ -166,15 +167,45 @@ def test_assign_stats_bounded_bf16_matches_jax(rng, kind, n, k, d, cdt):
 @pytest.mark.parametrize("r,c", [(40, 70), (33, 129)])
 def test_best_edge_bf16_block_matches_jax(rng, r, c):
     """A bf16 block (the JAX kernel upcasts it in its body): equal, since
-    the kernel only compares; pad labels -1 and ties from integer values."""
+    the kernel only compares; pad labels -1 and ties from integer values;
+    then labels past the int16 range (32,767 to 32,771 among small ones, and
+    row labels 65,536 + b whose low 16 bits equal column labels b) and
+    labels below -1 (every negative label is padding): what the card's
+    kernel stages as int16 labels, as their two halves, and as -1."""
     for a in (rng.integers(-3, 4, size=(r, c)), rng.normal(size=(r, c))):
         js = jnp.asarray(a, jnp.bfloat16)
-        lr, lc = rng.integers(-1, 4, size=r), rng.integers(-1, 4, size=c)
-        jlr, jlc = jnp.asarray(lr, jnp.int32), jnp.asarray(lc, jnp.int32)
-        got = ops.best_edge(_port(js), interop.labels(lr, "cpu"), interop.labels(lc, "cpu"))
-        for want in (jref.best_edge(js, jlr, jlc),
-                     best_edge_pallas(js, jlr, jlc, interpret=True)):
-            _check(got, want, "int", (None, None))
+        pad = rng.integers(-1, 4, size=r), rng.integers(-1, 4, size=c)
+        wide = (rng.integers(-1, 4, size=r) + 65_536 * rng.integers(0, 2, size=r),
+                rng.integers(-1, 4, size=c) + np.where(rng.random(c) < 0.3, 32_768, 0))
+        pool = np.array([-2, -3, -32_768, -32_769, -65_537, -(2**31), 0, 1, 2, 3])
+        below = rng.choice(pool, size=r), rng.choice(pool, size=c)
+        for lr, lc in (pad, wide, below):
+            jlr, jlc = jnp.asarray(lr, jnp.int32), jnp.asarray(lc, jnp.int32)
+            got = ops.best_edge(_port(js), interop.labels(lr, "cpu"), interop.labels(lc, "cpu"))
+            for want in (jref.best_edge(js, jlr, jlc),
+                         best_edge_pallas(js, jlr, jlc, interpret=True)):
+                _check(got, want, "int", (None, None))
+
+
+@pytest.mark.parametrize("c,top,path", [
+    (3536, 32_767, "int16 staged"),
+    (3536, 32_768, "int16 halves staged"),
+    (BF16_STAGED_NARROW, 5, "int16 staged"),
+    (BF16_STAGED_NARROW + 1, 5, "int32 global"),
+    (BF16_STAGED_WIDE, 70_000, "int16 halves staged"),
+    (BF16_STAGED_WIDE + 1, 70_000, "int32 global"),
+    (0, 0, "int16 staged"),
+])
+def test_best_edge_bf16_label_path(c, top, path):
+    """What the card's kernel does with a bf16 block's column labels, as the
+    wrapper reports it: int16 while every label fits (negative ones as -1)
+    and the block has at most BF16_STAGED_NARROW columns, their two halves
+    up to BF16_STAGED_WIDE columns, else the int32 labels from global
+    memory."""
+    lc = torch.full((c,), -7, dtype=torch.int32)
+    if c:
+        lc[c // 2] = top
+    assert bf16_label_path(lc) == path
 
 
 # ------------------------------------------------------------------ end to end

@@ -28,7 +28,11 @@ from repro_torch.kernels.assign_stats import (
     label_stats_cuda,
     split_bf16x3,
 )
-from repro_torch.kernels.best_edge import best_edge_cuda
+from repro_torch.kernels.best_edge import (
+    BF16_STAGED_NARROW,
+    BF16_STAGED_WIDE,
+    best_edge_cuda,
+)
 from repro_torch.kernels.component_reduce import component_best_edge_cuda
 from repro_torch.kernels.flash_decode import flash_decode_cuda
 from repro_torch.kernels.sim_best_edge import sim_best_edge_cuda
@@ -1093,6 +1097,166 @@ def test_bf16_best_edge_nan_inf_and_ties(card):
     assert torch.equal(got[0], want[0])
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=0, equal_nan=True)
     assert got[0].tolist() == [0, 777, 333, -1, 0]
+
+
+# best_edge on a bf16 block stages its column labels as int16 when every one
+# fits (negative labels as -1), as their low and high halves up to
+# BF16_STAGED_WIDE columns when one does not, and past that reads them from
+# global memory; one int16 copy holds BF16_STAGED_NARROW columns.
+
+
+def _bf16_best_edge_labels(rng, kind, r, c):
+    """Row and column labels (numpy int64) of one kind: "narrow" (in [-1,
+    32,767], the top of the int16 range included), "wide_one" (narrow but
+    one column, and some rows, at 32,768), "wide" (labels 65,536 a + b: low
+    halves shared across labels), "below" (negative labels down to -2^31),
+    "row_wide" (int16 column labels; row labels past the int16 range whose
+    low halves equal column labels), "wide_low" (column labels 65,536 + b
+    beside row labels b)."""
+    lr, lc = rng.integers(-1, 5, size=r), rng.integers(-1, 5, size=c)
+    if kind == "narrow":
+        lc[rng.integers(0, c, size=3)] = 32_767
+        lr[::3] = 32_767
+    elif kind == "wide_one":
+        lc[rng.integers(0, c)] = 32_768
+        lr[::3] = 32_768
+    elif kind == "wide":
+        lr = 65_536 * rng.integers(0, 3, size=r) + rng.integers(-1, 3, size=r)
+        lc = 65_536 * rng.integers(0, 3, size=c) + rng.integers(-1, 3, size=c)
+    elif kind == "below":
+        pool = np.array([-2, -3, -32_768, -32_769, -65_536, -65_537, -(2**31)])
+        lr = np.where(rng.random(r) < 0.3, rng.choice(pool, size=r), lr)
+        lc = np.where(rng.random(c) < 0.3, rng.choice(pool, size=c), lc)
+    elif kind == "row_wide":
+        lr = rng.choice(np.array([32_768, 65_536, 65_537, 65_540, 2**31 - 1]), size=r)
+    elif kind == "wide_low":
+        lc = np.where(lc >= 0, lc + 65_536, lc)
+    return lr, lc
+
+
+def _check_bf16_best_edge(sb, lr, lc, offset=True):
+    """The bf16 block's result, twice: the bits of the kernel on
+    sb.float() (best_s as int32, so -0.0 and NaN payloads count), equal to
+    ref.best_edge (NaN equal to NaN), and, at an offset of 1 element, the
+    same again. Returns it."""
+    def bits(a, b):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1].view(torch.int32),
+                                                       b[1].view(torch.int32))
+
+    got = best_edge_cuda(sb, lr, lc)
+    bits(got, best_edge_cuda(sb, lr, lc))
+    bits(got, best_edge_cuda(sb.float(), lr, lc))
+    plain = ref.best_edge(sb.float(), lr, lc)
+    assert torch.equal(got[0], plain[0])
+    torch.testing.assert_close(got[1], plain[1], rtol=0, atol=0, equal_nan=True)
+    if offset and sb.numel():
+        bits(best_edge_cuda(_at_offset(sb, 1), lr, lc), got)
+    return got
+
+
+BF16_LABEL_KINDS = ["narrow", "wide_one", "wide", "below", "row_wide", "wide_low"]
+
+
+@pytest.mark.parametrize("kind", BF16_LABEL_KINDS)
+@pytest.mark.parametrize("c", range(4097, 4105))
+def test_bf16_best_edge_label_ranges(card, c, kind):
+    """Every row alignment of a bf16 block (c = 4,097 to 4,104, 9 rows)
+    under each kind of labels, on integer and N(0, 1) blocks, with the
+    column labels also at an offset of one int (staged one by one)."""
+    r = 9
+    rng = np.random.default_rng(c + 31 * BF16_LABEL_KINDS.index(kind))
+    lr_np, lc_np = _bf16_best_edge_labels(rng, kind, r, c)
+    lr, lc = interop.labels(lr_np, card), interop.labels(lc_np, card)
+    for sim in (_ints(rng, (r, c), -3, 3, card), interop.data(rng.normal(size=(r, c)), card)):
+        sb = sim.bfloat16()
+        got = _check_bf16_best_edge(sb, lr, lc)
+        _same_bits(best_edge_cuda(sb, lr, _at_offset(lc, 1)), got)
+
+
+@pytest.mark.parametrize("kind", ["narrow", "wide"])
+@pytest.mark.parametrize("c", [BF16_STAGED_WIDE, BF16_STAGED_WIDE + 1, BF16_STAGED_NARROW,
+                               BF16_STAGED_NARROW + 1])
+def test_bf16_best_edge_staged_limits(card, c, kind):
+    """c just at and past what one block stages: two int16 copies (wide
+    labels) and one (narrow), on 5 rows of N(0, 1) values with ties."""
+    rng = np.random.default_rng(c + (kind == "wide"))
+    lr_np, lc_np = _bf16_best_edge_labels(rng, kind, 5, c)
+    sim = interop.data(rng.normal(size=(5, c)), card)
+    sim[:, rng.integers(0, c, size=40)] = 4.0  # ties at the top
+    _check_bf16_best_edge(sim.bfloat16(), interop.labels(lr_np, card),
+                          interop.labels(lc_np, card))
+
+
+def test_bf16_best_edge_masked_beside_neg_inf(card):
+    """A masked column (f32.min) ranks above -inf candidates and below the
+    lowest finite bf16 (-3.3895e38): rows of -inf with and without a masked
+    column, with -3.39e38 candidates, a masked +5 and a masked NaN."""
+    c = 37
+    low = torch.tensor(-3.39e38).bfloat16().float().item()  # 0xff7f
+    sim = torch.full((7, c), -torch.inf)
+    lc = torch.zeros((c,), dtype=torch.int32)
+    lc[[3, 20]] = 1
+    lc[30] = -7  # a pad column: masked for every row
+    lr = torch.tensor([1, 2, 1, 1, 2, 1, 2], dtype=torch.int32)
+    # row 0: -inf candidates, masked 3, 20, 30 -> (-1, f32.min)
+    # row 1: lc is 0 or 1, lr 2: every column but 30 a candidate -> masked
+    #        30 is above the -inf ones -> (-1, f32.min)
+    sim[2, 11] = low  # row 2: a -3.39e38 candidate beats the masked columns
+    sim[3, [3, 20]] = 5.0  # row 3: masked +5 (label 1 = the row's) -> (-1, f32.min)
+    sim[4, [9, 15]] = low  # row 4: two -3.39e38 candidates -> the first
+    sim[5, 3] = torch.nan  # row 5: a masked NaN, a -3.39e38 candidate
+    sim[5, 36] = low
+    sim[6, 30] = torch.nan  # row 6: a NaN in the pad column only
+    sb = sim.bfloat16().to(card)
+    lr, lc = lr.to(card), lc.to(card)
+    got = _check_bf16_best_edge(sb, lr, lc)
+    assert got[0].tolist() == [-1, -1, 11, -1, 9, 36, -1]
+    neg = torch.finfo(torch.float32).min
+    assert got[1].tolist() == [neg, neg, low, neg, low, low, neg]
+    # no masked column: every candidate -inf -> column 0 at -inf
+    lc_all = torch.zeros((c,), dtype=torch.int32, device=card)
+    row = torch.full((1, c), -torch.inf, device=card).bfloat16()
+    got = _check_bf16_best_edge(row, torch.ones((1,), dtype=torch.int32, device=card), lc_all)
+    assert got[0].tolist() == [0] and got[1].tolist() == [-torch.inf]
+
+
+@pytest.mark.parametrize("c", [4097, 4100, 4104])
+def test_bf16_best_edge_signed_zero_ties(card, c):
+    """Rows whose maximum is 0 and whose first column at it is -0.0 (at a
+    vector's first and last column, a head column, the row's last column):
+    that column, with its sign; a bf16 subnormal above +0.0 wins over it."""
+    pos = [0, 1, 7, 8, 9, 15, 16, 255, 256, 2049, c - 1]
+    r = len(pos) + 1
+    sim = torch.full((r, c), -1.0)
+    for i, p in enumerate(pos):
+        sim[i, p] = -0.0
+        sim[i, p + 1:] = torch.where(torch.arange(p + 1, c) % 3 == 0, 0.0, -1.0)
+    sim[-1, 5] = 0.0
+    sim[-1, 3000] = 1e-40  # subnormal in bf16 too
+    sb = sim.bfloat16().to(card)
+    lab = torch.zeros((r,), dtype=torch.int32, device=card)
+    lc = torch.ones((c,), dtype=torch.int32, device=card)
+    got = _check_bf16_best_edge(sb, lab, lc)
+    assert got[0].tolist() == pos + [3000]
+    assert torch.signbit(got[1][:-1]).all() and got[1][-1].item() > 0
+
+
+def test_bf16_best_edge_nan_in_vector_lanes(card):
+    """NaN at the first and the last column of a 16-byte vector, in the first
+    and the last lane of a batch, and two NaNs (the first wins); rows at
+    every alignment by the offsets of _check_bf16_best_edge."""
+    c = 4104
+    sim = torch.randn((8, c), generator=torch.Generator().manual_seed(3))
+    nans = [[0], [7], [8 * 31], [8 * 31 + 7], [8 * 128], [8 * 255 + 7, 8 * 256], [c - 1],
+            [4000, 17]]
+    for i, cols in enumerate(nans):
+        sim[i, cols] = torch.nan
+    sb = sim.bfloat16().to(card)
+    lab = torch.zeros((8,), dtype=torch.int32, device=card)
+    lc = torch.ones((c,), dtype=torch.int32, device=card)
+    got = _check_bf16_best_edge(sb, lab, lc)
+    assert got[0].tolist() == [cols[0] if i < 7 else 17 for i, cols in enumerate(nans)]
+    assert torch.isnan(got[1]).all()
 
 
 @pytest.mark.parametrize("kernel", ["assign_argmax", "assign_stats_bounded"])
