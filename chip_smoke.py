@@ -113,6 +113,17 @@ Phases, in order; any failure raises and exits non-zero:
      3,536 x 3,536 bf16 block (round 1's labels, and the same past the int16
      range, each with the label path it took), each beside its f32 row, a
      library call on bf16 operands and its bound.
+     Then the reference's parameter-level modes at full width (phase_modes):
+     the bounded pass through ops.assign_stats_bounded on the 1 GB rows at
+     BigK = 800, f32 and bf16 rows, carried bounds at zero drift, at
+     margin 0, the default 1e-4 and inf, each launch counted, equal to
+     assign_stats' bits, held to the plain version at the same margin, its
+     time and pruned share (none at inf); build_center_index(groups=8,
+     iters=3) on those centers against the plain version, its launches
+     counted; boruvka_mst_distributed over NCCL at world size 1 at
+     check_every 1 and 3 against the resident boruvka_mst, with the round
+     counts and times. phase_lm_train restores its checkpoint elastically
+     onto the 1 x 1 NCCL policy mesh (modes_elastic_restore).
   4. Paths at full size on the ~1 GB collection (n = 250,000, d = 2,048,
      50 topics), each with its launch counters set to 0 just before and read
      just after: tf-idf on the card, Buckshot with k = 50 (s = 3,536) and the
@@ -5097,6 +5108,7 @@ def phase_lm_train(card: str, dev) -> None:
         back = ckpt_mod.restore(ck, 99, state, "cpu")
         t_r = time.perf_counter() - t
         del back
+        modes_elastic_restore(ck, 99, state, cut, card, dev)
         log(f"phase 4 LM train (c) resume on the card ({LM_TRAIN_CUT} layers): 4 steps with "
             f"ckpt_every=2, preempted at step 3, resumed from step {resumed.resumed_from}: params, "
             f"m and v torch.equal to the uninterrupted run's, losses "
@@ -5385,6 +5397,217 @@ print("MEMCELL " + json.dumps(r))
 print(f"the dry-run child took {time.perf_counter() - t:.1f} s", flush=True)
 sys.exit(rc)
 """
+
+
+MODES_MARGINS = (0.0, 1e-4, float("inf"))  # 1e-4: ref.PRUNE_MARGIN, the default
+MODES_GROUPS, MODES_ITERS = 8, 3  # the center index's shape beside its default
+
+
+def modes_bounded(name, x, c, index, margin, dev) -> str:
+    """The bounded pass through ops.assign_stats_bounded at ``margin`` on
+    carried bounds at zero drift (a converged fit's), slabs through the
+    center index: its launch counted; its labels and statistics equal to
+    assign_stats' bit for bit; held to the plain version at the same margin
+    on the card (indices but at near-ties, best_sim within SIM_TOL, the
+    pruned mask but within 1e-5 of the margin, hi an upper bound, the
+    statistics over the kernel's labels); at inf nothing prunes. Returns
+    its log line."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.assign_stats import assign_stats_cuda
+
+    n, k = x.shape[0], c.shape[0]
+    zero = torch.zeros(k, device=dev)
+    carried = ops.assign_stats_bounded(x, c, _sentinel(n, dev), zero, index=index).bounds
+
+    def run():
+        st = ops.assign_stats_bounded(x, c, carried, zero, index=index, margin=margin)
+        return st[:6] + tuple(st.bounds) + (st.pruned,)
+
+    ops.reset_launch_counts()
+    got = run()
+    counts, counts_b = ops.launch_counts(), ops.bf16_launch_counts()
+    bf16 = x.dtype == torch.bfloat16
+    if counts["assign_stats_bounded"] != 1 or counts_b["assign_stats_bounded"] != int(bf16):
+        raise AssertionError(f"{name}: launches {counts}, bf16 {counts_b}")
+    check_repeat(name, got, run())
+    check_equal(f"{name} vs assign_stats", got[:6], assign_stats_cuda(x, c))
+    xf = x.float()
+    cf = c.float()
+    want = ref.assign_stats_bounded_scatter(xf, cf, *carried, zero, margin=margin)
+    ties = check_argmax(name, got[0], got[1], want[0], want[1],
+                        lambda rows, cols: (xf[rows] * cf[cols]).sum(1))
+    err = check_close(f"{name} best_sim", got[1], want[1], 0.0, SIM_TOL)
+    rownorm = torch.sqrt(torch.sum(xf * xf, dim=1))
+    _, _, lo_adj, hi_adj = ref.deflate_bounds(carried.idx, carried.lo, carried.hi, rownorm, zero)
+    near = (lo_adj - hi_adj - margin).abs() < 1e-5
+    off = got[9] != want[9]
+    if bool((off & ~near).any()):
+        raise AssertionError(f"{name}: pruned mask differs away from the margin")
+    check_bounded_hi(name, got[8], want[8], ~off & (got[0] == want[0]))
+    for stat, gt, wt, tol in zip(
+        ("sums", "counts", "min_sim", "sumsq"), got[2:6], plain_stats(xf, got[0], got[1], k),
+        ((SUM_RTOL, SUM_ATOL), (SUM_RTOL, SUM_ATOL), (0.0, SIM_TOL), (SUM_RTOL, SUM_ATOL)),
+    ):
+        err = max(err, check_close(f"{name} {stat}", gt, wt, *tol))
+    del xf, want, rownorm, lo_adj, hi_adj
+    share = got[9].float().mean().item()
+    if margin == float("inf") and share != 0.0:
+        raise AssertionError(f"{name}: a row pruned at margin inf")
+    ms = event_ms(run, 5)
+    return (f"margin {margin:g}: {ms:.4f} ms, pruned share {share:.6f}, near-tie index "
+            f"differences {ties}, pruned-mask differences {int(off.sum())} (rows within 1e-5 of "
+            f"the margin {int(near.sum())}), max abs err {err:.3g}")
+
+
+def phase_modes(x, xb, xs, state, state_b, card: str, dev) -> None:
+    """The reference's parameter-level modes on the card at full width. (a)
+    The bounded pass on the 1 GB rows at BigK = 800, f32 rows (bkc_state's
+    centers) and bf16 rows (bf16 centers, bkc_state_bf16's), at margin 0,
+    the default 1e-4 and inf (modes_bounded). (b)
+    build_center_index(groups=8, iters=3) on those k = 800 centers, f32 and
+    bf16: its mini-Lloyd launches assign_argmax 4 times and label_stats 3
+    times; perm and group_of equal the plain version's (the same call on a
+    CPU copy). (c) boruvka_mst_distributed over NCCL at world size 1 on
+    phase 1's sample at check_every 1 and 3: expanded edges equal the
+    resident boruvka_mst's bit for bit for the rounds run, sim_best_edge
+    once a round and component_best_edge twice, the compact edges' labels
+    at k = K equal the resident ones; the round counts and warm times. The
+    elastic restore runs inside phase_lm_train, beside its checkpoint
+    (modes_elastic_restore)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.hac import boruvka_mst, cut_mst_edges, single_link_labels_boruvka
+    from repro_torch.distrib.hac_parallel import boruvka_mst_distributed
+    from repro_torch.distrib.sharding import make_flat_mesh
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    # (a) the margin
+    for rows, xx, c, index in (("f32", x, state[1], state[2]),
+                               ("bf16", xb, state_b[1], state_b[2])):
+        for margin in MODES_MARGINS:
+            name = f"phase modes bounded {rows} k={c.shape[0]}"
+            line = modes_bounded(name, xx, c, index, margin, dev)
+            log(f"{name} ({card}): {line}")
+        torch.cuda.empty_cache()
+    # the same pass at inf and through the unbounded kernel, side by side
+    zero = torch.zeros(BIG_K, device=dev)
+    b0 = _sentinel(x.shape[0], dev)
+    ms_inf = event_ms(lambda: ops.assign_stats_bounded(x, state[1], b0, zero, index=state[2],
+                                                       margin=float("inf")), 5)
+    ms_full = event_ms(lambda: ops.assign_stats(x, state[1]), 5)
+    log(f"phase modes bounded f32 k={BIG_K} sentinel bounds ({card}): margin inf "
+        f"{ms_inf:.4f} ms against assign_stats {ms_full:.4f} ms")
+
+    # (b) the center index's shape
+    for rows, c in (("f32", state[1]), ("bf16", state_b[1])):
+        ops.reset_launch_counts()
+        got = ops.build_center_index(c, groups=MODES_GROUPS, iters=MODES_ITERS)
+        counts = ops.launch_counts()
+        if counts["assign_argmax"] != MODES_ITERS + 1 or counts["label_stats"] != MODES_ITERS:
+            raise AssertionError(f"build_center_index {rows}: launches {counts}")
+        want = ops.build_center_index(c.cpu(), groups=MODES_GROUPS, iters=MODES_ITERS)
+        if not (torch.equal(got.perm.cpu(), want.perm)
+                and torch.equal(got.group_of.cpu(), want.group_of)):
+            raise AssertionError(f"build_center_index {rows}: perm or group_of differs from the "
+                                 "plain version's")
+        sizes = torch.bincount(got.group_of.long(), minlength=MODES_GROUPS).tolist()
+        ms = event_ms(lambda: ops.build_center_index(c, groups=MODES_GROUPS,
+                                                     iters=MODES_ITERS), 5)
+        ms_def = event_ms(lambda: ops.build_center_index(c), 5)
+        log(f"phase modes build_center_index {rows} k={c.shape[0]} groups={MODES_GROUPS} "
+            f"iters={MODES_ITERS} ({card}): perm and group_of equal the plain version's; "
+            f"launches {counts}; group sizes {sizes}; {ms:.4f} ms (the default "
+            f"groups=round(sqrt(k)), iters={ops.INDEX_LLOYD_ROUNDS}: {ms_def:.4f} ms)")
+
+    # (c) Borůvka's check_every, on phase 1's normalized sample
+    xs1 = xs
+    s = xs1.shape[0]
+    ops.reset_launch_counts()
+    ref_edges = boruvka_mst(xs1)
+    rounds_resident = ops.launch_counts()["sim_best_edge"]
+    resident = single_link_labels_boruvka(xs1, K)
+    with tempfile.TemporaryDirectory() as tmp:
+        nccl_world_1(tmp)
+        try:
+            mesh, axes = make_flat_mesh(), ("data",)
+            for check in (1, 3):
+                ops.reset_launch_counts()
+                edges = boruvka_mst_distributed(mesh, axes, xs1, compact=False, check_every=check)
+                counts = ops.launch_counts()
+                m = edges.u.shape[0]
+                rounds = m // s
+                for f, got in edges._asdict().items():
+                    want = getattr(ref_edges, f)[:m]
+                    if got.dtype == torch.float32:
+                        got, want = got.view(torch.int32), want.view(torch.int32)
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"boruvka check_every={check}: {f} differs")
+                if ref_edges.valid[m:].any():
+                    raise AssertionError(f"boruvka check_every={check}: stopped early")
+                if (counts["sim_best_edge"] != rounds
+                        or counts["component_best_edge"] != 2 * rounds):
+                    raise AssertionError(f"boruvka check_every={check}: {rounds} rounds, "
+                                         f"launches {counts}")
+                compact = boruvka_mst_distributed(mesh, axes, xs1, check_every=check)
+                if not torch.equal(cut_mst_edges(compact, s, K), resident):
+                    raise AssertionError(f"boruvka check_every={check}: labels differ")
+                secs = [sync_time(boruvka_mst_distributed, mesh, axes, xs1,
+                                  check_every=check)[1] for _ in range(3)]
+                log(f"phase modes boruvka_mst_distributed check_every={check} (NCCL, world "
+                    f"size 1, {card}): s={s} d={xs1.shape[1]}: {rounds} rounds, expanded edges "
+                    f"equal resident boruvka_mst bit for bit (which ran {rounds_resident} "
+                    f"rounds); launches {counts}; compact edges' "
+                    f"labels at k={K} equal; wall, warm: {', '.join(f'{v:.4f}' for v in secs)} s")
+        finally:
+            dist.destroy_process_group()
+    log(f"phase modes took {time.perf_counter() - t_phase:.1f} s")
+
+
+def modes_elastic_restore(ck: str, step: int, like: dict, cfg, card: str, dev) -> None:
+    """The elastic restore: phase_lm_train's checkpoint (params, m, v and
+    step of ``cfg``) restored onto the 1 x 1 NCCL policy mesh through
+    restore(shardings=) (the model's param_shardings for params, m and v;
+    step replicated), every leaf a DTensor on that mesh and torch.equal to
+    the plain restore onto the card."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.launch.mesh import make_debug_mesh, policy_for
+    from repro_torch.models.common import NamedSharding, leaves
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import checkpoint as ckpt_mod
+
+    with tempfile.TemporaryDirectory() as tmp:
+        nccl_world_1(tmp)
+        try:
+            policy = policy_for(make_debug_mesh((1, 1)))
+            params = get_model(cfg).param_shardings(policy)
+            rep = NamedSharding(policy.mesh, (Replicate(),) * policy.mesh.ndim)
+            shardings = {"params": params, "opt": {"m": params, "v": params, "step": rep}}
+            got, t_e = sync_time(ckpt_mod.restore, ck, step, like, shardings=shardings)
+            plain, t_p = sync_time(ckpt_mod.restore, ck, step, like, dev)
+            n, nbytes = 0, 0
+            for (path, g), (_, p) in zip(leaves(got), leaves(plain), strict=True):
+                if not (isinstance(g, DTensor) and g.device_mesh == policy.mesh
+                        and g.device.type == "cuda" and torch.equal(g.full_tensor(), p)):
+                    raise AssertionError(f"elastic restore: {'/'.join(path)} differs")
+                n += 1
+                nbytes += p.numel() * p.element_size()
+            log(f"phase modes elastic restore ({card}): {cfg.name} at {cfg.n_layers} layers, "
+                f"step {step}: {n} leaves ({nbytes:,} bytes) restored onto the 1 x 1 NCCL "
+                f"policy mesh through shardings=, each a DTensor torch.equal to the plain "
+                f"restore; {t_e:.2f} s against {t_p:.2f} s plain")
+        finally:
+            dist.destroy_process_group()
 
 
 def start_dryrun() -> tuple:
@@ -5823,6 +6046,7 @@ def main() -> int:
     times["flash_decode"] = stream_rows["flash_decode kernel_bench f32"]
     times.update(phase_timing_bf16_routes(xb, xs, state_b, state[1], {**times, **stream_rows}, dev))
     log(f"phase 3 timing took {time.perf_counter() - t:.1f} s")
+    phase_modes(x, xb, xs, state, state_b, card, dev)
     del x, xs, xb, xsb, state, state_b
     torch.cuda.empty_cache()
     t = time.perf_counter()

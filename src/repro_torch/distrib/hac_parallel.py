@@ -28,9 +28,9 @@ replicated sample. Per round:
 
 Component ids are densified each round and capped by the halving bound
 ceil(s / 2^round). The fully-merged flag is computed on the device every
-round, but the host reads it only every ``CHECK_EVERY`` rounds, as in the
-JAX package, so the round count (and with it every launch count) is the
-reference's.
+round, but the host reads it only every ``check_every`` rounds (default
+``CHECK_EVERY``), as in the JAX package, so the round count (and with it
+every launch count) is the reference's for the same ``check_every``.
 
 The sample is PADDED to a shard multiple: pad rows carry label -1, which
 the edge search masks out, and a component id the combiner drops.
@@ -333,6 +333,7 @@ def boruvka_mst_distributed(
     sweep: str = "auto",
     overlap: bool = True,
     compact: bool = True,
+    check_every: int = CHECK_EVERY,
     checkpoint=None,
     pass_id: str = "boruvka_mst",
 ) -> MSTEdges:
@@ -340,7 +341,8 @@ def boruvka_mst_distributed(
 
     Every rank passes the same (s, d) sample ``xs`` and gets the same edges.
     Rounds are host-chained like the paper's job driver, with a device-side
-    early exit read by the host every ``CHECK_EVERY`` rounds.
+    early exit read by the host every ``check_every`` rounds: a late exit
+    costs at most ``check_every - 1`` rounds that merge nothing.
 
     sweep: 'sharded' (what 'auto' gives under merge='comp') — each rank
     keeps its (s/P, d) slice and block copies rotate through the ranks;
@@ -362,7 +364,7 @@ def boruvka_mst_distributed(
     the replicated sweep.
 
     checkpoint (merge='comp' only): a ``resilience.Checkpointer``; the round
-    loop snapshots its carry at every ``CHECK_EVERY`` host read after which
+    loop snapshots its carry at every ``check_every`` host read after which
     it continues, so a resume replays the uninterrupted run's rounds and
     gives its edges bit for bit. Rank 0 writes the (replicated) snapshot;
     it is deleted when the loop completes. ``pass_id`` names it in the
@@ -398,7 +400,7 @@ def boruvka_mst_distributed(
     ck = RankCheckpointer.of(checkpoint, shared=True)
     edges, _ = _boruvka_rounds(
         job, mesh, axes, xs, xs_p, rowid_p, s, pad, _rounds_for(s), mode,
-        compact, ck, pass_id,
+        compact, check_every, ck, pass_id,
     )
     if ck is not None:
         ck.delete(pass_id)  # the loop completed
@@ -407,7 +409,7 @@ def boruvka_mst_distributed(
 
 def _boruvka_rounds(
     job, mesh, axes, xs, xs_p, rowid_p, s, pad, rounds, mode, compact,
-    checkpoint=None, pass_id="boruvka_mst",
+    check_every=CHECK_EVERY, checkpoint=None, pass_id="boruvka_mst",
 ) -> tuple[MSTEdges, int]:
     """The host-chained round loop of ``boruvka_mst_distributed``.
 
@@ -445,7 +447,7 @@ def _boruvka_rounds(
         # round, so a static string rather than carry_fingerprint
         ck_fp = (
             f"boruvka:{mode}:tiers{tier_sizes(mesh, axes)}:s{s}:d{xs.shape[1]}:pad{pad}"
-            f":compact{int(compact)}:ck{CHECK_EVERY}"
+            f":compact{int(compact)}:ck{check_every}"
         )
         snap = checkpoint.load(pass_id, fingerprint=ck_fp)
         if snap is not None:
@@ -515,9 +517,9 @@ def _boruvka_rounds(
         ews.append(ew)
         evalids.append(evalid)
         # the done flag is computed on the device every round; the host reads
-        # it every CHECK_EVERY rounds: a late exit costs at most
-        # CHECK_EVERY - 1 no-op rounds, and the round count is deterministic
-        if (r + 1) % CHECK_EVERY == 0 or r == rounds - 1:
+        # it every check_every rounds: a late exit costs at most
+        # check_every - 1 no-op rounds, and the round count is deterministic
+        if (r + 1) % check_every == 0 or r == rounds - 1:
             if bool(done):
                 break
             if checkpoint is not None:

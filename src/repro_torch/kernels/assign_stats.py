@@ -319,14 +319,15 @@ def slab_cones(
 
 def settled_rows(
     prev_idx: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, rownorm: torch.Tensor,
-    drift: torch.Tensor,
+    drift: torch.Tensor, margin: float = ref.PRUNE_MARGIN,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The bounded pass's row prep, in plain tensor code: which carried
-    assignments the deflated bounds prove settled, given the rows' f32
-    norms. Returns ((n,) int32 idx0, the carried center of a settled row
-    and -1 for an active one; the (n,) bool pruned mask; the deflated hi)."""
+    assignments the deflated bounds prove settled (lo' > hi' + margin),
+    given the rows' f32 norms. Returns ((n,) int32 idx0, the carried
+    center of a settled row and -1 for an active one; the (n,) bool pruned
+    mask; the deflated hi)."""
     ok, pidx, lo_adj, hi_adj = ref.deflate_bounds(prev_idx, lo, hi, rownorm, drift)
-    pruned = ok & (lo_adj > hi_adj + ref.PRUNE_MARGIN)
+    pruned = ok & (lo_adj > hi_adj + margin)
     return torch.where(pruned, pidx, -1).to(torch.int32), pruned, hi_adj
 
 
@@ -360,6 +361,7 @@ def assign_stats_bounded_cuda(
     *,
     perm: torch.Tensor | None = None,
     blocks: torch.Tensor | None = None,
+    margin: float = ref.PRUNE_MARGIN,
 ) -> tuple[torch.Tensor, ...]:
     """(n, d), (k, d) f32, or (n, d) bf16 and (k, d) bf16 or f32; carried
     (n,) prev_idx int32, lo, hi f32; (k,) drift[; (n,) w] -> (idx, best_sim,
@@ -373,7 +375,9 @@ def assign_stats_bounded_cuda(
     (2, ceil(n / 128)) int32 tensor on x's device, takes on bf16 x a 1 for
     each block of launch 1 that worked: row 0 the row pass's (the 128-row
     blocks holding a row with a carried center), row 1 the walk's (one a
-    128 active rows, in list order).
+    128 active rows, in list order). ``margin`` is the plain version's: a
+    row prunes when lo' > hi' + margin, and a slab is swept for a row when
+    its cone bound reaches the row's best - margin.
     """
     from repro_torch.kernels import _build
 
@@ -431,7 +435,7 @@ def assign_stats_bounded_cuda(
         )
         _build.check(err, "assign_stats_bounded")
         rownorm = torch.sqrt(rowsq)
-    idx0, pruned, hi_adj = settled_rows(prev_idx, lo, hi, rownorm, drift)
+    idx0, pruned, hi_adj = settled_rows(prev_idx, lo, hi, rownorm, drift, margin)
     if x.dtype == torch.bfloat16:
         listed, count = active_rows(idx0)
     with _build.device_lock(dev.index):
@@ -441,7 +445,7 @@ def assign_stats_bounded_cuda(
             reps.data_ptr(), cone.data_ptr(), idx0.data_ptr(),
             None if listed is None else listed.data_ptr(),
             None if count is None else count.data_ptr(), work, _build.ELEM[x.dtype], celem, wp,
-            n, d, k, ns, ref.PRUNE_MARGIN, chunks, idx.data_ptr(), best_sim.data_ptr(),
+            n, d, k, ns, margin, chunks, idx.data_ptr(), best_sim.data_ptr(),
             sec.data_ptr(), rowsq.data_ptr(), part, part_k,
             sums.data_ptr(), counts.data_ptr(), min_sim.data_ptr(),
             sumsq.data_ptr(), stream,

@@ -370,14 +370,17 @@ class CenterIndex(NamedTuple):
 INDEX_LLOYD_ROUNDS = 2
 
 
-def build_center_index(centers: torch.Tensor) -> CenterIndex:
-    """Cluster the k centers into round(sqrt(k)) groups (mini-Lloyd over
-    ``assign_argmax`` and ``label_stats``, the kernels on the card) and emit
-    the slab order. Deterministic: the representatives start as a fixed
+def build_center_index(
+    centers: torch.Tensor, *, groups: int | None = None, iters: int = INDEX_LLOYD_ROUNDS
+) -> CenterIndex:
+    """Cluster the k centers into ``groups`` groups (``None``: round(sqrt(k));
+    ``groups >= k`` gives the identity order) by ``iters`` mini-Lloyd rounds
+    over ``assign_argmax`` and ``label_stats``, the kernels on the card, and
+    emit the slab order. Deterministic: the representatives start as a fixed
     stride of the centers, ties go to the lowest index."""
     k = centers.shape[0]
     dev = centers.device
-    g = max(1, int(round(k ** 0.5)))
+    g = groups if groups is not None else max(1, int(round(k ** 0.5)))
     arange_k = torch.arange(k, dtype=torch.int32, device=dev)
     if g >= k:
         return CenterIndex(arange_k, arange_k)
@@ -385,7 +388,7 @@ def build_center_index(centers: torch.Tensor) -> CenterIndex:
     cf = centers.float().contiguous()
     reps = cf[::stride]
     g = reps.shape[0]
-    for _ in range(INDEX_LLOYD_ROUNDS):
+    for _ in range(iters):
         gidx, _ = assign_argmax(cf, reps)
         sums, cnts = label_stats(cf, gidx, g)
         norm = torch.sqrt(torch.sum(sums * sums, dim=1, keepdim=True))
@@ -431,6 +434,7 @@ def assign_stats_bounded(
     w: torch.Tensor | None = None,
     *,
     index: CenterIndex | None = None,
+    margin: float = ref.PRUNE_MARGIN,
 ) -> AssignStatsBounded:
     """Bound-pruned fused pass: ``assign_stats`` plus an Elkan/Hamerly carry
     that lets provably settled rows skip the center sweep.
@@ -439,7 +443,9 @@ def assign_stats_bounded(
     the card the kernel skips the work of pruned rows and of slabs whose
     cone bound cannot reach a row's running best (``index`` orders the
     slabs); the plain version on the CPU sweeps everything and ignores
-    ``index``.
+    ``index``. ``margin`` is the f32 safety margin: a row prunes only when
+    lo' > hi' + margin, a slab is skipped only when its bound is below the
+    row's best - margin (``inf`` prunes and skips nothing).
     """
     if _on_card(x):
         return _pack_bounded(_assign_stats_k.assign_stats_bounded_cuda(
@@ -447,10 +453,10 @@ def assign_stats_bounded(
             bounds.idx.to(torch.int32).contiguous(), bounds.lo.contiguous(),
             bounds.hi.contiguous(), drift.float().contiguous(),
             None if w is None else w.float().contiguous(),
-            perm=None if index is None else index.perm,
+            perm=None if index is None else index.perm, margin=margin,
         ))
     return _pack_bounded(ref.assign_stats_bounded_scatter(
-        x, centers, bounds.idx, bounds.lo, bounds.hi, drift, w
+        x, centers, bounds.idx, bounds.lo, bounds.hi, drift, w, margin=margin
     ))
 
 
@@ -463,6 +469,7 @@ def assign_stats_bounded_chunked(
     *,
     chunk: int = 65_536,
     index: CenterIndex | None = None,
+    margin: float = ref.PRUNE_MARGIN,
 ) -> AssignStatsBounded:
     """``assign_stats_bounded`` over row blocks of ``chunk`` rows, the
     bounds sliced per block. Every row's sweep is independent, so labels,
@@ -471,14 +478,14 @@ def assign_stats_bounded_chunked(
     n, d = x.shape
     k = centers.shape[0]
     if n <= chunk:
-        return assign_stats_bounded(x, centers, bounds, drift, w, index=index)
+        return assign_stats_bounded(x, centers, bounds, drift, w, index=index, margin=margin)
     carry = stats_identity(k, d, x.device)
     parts = []
     for lo in range(0, n, chunk):
         sl = slice(lo, lo + chunk)
         st = assign_stats_bounded(
             x[sl], centers, Bounds(bounds.idx[sl], bounds.lo[sl], bounds.hi[sl]),
-            drift, None if w is None else w[sl], index=index,
+            drift, None if w is None else w[sl], index=index, margin=margin,
         )
         carry = merge_stats(carry, st)
         parts.append((st.idx, st.best_sim, st.bounds.lo, st.bounds.hi, st.pruned))

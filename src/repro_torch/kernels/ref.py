@@ -146,6 +146,7 @@ def _bounded_assign(
     lo: torch.Tensor,
     hi: torch.Tensor,
     drift: torch.Tensor,
+    margin: float,
 ) -> tuple[torch.Tensor, ...]:
     """Assignment half of the bounded plain versions: (idx, best_sim, lo_out,
     hi_out, pruned, rowsq). The full (n, k) sweep is computed; pruned rows
@@ -154,7 +155,7 @@ def _bounded_assign(
     xf = x.float()
     rowsq = torch.sum(xf * xf, dim=1)
     ok, pidx, lo_adj, hi_adj = deflate_bounds(prev_idx, lo, hi, torch.sqrt(rowsq), drift)
-    pruned = ok & (lo_adj > hi_adj + PRUNE_MARGIN)
+    pruned = ok & (lo_adj > hi_adj + margin)
     sims = _sims(x, centers)
     brute_idx = torch.argmax(sims, dim=1).int()
     brute_best = torch.amax(sims, dim=1)
@@ -180,14 +181,17 @@ def assign_stats_bounded(
     hi: torch.Tensor,
     drift: torch.Tensor,
     w: torch.Tensor | None = None,
+    *,
+    margin: float = PRUNE_MARGIN,
 ) -> tuple[torch.Tensor, ...]:
     """One-hot oracle of the bound-pruned pass: (idx, best_sim, sums, counts,
     min_sim, sumsq, idx, lo_out, hi_out, pruned). The first six are exactly
     ``assign_stats``' for ANY bounds state: a row prunes only when its
-    deflated bounds prove the carried winner unchanged."""
+    deflated bounds prove the carried winner unchanged, with ``margin`` to
+    spare (lo' > hi' + margin; at ``inf`` nothing prunes)."""
     k = centers.shape[0]
     idx, best_sim, lo_out, hi_out, pruned, rowsq = _bounded_assign(
-        x, centers, prev_idx, lo, hi, drift
+        x, centers, prev_idx, lo, hi, drift, margin
     )
     hot = _one_hot(idx, k, w)
     sums = hot.T @ x.float()
@@ -210,12 +214,14 @@ def assign_stats_bounded_scatter(
     hi: torch.Tensor,
     drift: torch.Tensor,
     w: torch.Tensor | None = None,
+    *,
+    margin: float = PRUNE_MARGIN,
 ) -> tuple[torch.Tensor, ...]:
     """``assign_stats_bounded`` with segment reductions for the statistics
     (the contract of ``assign_stats_scatter``)."""
     k = centers.shape[0]
     idx, best_sim, lo_out, hi_out, pruned, rowsq = _bounded_assign(
-        x, centers, prev_idx, lo, hi, drift
+        x, centers, prev_idx, lo, hi, drift, margin
     )
     xf = x.float()
     if w is not None:

@@ -28,7 +28,7 @@ import contextlib
 import math
 import threading
 from dataclasses import dataclass
-from typing import Any, Iterator, Optional, Sequence
+from typing import Any, Iterator, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -328,9 +328,18 @@ def spec_tree(recs: Any, policy: MeshPolicy) -> Any:
     return tree_map(lambda r: policy.resolve(policy.fixed_sym(r.shape, r.sym)), recs)
 
 
+class NamedSharding(NamedTuple):
+    """The reference's ``NamedSharding``: a mesh and one placement per mesh
+    dimension, what ``distribute_tensor`` takes."""
+
+    mesh: DeviceMesh
+    placements: tuple[Placement, ...]
+
+
 def sharding_tree(recs: Any, policy: MeshPolicy) -> Any:
-    """Rec tree -> placements tree."""
-    return tree_map(lambda r: policy.sharding_for(r.shape, r.sym), recs)
+    """Rec tree -> tree of ``NamedSharding`` (what an elastic
+    ``train.checkpoint.restore`` takes as ``shardings``)."""
+    return tree_map(lambda r: NamedSharding(policy.mesh, policy.sharding_for(r.shape, r.sym)), recs)
 
 
 def place_tree(tree: Any, recs: Any, policy: MeshPolicy) -> Any:

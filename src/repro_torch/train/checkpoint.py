@@ -1,5 +1,6 @@
 """Fault-tolerant checkpointing: atomic per-step directories + manifest,
-latest-checkpoint discovery, restore onto a device.
+latest-checkpoint discovery, restore onto a device or, elastically, onto
+any mesh (``shardings=``).
 
 The port of the JAX package's ``train/checkpoint.py``, in its format:
 
@@ -99,24 +100,60 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 
 def restore(
-    ckpt_dir: str, step: int, tree_like: Any, device: str | torch.device | None = None
+    ckpt_dir: str,
+    step: int,
+    tree_like: Any,
+    device: str | torch.device | None = None,
+    shardings: Any = None,
 ) -> dict:
-    """The checkpoint at ``step`` in the structure of ``tree_like``, as
-    tensors on ``device`` (``None`` means the CUDA device), each leaf in its
-    stored dtype."""
-    dev = resolve_device(device)
+    """The checkpoint at ``step`` in the structure of ``tree_like``, each leaf
+    in its stored dtype: tensors on ``device`` (``None`` means the CUDA
+    device), or, with ``shardings``, DTensors. ``shardings`` is a tree of
+    ``models.common.NamedSharding`` in the same structure (``sharding_tree``
+    gives one): the elastic restore, which places each leaf on that mesh
+    whatever mesh wrote the checkpoint (a checkpoint holds whole arrays, so
+    every rank cuts its own shard and nothing is sent). Pass ``device`` or
+    ``shardings``, not both."""
+    if device is not None and shardings is not None:
+        raise ValueError("restore: pass device= or shardings=, not both")
+    dev = resolve_device(device) if shardings is None else torch.device("cpu")
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     paths = [p for p, _ in leaves(tree_like)]
     with np.load(os.path.join(path, "arrays.npz")) as data:
         if len(paths) != len(data.files):
             raise ValueError(f"checkpoint has {len(data.files)} leaves, expected {len(paths)}")
         flat = [torch.from_numpy(data[str(i)]).to(dev) for i in range(len(paths))]
+    if shardings is not None:
+        flat = [_place(x, _at(shardings, p)) for p, x in zip(paths, flat)]
     return _unflatten(paths, flat)
 
 
-def restore_latest(ckpt_dir: str, tree_like: Any, device: str | torch.device | None = None):
-    """(tree, step) of the newest complete checkpoint, or (None, None)."""
+def _at(tree: Any, path: tuple[str, ...]) -> Any:
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _place(x: torch.Tensor, sharding) -> torch.Tensor:
+    """A whole leaf -> its DTensor on ``sharding.mesh`` (this rank's shard)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distrib.sharding import mesh_device
+
+    return distribute_tensor(
+        x.to(mesh_device(sharding.mesh)), sharding.mesh, sharding.placements, src_data_rank=None
+    )
+
+
+def restore_latest(
+    ckpt_dir: str,
+    tree_like: Any,
+    device: str | torch.device | None = None,
+    shardings: Any = None,
+):
+    """(tree, step) of the newest complete checkpoint, or (None, None);
+    ``device`` and ``shardings`` as ``restore`` takes them."""
     step = latest_step(ckpt_dir)
     if step is None:
         return None, None
-    return restore(ckpt_dir, step, tree_like, device), step
+    return restore(ckpt_dir, step, tree_like, device, shardings), step

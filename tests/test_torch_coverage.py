@@ -8,6 +8,12 @@ below, which gives the reason and, where there is one, what the port does in
 its place. The allowlist must not go stale: each entry names a reference
 function that still exists, that the port still lacks, and, where it names
 a counterpart, a file (and name) of the port that exists.
+
+The same holds one level down, for parameters: every parameter of a public
+reference function or method that has a counterpart must be a parameter of
+the counterpart, or have an entry in ``PARAMS_NOT_PORTED``, which gives the
+reason and, where there is one, the counterpart's parameter that takes its
+place. That allowlist must not go stale either.
 """
 
 from __future__ import annotations
@@ -124,6 +130,70 @@ NOT_PORTED: dict[str, tuple[str, str | None]] = {
                                                 "models/common.py:leaves"),
 }
 
+_KEY = "a jax.random key; torch cannot reproduce its streams, so the port takes draws or a seed"
+_BLOCK = "a Pallas block size; no tile size is a user mode (the CUDA kernels pick their tiles)"
+_PARAM_IMPL = "the Pallas/XLA impl switch; the port dispatches by device only"
+_IDS = "the segment ids, named ids"
+_UNREAD = "the reference accepts it and never reads it (src/repro/models/attention.py)"
+
+
+def _each(reason: str, counterpart: str | None, *keys: str) -> dict:
+    return {key: (reason, counterpart) for key in keys}
+
+
+# "module:function:param" -> (reason, the counterpart's parameter or None)
+PARAMS_NOT_PORTED: dict[str, tuple[str, str | None]] = {
+    "common.py:l2_normalize:axis": ("torch names the reduced dimension dim", "dim"),
+    **_each(_IDS, "ids", "common.py:segment_sum:segment_ids",
+            "common.py:segment_min:segment_ids", "common.py:bincount:segment_ids"),
+    **_each(_PARAM_IMPL, None, *(f"{f}:impl" for f in (
+        "core/bkc.py:bkc_fit", "core/bkc.py:bkc", "core/bkc.py:bkc_fit_stream",
+        "core/bkc.py:bkc_stream", "core/buckshot.py:phase1_from_sample",
+        "core/buckshot.py:buckshot_phase1", "core/buckshot.py:buckshot_fit",
+        "core/buckshot.py:buckshot", "core/buckshot.py:buckshot_stream",
+        "core/hac.py:boruvka_mst", "core/hac.py:single_link_labels_boruvka",
+        "core/kmeans.py:kmeans_step", "core/kmeans.py:kmeans_step_bounded",
+        "core/kmeans.py:kmeans_fit", "core/kmeans.py:kmeans", "core/kmeans.py:assign_batch",
+        "core/kmeans.py:kmeans_fit_stream", "core/kmeans.py:kmeans_stream",
+        "core/microcluster.py:build_microclusters", "distrib/cluster.py:kmeans_distributed",
+        "distrib/cluster.py:kmeans_distributed_stream", "distrib/cluster.py:bkc_distributed",
+        "distrib/cluster.py:bkc_distributed_stream", "distrib/cluster.py:buckshot_distributed",
+        "distrib/cluster.py:buckshot_distributed_stream",
+        "distrib/hac_parallel.py:boruvka_mst_distributed",
+        "distrib/hac_parallel.py:single_link_labels_distributed",
+        "kernels/ops.py:assign_argmax", "kernels/ops.py:assign_stats",
+        "kernels/ops.py:assign_stats_chunked", "kernels/ops.py:build_center_index",
+        "kernels/ops.py:assign_stats_bounded", "kernels/ops.py:assign_stats_bounded_chunked",
+        "kernels/ops.py:label_stats", "kernels/ops.py:best_edge", "kernels/ops.py:sim_best_edge",
+        "kernels/ops.py:component_best_edge", "kernels/ops.py:flash_decode"))),
+    **_each(_BLOCK, None, "core/hac.py:boruvka_mst:block", "kernels/ops.py:sim_best_edge:block"),
+    **_each(_KEY, "generator", *(f"{f}:key" for f in (
+        "core/bkc.py:bkc", "core/bkc.py:bkc_stream", "core/buckshot.py:buckshot",
+        "core/buckshot.py:buckshot_stream", "core/kmeans.py:init_random_centers",
+        "core/kmeans.py:kmeans", "core/kmeans.py:kmeans_stream",
+        "core/sampling.py:sample_indices", "core/sampling.py:reservoir_sample_stream",
+        "models/common.py:materialize", "models/common.py:materialize_stacked",
+        "models/registry.py:Model.init_params", "models/registry.py:make_batch"))),
+    **_each(_KEY, "seed", *(f"{f}:key" for f in (
+        "distrib/cluster.py:sample_rows_distributed", "distrib/cluster.py:buckshot_distributed",
+        "distrib/cluster.py:reservoir_sample_distributed_stream",
+        "distrib/cluster.py:buckshot_distributed_stream",
+        "serve/cluster_service.py:ClusterService.fit"))),
+    **_each("the rank's uniforms are drawn by the caller and passed in; their count is "
+            "the rank's row count", "u",
+            "core/sampling.py:local_top_s:key", "core/sampling.py:local_top_s:n_local"),
+    "distrib/engine.py:ring_sweep:axes_sizes": (
+        "the ring's axes are given as process groups, whose sizes they carry", "groups"),
+    "distrib/hac_parallel.py:boruvka_mst_distributed:prewarm": (_WARM, None),
+    "distrib/sharding.py:make_flat_mesh:n_devices": (
+        "the mesh spans the process group's world; its size is the world size", None),
+    "resilience/checkpoint.py:carry_from_host:device_put": (
+        "a device, where the reference takes a placement function", "device"),
+    **_each(_UNREAD, None, "models/attention.py:cache_attention:kv_positions",
+            "models/attention.py:cache_attention:q_position",
+            "models/attention.py:cache_attention:window"),
+}
+
 
 def _defined(path: Path) -> set[str]:
     """Top-level def and class names of a module."""
@@ -184,3 +254,71 @@ PORT_ONLY = {"interop.py", "kernels/_build.py", "launch/op_costs.py", "launch/ra
 def test_every_port_module_mirrors_a_reference_module_or_is_listed():
     ported = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     assert sorted(ported - set(_modules())) == sorted(PORT_ONLY)
+
+
+def _signatures(path: Path) -> dict[str, list[str]]:
+    """Parameter names of a module's public top-level defs and of the public
+    methods (and ``__init__``/``__call__``) of its public classes, keyed
+    ``name`` or ``Class.method``; ``*args``/``**kw`` keep their stars."""
+
+    def names(fn) -> list[str]:
+        a = fn.args
+        out = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+        out += [f"*{a.vararg.arg}"] if a.vararg else []
+        return out + ([f"**{a.kwarg.arg}"] if a.kwarg else [])
+
+    def public(name: str) -> bool:
+        return not name.startswith("_") or name in ("__init__", "__call__")
+
+    funcs = (ast.FunctionDef, ast.AsyncFunctionDef)
+    out: dict[str, list[str]] = {}
+    for n in ast.parse(path.read_text()).body:
+        if isinstance(n, funcs) and public(n.name):
+            out[n.name] = names(n)
+        elif isinstance(n, ast.ClassDef) and not n.name.startswith("_"):
+            out.update({f"{n.name}.{m.name}": names(m) for m in n.body
+                        if isinstance(m, funcs) and public(m.name)})
+    return out
+
+
+def _missing_params(module: str) -> set[str]:
+    """``module:function:param`` of each reference parameter whose function
+    has a counterpart that lacks it (a counterpart's ``**kw`` takes any)."""
+    port = PORT / module
+    if not port.exists():
+        return set()
+    ours = _signatures(port)
+    out = set()
+    for func, params in _signatures(REF / module).items():
+        if func not in ours:
+            continue
+        have = {p.lstrip("*") for p in ours[func]}
+        if any(p.startswith("**") for p in ours[func]):
+            params = [p for p in params if p.startswith("*")]
+        out |= {f"{module}:{func}:{p.lstrip('*')}" for p in params if p.lstrip("*") not in have}
+    return out
+
+
+@pytest.mark.parametrize("module", _modules())
+def test_every_reference_parameter_has_a_counterpart_or_a_reason(module):
+    unlisted = sorted(k for k in _missing_params(module) if k not in PARAMS_NOT_PORTED)
+    assert not unlisted, (
+        f"the port's counterparts in src/repro_torch/{module} lack these parameters of the "
+        f"reference's: {unlisted}; port each or add it to PARAMS_NOT_PORTED with its reason")
+
+
+# the modes the port has; none of them may be excused
+PORTED_MODES = {"margin", "groups", "iters", "check_every", "shardings"}
+
+
+def test_the_parameter_allowlist_names_what_exists():
+    for key, (reason, counterpart) in PARAMS_NOT_PORTED.items():
+        module, func, param = key.split(":")
+        assert param not in PORTED_MODES, f"{key}: the port has this mode"
+        ref = _signatures(REF / module) if (REF / module).exists() else {}
+        assert func in ref and param in {p.lstrip("*") for p in ref[func]}, f"{key}: gone"
+        assert key in _missing_params(module), f"{key}: the port has it now; drop the entry"
+        assert reason, key
+        if counterpart is not None:
+            assert counterpart in _signatures(PORT / module)[func], (
+                f"{key}: the port's {func} has no parameter {counterpart}")

@@ -2477,3 +2477,80 @@ def test_lm_train_resumes_bitwise_on_card(card, tmp_path):
                  (full.opt_state["v"], resumed.opt_state["v"])):
         for (_, x), (_, y) in zip(leaves(a), leaves(b), strict=True):
             assert torch.equal(x, y)
+
+
+# ------------------------------------------- the reference's parameter-level modes
+
+
+def margin_case(rng, n, k, d, card, rows):
+    """Integer rows near integer centers (every similarity and sum exact, f32
+    or bf16 rows), weights 0-2, and valid carried bounds whose gaps sit
+    around the margins: the plain full sweep's, with lo lowered to hi + g,
+    g in {5e-5, 5e-3, 0.5, 2}, where the row's gap allows it."""
+    c = rng.integers(-4, 5, size=(k, d)).astype(np.float32)
+    c[k - 1] = c[0]  # loses every tie to center 0: an empty cluster
+    x = c[rng.integers(0, k, size=n)] + rng.integers(-1, 2, size=(n, d))
+    x, centers = interop.data(x, card), interop.data(c, card)
+    if rows == "bf16":
+        x, centers = x.bfloat16(), centers.bfloat16()
+    w = _ints(rng, (n,), 0, 2, card)
+    full = ref.assign_stats_bounded(x.float(), centers.float(), *ops.bounds_identity(n, card),
+                                    torch.zeros((k,), device=card), w)
+    g = torch.tensor([5e-5, 5e-3, 0.5, 2.0], device=card)[
+        torch.from_numpy(rng.integers(0, 4, size=n)).to(card)]
+    lo = torch.where(full[7] - full[8] > 2 * g, full[8] + g, full[7])
+    return x, centers, w, ops.Bounds(full[6], lo, full[8])
+
+
+@pytest.mark.parametrize("margin", [0.0, 1e-2, float("inf")], ids=["0", "1e-2", "inf"])
+@pytest.mark.parametrize("rows", ["f32", "bf16"])
+@pytest.mark.parametrize("k", [17, 130, 800])
+def test_bounded_margin_matches_plain(card, margin, rows, k):
+    """The kernels take the plain version's margin: a row prunes when
+    lo' > hi' + margin, a slab is swept for a row when its bound reaches the
+    row's best - margin. Every output but hi equals the plain version's at
+    the same margin (hi an upper bound, exact where pruned), and the labels
+    and statistics equal assign_stats'; at inf nothing prunes, every slab is
+    swept and all ten outputs equal the plain version's. In id order and
+    through a center index."""
+    rng = np.random.default_rng(k + 7 * (rows == "bf16"))
+    n, d = 1000, 40
+    x, centers, w, bounds = margin_case(rng, n, k, d, card, rows)
+    zero = torch.zeros((k,), device=card)
+    for perm in (None, ops.build_center_index(centers.float()).perm):
+        got = _twice(lambda: assign_stats_bounded_cuda(x, centers, *bounds, zero, w, perm=perm,
+                                                        margin=margin))
+        want = ref.assign_stats_bounded(x.float(), centers.float(), *bounds, zero, w,
+                                        margin=margin)
+        _check_bounded(got, want, k)
+        _same_bits(got[:6], assign_stats_cuda(x, centers, w))
+        if margin == float("inf"):
+            assert not got[9].any()
+            _equal(got, want)
+        else:
+            assert got[9].any() and not got[9].all()
+
+
+@pytest.mark.parametrize("iters", [0, 1, 3])
+@pytest.mark.parametrize("groups", [1, 3, 8, "k", "k+5"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_build_center_index_groups_iters_on_the_kernels(card, groups, iters, dtype):
+    """build_center_index(groups=, iters=) runs its mini-Lloyd on the card's
+    assign_argmax (iters + 1 launches) and label_stats (iters): perm and
+    group_of equal the plain version's (the same call on a CPU copy); at
+    groups >= k the identity, with no launch."""
+    rng = np.random.default_rng(11 + iters)
+    k, d = 200, 48
+    blobs = rng.normal(size=(12, d)) * 3.0
+    c = blobs[rng.integers(0, 12, size=k)] + rng.normal(size=(k, d))
+    c = torch.from_numpy((c / np.linalg.norm(c, axis=1, keepdims=True)).astype(np.float32))
+    c = c.to(dtype)
+    g = {"k": k, "k+5": k + 5}.get(groups, groups)
+    ops.reset_launch_counts()
+    got = ops.build_center_index(c.to(card), groups=g, iters=iters)
+    counts = ops.launch_counts()
+    want = ops.build_center_index(c, groups=g, iters=iters)
+    assert torch.equal(got.perm.cpu(), want.perm)
+    assert torch.equal(got.group_of.cpu(), want.group_of)
+    launched = (0, 0) if g >= k else (iters + 1, iters)
+    assert (counts["assign_argmax"], counts["label_stats"]) == launched

@@ -19,6 +19,7 @@ from __future__ import annotations
 import sys
 import threading
 import time
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -396,12 +397,65 @@ def test_df_stream_equals_the_jax_package(corpus, chunk):
     assert float(n) == float(jn) == N
 
 
+def _logged(st, passes: list) -> CorpusStream:
+    """``st`` whose every pass appends the crc32 of each chunk's rows to a
+    new list in ``passes`` (read in place, no copy)."""
+
+    def chunks():
+        crcs: list[int] = []
+        passes.append(crcs)
+        for ch in st.chunks():
+            crcs.append(zlib.crc32(np.ascontiguousarray(stream.host(ch.x))))
+            yield ch
+
+    return CorpusStream(chunks, n=st.n, dim=st.dim, chunk=st.chunk)
+
+
+def _tfidf_mismatch(got, want, counts, passes, df_n, restream) -> str:
+    """What a streamed-against-resident tf-idf mismatch looked like: the
+    first differing elements with their ulp distance, pass 1's (df, n)
+    against the resident's, whether the two passes over the stream read the
+    same rows, and whether streaming again gives the resident's bits (a
+    difference that does not recur points at the memory, not the data)."""
+    g32, w32 = got.view(np.int32), want.view(np.int32)
+    bad = np.argwhere(g32 != w32)
+    first = ", ".join(
+        f"({r}, {c}): {got[r, c]!r} vs {want[r, c]!r}, {int(g32[r, c]) - int(w32[r, c])} ulp"
+        for r, c in bad[:8])
+    df, n = (_np(t) for t in df_n[0]) if df_n else (None, None)
+    rdf = _np(tfidf.document_frequency(torch.from_numpy(counts)))
+    df_note = "not recorded" if df is None else (
+        f"equal to the resident's: {np.array_equal(df, rdf)}, terms differing "
+        f"{np.nonzero(df != rdf)[0].tolist()[:16]}; n {float(n)!r} against {counts.shape[0]}")
+    read = (f"chunk crc32 by pass: {passes}; the passes read the same rows: "
+            f"{len(passes) >= 2 and passes[0] == passes[1]}")
+    again = restream()
+    return (f"{len(bad)} of {got.size} elements differ, in rows "
+            f"{sorted(set(bad[:, 0].tolist()))[:16]}; first {first}\n"
+            f"pass 1's df: {df_note}\n{read}\n"
+            f"streamed again, equal to the resident: {again.tobytes() == want.tobytes()}")
+
+
 @pytest.mark.parametrize("chunk", [97, 128, 600])
-def test_tfidf_stream_equals_resident_tfidf_bit_for_bit(corpus, chunk):
-    st, _ = synth.stream_corpus(N, vocab=D, n_topics=TOPICS, seed=SEED, chunk=chunk)
-    got = tfidf.tfidf_stream(st, device="cpu").materialize()
+def test_tfidf_stream_equals_resident_tfidf_bit_for_bit(corpus, chunk, monkeypatch):
+    passes: list = []
+    df_n: list = []
+    df_stream = tfidf.df_stream
+
+    def kept_df_stream(*a, **kw):
+        df_n.append(df_stream(*a, **kw))
+        return df_n[-1]
+
+    monkeypatch.setattr(tfidf, "df_stream", kept_df_stream)
+
+    def streamed():
+        st, _ = synth.stream_corpus(N, vocab=D, n_topics=TOPICS, seed=SEED, chunk=chunk)
+        return tfidf.tfidf_stream(_logged(st, passes), device="cpu").materialize()
+
+    got = streamed()
     want = _np(tfidf.tfidf(torch.from_numpy(corpus[0])))
-    assert got.tobytes() == want.tobytes()
+    assert got.tobytes() == want.tobytes(), _tfidf_mismatch(
+        got, want, corpus[0], passes, df_n, streamed)
 
 
 def test_tfidf_stream_bits_hold_beside_other_passes_and_thread_counts(corpus):
